@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+GPU. Run from the repository root: ``python3 chip_smoke.py``.
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+  0. build — every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
+     (one nvcc per source, all started together), with ptxas's report;
+  1. kernels — K1 (``expert_quant_matmul_grouped``) and K2
+     (``expert_quant_matmul``) at OLMoE-1B-7B shapes, "4/2" and "4/0",
+     held against their plain PyTorch versions on the same CUDA inputs;
+     times (CUDA events, median), bound, plain and library times;
+  2. reference — greedy tokens of the engine on the card equal the plain
+     path's on the CPU for a reduced f32 OLMoE;
+  3. serve — full-width OLMoE-1B-7B ("4/2", random weights from a seeded
+     CUDA generator, quantized on the card): ``generate_batch`` over 8
+     ragged requests on 4 slots, then one ``generate``; the launch counts
+     of both kernels are read around these calls and checked.
+
+The last lines are the card's name and power limit (nvidia-smi), one JSON
+line describing every kernel, and ``{"ok": true, "device": {...}}``.
+Exits non-zero without a result when there is no CUDA device or when the
+repository's sources are not beside this file.
+"""
+import json
+import subprocess
+import sys
+import time
+import warnings
+from collections import Counter
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+TIMED_RUNS = 25
+SOURCE = "src/repro_torch/kernels/quant_matmul/csrc/"
+REPLACES = "src/repro/kernels/quant_matmul/expert_quant_matmul.py:"
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _median_ms(fn, runs: int, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def _kernel_cases(cfg, dev):
+    """K1/K2 cases at the main path's shapes; returns per-kernel records."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.models.layers.moe import _capacity
+    from repro_torch.quant.qtensor import MixedPrecisionWeights
+    from repro_torch.quant.quantize import dequantize_tensor
+
+    e, gs = cfg.num_experts, cfg.dymoe.group_size
+    cap_solo = _capacity(cfg, 512)                       # 80
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = {"gate_up": (cfg.d_model, cfg.expert_d_ff),   # (K, N)
+              "down": (cfg.expert_d_ff, cfg.d_model)}
+    stores = {}
+    for name, (k, n) in shapes.items():
+        w = torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5
+        mp = MixedPrecisionWeights.build(w.to(torch.bfloat16), 4, 2, gs)
+        deq = {p: dequantize_tensor(q.packed, q.scales, q.bits, gs,
+                                    torch.bfloat16)
+               for p, q in (("high", mp.high), ("low", mp.low))}
+        stores[name] = (mp, deq)
+        del w
+
+    def qbytes(q, experts):
+        return experts * (q.packed[0].numel() + q.scales[0].numel() * 4)
+
+    records = {"expert_quant_matmul_grouped": [], "expert_quant_matmul": []}
+    for name, (k, n) in shapes.items():
+        mp, deq = stores[name]
+        for mix in ("4/2", "4/0"):
+            lo = mp.low if mix == "4/2" else None
+            lo_p = lo.packed if lo is not None else None
+            lo_s = lo.scales if lo is not None else None
+            # ---- K1: decode regions (cap 4, 8) and an admission wave
+            for region, cap in (("decode", 4), ("decode", 8),
+                                ("wave", 4 * cap_solo)):
+                m = 2 * cap if lo is not None else cap
+                counts_h = rng.integers(0, cap + 1, (e, 2)).astype(np.int32)
+                counts_h[0, 0], counts_h[1, 0] = 0, cap   # empty and full
+                if lo is None:
+                    counts_h[:, 1] = 0
+                x = torch.randn((e, m, k), generator=gen, device=dev
+                                ).to(torch.bfloat16)
+                for i in range(e):       # the dispatch's zero-fill contract
+                    x[i, counts_h[i, 0]:cap] = 0
+                    if lo is not None:
+                        x[i, cap + counts_h[i, 1]:] = 0
+                counts = torch.from_numpy(counts_h).to(dev)
+                args = (x, mp.high.packed, mp.high.scales, lo_p, lo_s,
+                        counts)
+                kw = dict(cap_hi=cap, hi_bits=4, lo_bits=2 if lo else 0,
+                          group_size=gs)
+                plain = km.PLAIN["expert_quant_matmul_grouped"]
+                got32 = km.expert_quant_matmul_grouped_cuda(
+                    *args, out_dtype=torch.float32, **kw)
+                ref32 = plain(*args, out_dtype=torch.float32, **kw)
+                got = km.expert_quant_matmul_grouped_cuda(*args, **kw)
+                ref = plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = _check(got32, ref32, got, ref)
+                for i in range(e):
+                    assert not got[i, counts_h[i, 0]:cap].any(), "dead hi"
+                    if lo is not None:
+                        assert not got[i, cap + counts_h[i, 1]:].any(), \
+                            "dead lo"
+                wm = np.minimum(counts_h, [cap, cap if lo is not None
+                                           else 0])
+                live_rows = int(wm.sum())
+                n_hi = int((wm[:, 0] > 0).sum())
+                n_lo = int((wm[:, 1] > 0).sum())
+                nbytes = (qbytes(mp.high, n_hi)
+                          + (qbytes(lo, n_lo) if lo is not None else 0)
+                          + live_rows * k * 2 + e * m * n * 2)
+                flops = 2.0 * live_rows * k * n
+                w_cat = torch.cat([deq["high"], deq["low"]]) \
+                    if lo is not None else deq["high"]
+                xs = x.reshape(e, 2, cap, k).transpose(0, 1).reshape(
+                    2 * e, cap, k) if lo is not None else x
+                records["expert_quant_matmul_grouped"].append(_time_case(
+                    f"{name} {mix} {region} cap={cap}",
+                    lambda: km.expert_quant_matmul_grouped_cuda(*args, **kw),
+                    lambda: plain(*args, **kw),
+                    lambda: torch.bmm(xs, w_cat), err, nbytes, flops))
+            # ---- K2: solo admission prefill, M = _capacity(cfg, 512)
+            m = cap_solo
+            x = torch.randn((e, m, k), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            crit_h = (rng.random(e) < 0.5).astype(np.int32)
+            crit = torch.from_numpy(crit_h).to(dev)
+            args = (x, mp.high.packed, mp.high.scales, lo_p, lo_s, crit)
+            kw = dict(hi_bits=4, lo_bits=2 if lo else 0, group_size=gs)
+            plain = km.PLAIN["expert_quant_matmul"]
+            got32 = km.expert_quant_matmul_cuda(*args,
+                                                out_dtype=torch.float32, **kw)
+            ref32 = plain(*args, out_dtype=torch.float32, **kw)
+            got = km.expert_quant_matmul_cuda(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = _check(got32, ref32, got, ref)
+            if lo is None:
+                assert not got[crit_h == 0].any(), "4/0 sub-critical not 0"
+            n_run = int(crit_h.sum()) if lo is None else e
+            nbytes = (qbytes(mp.high, int(crit_h.sum()))
+                      + (qbytes(lo, e - int(crit_h.sum())) if lo else 0)
+                      + n_run * m * k * 2 + e * m * n * 2)
+            flops = 2.0 * n_run * m * k * n
+            w_sel = torch.where(crit.bool()[:, None, None], deq["high"],
+                                deq["low"] if lo is not None
+                                else torch.zeros_like(deq["high"]))
+            records["expert_quant_matmul"].append(_time_case(
+                f"{name} {mix} solo M={m}",
+                lambda: km.expert_quant_matmul_cuda(*args, **kw),
+                lambda: plain(*args, **kw),
+                lambda: torch.bmm(x, w_sel), err, nbytes, flops))
+    return records
+
+
+def _check(got32, ref32, got, ref) -> float:
+    """f32 out: |Δ| <= 5e-4·(1 + |ref|) against the plain version (the
+    kernel sums K in another order than the library matmul); bf16 out (the
+    path's dtype): exactly the kernel's f32 result rounded to bf16, as the
+    plain version's bf16 out is its f32 result rounded. Returns max |Δ|."""
+    import torch
+    d32 = (got32 - ref32).abs()
+    assert torch.all(d32 <= 5e-4 * (1 + ref32.abs())), \
+        f"kernel vs plain (f32 out): max |d| {d32.max().item()}"
+    assert torch.equal(got, got32.to(got.dtype)), "bf16 out != bf16(f32 out)"
+    assert torch.equal(ref, ref32.to(ref.dtype))
+    return float(d32.max().item())
+
+
+def _time_case(label, kernel, plain, library, err, nbytes, flops):
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = flops / F32_FLOP_PER_S * 1e3
+    rec = dict(case=label, max_abs_err=err,
+               ms=_median_ms(kernel, TIMED_RUNS),
+               plain_ms=_median_ms(plain, 5, warmup=1),
+               library_ms=_median_ms(library, 10),
+               bound_ms=max(bound_b, bound_o),
+               bound_by="bytes" if bound_b >= bound_o else "operations",
+               bytes=nbytes, flops=flops)
+    print("  " + json.dumps(rec), flush=True)
+    return rec
+
+
+# -------------------------------------------------------------- reference
+
+
+def _reference_phase(dev):
+    """Greedy tokens on the card (K1/K2) equal the plain path's on the CPU
+    for a reduced f32 OLMoE, in "4/2" and "4/0"."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, Request
+
+    base = get_config("olmoe_1b_7b").reduced()
+    params = init_params(base, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, base.vocab_size, int(s))], max_new_tokens=int(m))
+        for s, m in ((9, 6), (17, 11), (5, 8), (12, 20))]
+    for low_bits in (2, 0):
+        cfg = dataclasses.replace(base, dymoe=dataclasses.replace(
+            base.dymoe, low_bits=low_bits))
+        cpu = [r.tokens for r in DyMoEEngine(cfg, params, device="cpu")
+               .generate_batch(reqs, num_slots=2)]
+        gpu = [r.tokens for r in DyMoEEngine(cfg, params, device=dev)
+               .generate_batch(reqs, num_slots=2)]
+        assert gpu == cpu, f"card tokens {gpu} != CPU plain tokens {cpu}"
+        print(f"reference: reduced olmoe f32 4/{low_bits}, {len(reqs)} "
+              f"requests, card tokens == CPU plain tokens "
+              f"({sum(map(len, gpu))} tokens)", flush=True)
+
+
+# ------------------------------------------------------------------ serve
+
+
+def _serve_phase(dev):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, EngineConfig, Request
+
+    cfg = get_config("olmoe_1b_7b")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    engine = DyMoEEngine(cfg, params, EngineConfig(decode_chunk=16),
+                         device=dev)
+    torch.cuda.synchronize()
+    print(f"serve: olmoe_1b_7b {cfg.dymoe.high_bits}/{cfg.dymoe.low_bits} "
+          f"init+quantize {time.perf_counter() - t0:.1f}s, "
+          f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, cfg.vocab_size, int(rng.integers(64, 513)))],
+        max_new_tokens=int(rng.integers(16, 49))) for _ in range(8)]
+    solo_req = reqs[3]
+
+    torch.cuda.reset_peak_memory_stats()
+    km.reset_launch_counts()                       # main path starts here
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        out = engine.generate_batch(reqs, num_slots=4)
+        torch.cuda.synchronize()
+        batch_wall = time.perf_counter() - t0
+        torch.cuda.set_sync_debug_mode("default")
+    batch_stats = dict(engine.last_stats)
+    k1_batch = km.LAUNCHES["expert_quant_matmul_grouped"]
+    k2_batch = km.LAUNCHES["expert_quant_matmul"]
+    t0 = time.perf_counter()
+    solo = engine.generate(solo_req)
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    launches = dict(km.LAUNCHES)                   # main path ends here
+    solo_stats = dict(engine.last_stats)
+    peak = torch.cuda.max_memory_allocated()
+    profiled = _profile_decode(engine, [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+    n_tok = sum(len(r.tokens) for r in out)
+    for r, q in zip(out, reqs):
+        assert len(r.tokens) == q.max_new_tokens, (len(r.tokens), q)
+        assert all(0 <= v < cfg.vocab_size for v in r.tokens)
+    assert len(solo.tokens) == solo_req.max_new_tokens
+    k1_expect = 3 * L * (batch_stats["decode_steps"]
+                         + batch_stats["waves_batched"])
+    assert k1_batch == k1_expect, (k1_batch, k1_expect, batch_stats)
+    assert k2_batch == 3 * L * batch_stats["waves_solo"], (k2_batch,
+                                                           batch_stats)
+    k2_solo = launches["expert_quant_matmul"] - k2_batch
+    k1_solo = launches["expert_quant_matmul_grouped"] - k1_batch
+    assert k2_solo >= 3 * L and k1_solo == 3 * L * solo_stats["decode_steps"]
+    # where the batch run synchronized with the card (file:line counts)
+    sync_at = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs
+                      if "synchroniz" in str(w.message))
+    summary = dict(
+        requests=len(reqs), prompt_tokens=[q.prompt_len for q in reqs],
+        new_tokens=[len(r.tokens) for r in out], batch_wall_s=batch_wall,
+        batch_decode_tok_per_s=(n_tok - len(reqs)) / batch_wall,
+        wall_s=[r.wall_s for r in out],
+        queue_wait_s=[r.queue_wait_s for r in out],
+        decode_wall_s=[r.decode_wall_s for r in out], batch=batch_stats,
+        host_syncs_in_batch=dict(sync_at), solo_wall_s=solo_wall,
+        solo_tokens=len(solo.tokens), solo=solo_stats,
+        solo_matches_batch_row=solo.tokens == out[3].tokens,
+        k1_launches=launches["expert_quant_matmul_grouped"],
+        k2_launches=launches["expert_quant_matmul"],
+        k1_expected_batch=k1_expect,
+        max_memory_allocated_gib=peak / 2**30, profile=profiled)
+    print("serve: " + json.dumps(summary), flush=True)
+    return launches
+
+
+def _profile_decode(engine, activities) -> dict:
+    """Where the time of one request goes: a 64-token solo admission and
+    one 16-step decode chunk, timed once plain and once under
+    torch.profiler. Device busy = the sum of the CUDA kernels' device time
+    (one stream, so they do not overlap); idle share = 1 - busy / wall."""
+    import torch
+    from repro_torch.serving import Request
+    from torch.profiler import profile
+
+    req = Request(prompt_tokens=list(range(1, 65)), max_new_tokens=17)
+    engine.generate(req)                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate(req)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        engine.generate(req)
+        torch.cuda.synchronize()
+        wall_traced = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(
+        wall_ms=wall * 1e3, decode_ms_per_step=res.decode_wall_s * 1e3 / 16,
+        traced_wall_ms=wall_traced * 1e3, device_busy_ms=busy_us / 1e3,
+        idle_share=1 - busy_us / 1e6 / wall_traced,
+        kernel_launches=sum(e.count for e in kernels),
+        top_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
+                          count=e.count) for e in top])
+
+
+def main() -> int:
+    if sys.argv[1:]:
+        print("usage: python3 chip_smoke.py  (takes no arguments; runs "
+              "every phase)", file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one",
+              file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "serving" / "engine.py").is_file():
+        print(f"chip_smoke: {src}/repro_torch is missing; run this script "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = _smi()
+    print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    logs = _build.build_all(ptxas_verbose=True)
+    print(f"build: {len(logs)} libraries in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {name}: {line.strip()}")
+
+    records = _kernel_cases(get_config("olmoe_1b_7b"), dev)
+    _reference_phase(dev)
+    launches = _serve_phase(dev)
+
+    kernels = []
+    for name, src_file, line in (
+            ("expert_quant_matmul_grouped", "expert_quant_matmul_grouped.cu",
+             271),
+            ("expert_quant_matmul", "expert_quant_matmul.cu", 158)):
+        cases = records[name]
+        head = cases[0]
+        assert launches[name] > 0, f"{name} never launched"
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCE + src_file,
+            replaces=f"{REPLACES}{line}", launches=launches[name],
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], case=head["case"],
+            cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+                   for c in cases]))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

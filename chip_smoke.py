@@ -9,12 +9,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (``expert_quant_matmul``) at OLMoE-1B-7B shapes, "4/2" and "4/0",
      held against their plain PyTorch versions on the same CUDA inputs;
      times (CUDA events, median), bound, plain and library times;
-  2. reference — greedy tokens of the engine on the card equal the plain
+  2. kernel API — K3 (``quant_matmul``) at OLMoE-1B-7B's dense projection
+     shape and K4 + K5 (``flash_fwd``, ``key_mass``) at its full attention
+     width, held against their plain versions and timed as in phase 1;
+     then the public entry points ``repro_torch.kernels.quant_matmul`` and
+     ``flash_attention_with_scores`` on one layer of a full-width
+     OLMoE-1B-7B and a 512-token prompt, with the launch counts of K3-K5
+     read around these calls: the op's mass must equal the model's own
+     Eq. 1 importance from ``attention_train``;
+  3. reference — greedy tokens of the engine on the card equal the plain
      path's on the CPU for a reduced f32 OLMoE;
-  3. serve — full-width OLMoE-1B-7B ("4/2", random weights from a seeded
+  4. serve — full-width OLMoE-1B-7B ("4/2", random weights from a seeded
      CUDA generator, quantized on the card): ``generate_batch`` over 8
      ragged requests on 4 slots, then one ``generate``; the launch counts
-     of both kernels are read around these calls and checked.
+     of K1 and K2 are read around these calls and checked.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -33,8 +41,31 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TIMED_RUNS = 25
-SOURCE = "src/repro_torch/kernels/quant_matmul/csrc/"
-REPLACES = "src/repro/kernels/quant_matmul/expert_quant_matmul.py:"
+# kernel -> (CUDA source, the Pallas function it replaces as file:line, the
+# one PyTorch call timed beside it as "library_ms" or None)
+KERNELS = {
+    "expert_quant_matmul_grouped": (
+        "src/repro_torch/kernels/quant_matmul/csrc/"
+        "expert_quant_matmul_grouped.cu",
+        "src/repro/kernels/quant_matmul/expert_quant_matmul.py:271",
+        "bf16 torch.bmm on weights dequantized beforehand"),
+    "expert_quant_matmul": (
+        "src/repro_torch/kernels/quant_matmul/csrc/expert_quant_matmul.cu",
+        "src/repro/kernels/quant_matmul/expert_quant_matmul.py:158",
+        "bf16 torch.bmm on weights dequantized beforehand"),
+    "quant_matmul": (
+        "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
+        "src/repro/kernels/quant_matmul/quant_matmul.py:78",
+        "bf16 torch.matmul on weights dequantized beforehand"),
+    "flash_fwd": (
+        "src/repro_torch/kernels/attn_scores/csrc/flash_fwd.cu",
+        "src/repro/kernels/attn_scores/attn_scores.py:103",
+        "scaled_dot_product_attention(is_causal=True) in the inputs' "
+        "dtype; it returns no lse"),
+    "key_mass": (
+        "src/repro_torch/kernels/attn_scores/csrc/key_mass.cu",
+        "src/repro/kernels/attn_scores/attn_scores.py:141", None),
+}
 
 
 def _smi() -> str:
@@ -203,12 +234,164 @@ def _time_case(label, kernel, plain, library, err, nbytes, flops):
     rec = dict(case=label, max_abs_err=err,
                ms=_median_ms(kernel, TIMED_RUNS),
                plain_ms=_median_ms(plain, 5, warmup=1),
-               library_ms=_median_ms(library, 10),
+               library_ms=(_median_ms(library, 10) if library is not None
+                           else None),
                bound_ms=max(bound_b, bound_o),
                bound_by="bytes" if bound_b >= bound_o else "operations",
                bytes=nbytes, flops=flops)
     print("  " + json.dumps(rec), flush=True)
     return rec
+
+
+# -------------------------------------------------------------- kernel API
+
+
+def _attn_check(got, ref, what) -> float:
+    """f32 attention outputs: |Δ| <= 1e-4·(1 + |ref|) against the plain
+    version (the kernels sum in another order). Returns max |Δ|."""
+    import torch
+    d = (got - ref).abs()
+    assert torch.all(d <= 1e-4 * (1 + ref.abs())), \
+        f"{what}: kernel vs plain max |d| {d.max().item()}"
+    return float(d.max().item())
+
+
+def _api_cases(cfg, dev):
+    """K3 at the dense projection shape (K = N = d_model, as wq/wo) and
+    K4 + K5 at full attention width, against their plain versions on the
+    same CUDA inputs; returns per-kernel records."""
+    import torch
+    from repro_torch.kernels.attn_scores import attn_scores as am
+    from repro_torch.kernels.quant_matmul import quant_matmul as qm
+    from repro_torch.quant.qtensor import QuantizedTensor
+    from repro_torch.quant.quantize import dequantize_tensor
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    k = n = cfg.d_model
+    gs = cfg.dymoe.group_size
+    records = {"quant_matmul": [], "flash_fwd": [], "key_mass": []}
+    plain = qm.PLAIN["quant_matmul"]
+    for bits in (4, 2, 8):
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+             ).to(torch.bfloat16)
+        qt = QuantizedTensor.quantize(w, bits, gs)
+        w_deq = dequantize_tensor(qt.packed, qt.scales, bits, gs,
+                                  torch.bfloat16)
+        kw = dict(bits=bits, group_size=gs)
+        for m in (1, 16, 512):
+            x = torch.randn((m, k), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            args = (x, qt.packed, qt.scales)
+            got32 = qm.quant_matmul_cuda(*args, out_dtype=torch.float32, **kw)
+            ref32 = plain(*args, out_dtype=torch.float32, **kw)
+            got = qm.quant_matmul_cuda(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = _check(got32, ref32, got, ref)
+            nbytes = (qt.packed.numel() + qt.scales.numel() * 4 + m * k * 2
+                      + m * n * 2)
+            records["quant_matmul"].append(_time_case(
+                f"{bits}-bit K={k} N={n} M={m}",
+                lambda: qm.quant_matmul_cuda(*args, **kw),
+                lambda: plain(*args, **kw),
+                lambda: torch.matmul(x, w_deq), err, nbytes,
+                2.0 * m * k * n))
+    h, d = cfg.num_heads, cfg.head_dim
+    # f32 at two lengths, and bf16 as the model's layer hands them over
+    for s, dt in ((512, torch.float32), (4096, torch.float32),
+                  (512, torch.bfloat16)):
+        q, kk, v = (torch.randn((h, s, d), generator=gen, device=dev
+                                ).to(dt) for _ in range(3))
+        out, lse = am.flash_fwd_cuda(q, kk, v, causal=True)
+        mass = am.key_mass_cuda(q, kk, lse, causal=True)
+        torch.cuda.synchronize()
+        rout, rlse = am.PLAIN["flash_fwd"](q, kk, v, causal=True)
+        rmass = am.PLAIN["key_mass"](q, kk, lse, causal=True)
+        err4 = max(_attn_check(out, rout, f"flash_fwd out S={s}"),
+                   _attn_check(lse, rlse, f"flash_fwd lse S={s}"))
+        err5 = _attn_check(mass, rmass, f"key_mass S={s}")
+        sums = mass.sum(dim=1)
+        assert torch.all((sums - s).abs() <= 1e-5 * s), \
+            f"key_mass: head sums {sums.tolist()} != S={s}"
+        del rout, rlse, rmass
+        pairs = s * (s + 1) / 2                  # visible (query, key) pairs
+        el = q.element_size()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        label = f"causal H={h} S={s} D={d} {str(dt)[6:]}"
+        records["flash_fwd"].append(_time_case(
+            label, lambda: am.flash_fwd_cuda(q, kk, v, causal=True),
+            lambda: am.PLAIN["flash_fwd"](q, kk, v, causal=True),
+            lambda: sdpa(q[None], kk[None], v[None], is_causal=True),
+            err4, h * s * (3 * d * el + 4 * d + 4), 4.0 * h * d * pairs))
+        records["key_mass"].append(_time_case(
+            label, lambda: am.key_mass_cuda(q, kk, lse, causal=True),
+            lambda: am.PLAIN["key_mass"](q, kk, lse, causal=True),
+            None, err5, h * s * (2 * d * el + 8), 2.0 * h * d * pairs))
+        del q, kk, v, out, lse, mass
+    torch.cuda.empty_cache()
+    return records
+
+
+def _api_phase(cfg, dev):
+    """The public kernel entry points on one layer of a full-width
+    OLMoE-1B-7B (seeded CUDA generator) and one 512-token prompt with no
+    padding: ``quant_matmul`` projects the layer's normed hidden states
+    through its 4-bit ``wq`` (prefill rows and one decode row), and
+    ``flash_attention_with_scores`` takes the layer's q/k/v. Its mass must
+    equal ``attention_train``'s Eq. 1 importance. Returns the K3-K5 launch
+    counts of these calls."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import flash_attention_with_scores, \
+        quant_matmul
+    from repro_torch.kernels.attn_scores import attn_scores as am
+    from repro_torch.kernels.quant_matmul import quant_matmul as qm
+    from repro_torch.models.layers import attention as tattn
+    from repro_torch.models.layers.norms import rmsnorm
+    from repro_torch.models.model import _index_tree, init_params
+    from repro_torch.quant.qtensor import QuantizedTensor
+
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    params = init_params(cfg1, torch.Generator(device=dev).manual_seed(2))
+    s = 512
+    tokens = torch.randint(1, cfg.vocab_size, (1, s), device=dev,
+                           generator=torch.Generator(device=dev
+                                                     ).manual_seed(3))
+    lp = _index_tree(params["layers"], 0)
+    hid = rmsnorm(lp["norm1"], params["embed"][tokens], cfg.norm_eps)
+    qt = QuantizedTensor.quantize(lp["attn"]["wq"], cfg.dymoe.high_bits,
+                                  cfg.dymoe.group_size)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    q, k, v = tattn._project_qkv(lp["attn"], cfg1, hid, pos)
+    _, imp, _ = tattn.attention_train(lp["attn"], cfg1, hid,
+                                      want_token_importance=True)
+    torch.cuda.synchronize()
+
+    qm.reset_launch_counts()                       # main path starts here
+    am.reset_launch_counts()
+    y = quant_matmul(hid, qt, out_dtype=torch.float32)
+    y1 = quant_matmul(hid[:, -1:], qt, out_dtype=torch.float32)
+    _, mass = flash_attention_with_scores(
+        q[0].reshape(cfg.num_heads, s, cfg.head_dim), k[0], v[0])
+    torch.cuda.synchronize()
+    launches = {**qm.LAUNCHES, **am.LAUNCHES}      # main path ends here
+
+    plain = qm.PLAIN["quant_matmul"]
+    kw = dict(bits=qt.bits, group_size=qt.group_size,
+              out_dtype=torch.float32)
+    ref = plain(hid[0], qt.packed, qt.scales, **kw)
+    for got, want in ((y[0], ref), (y1[0], ref[-1:])):
+        assert torch.all((got - want).abs() <= 5e-4 * (1 + want.abs())), \
+            "quant_matmul entry point vs plain"
+    err = _attn_check(mass, imp[0], "flash_attention_with_scores mass vs "
+                      "attention_train importance")
+    assert abs(float(mass.sum()) - s) <= 1e-5 * s
+    print(f"api: olmoe_1b_7b layer 0, {s}-token prompt: quant_matmul "
+          f"{tuple(y.shape)} + decode row; flash_attention_with_scores mass "
+          f"== attention_train Eq. 1 importance (max |d| {err:.3g}); "
+          f"launches {launches}", flush=True)
+    return launches
 
 
 # -------------------------------------------------------------- reference
@@ -386,7 +569,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.configs import get_config
-    from repro_torch.kernels.quant_matmul import _build
+    from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -403,25 +586,28 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    records = _kernel_cases(get_config("olmoe_1b_7b"), dev)
+    cfg = get_config("olmoe_1b_7b")
+    records = _kernel_cases(cfg, dev)
+    t0 = time.perf_counter()
+    records.update(_api_cases(cfg, dev))
+    launches = _api_phase(cfg, dev)
+    print(f"api: phase {time.perf_counter() - t0:.1f}s", flush=True)
     _reference_phase(dev)
-    launches = _serve_phase(dev)
+    launches.update(_serve_phase(dev))
 
     kernels = []
-    for name, src_file, line in (
-            ("expert_quant_matmul_grouped", "expert_quant_matmul_grouped.cu",
-             271),
-            ("expert_quant_matmul", "expert_quant_matmul.cu", 158)):
+    for name, (source, replaces, library) in KERNELS.items():
         cases = records[name]
         head = cases[0]
         assert launches[name] > 0, f"{name} never launched"
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE + src_file,
-            replaces=f"{REPLACES}{line}", launches=launches[name],
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], case=head["case"],
+            library_ms=head["library_ms"], library=library,
+            case=head["case"],
             cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
                    for c in cases]))

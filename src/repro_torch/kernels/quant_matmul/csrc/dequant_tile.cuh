@@ -1,5 +1,5 @@
-// Shared block routine of the two packed-expert matmul kernels
-// (expert_quant_matmul_grouped.cu, expert_quant_matmul.cu).
+// Shared block routine of the packed-weight matmul kernels
+// (expert_quant_matmul_grouped.cu, expert_quant_matmul.cu, quant_matmul.cu).
 //
 // One thread block owns one (expert, precision region, BN-column tile) of
 // y = x @ dequant(packed, scales) and walks the region's LIVE rows in

@@ -22,6 +22,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels._build import load, raise_on_error
 from repro_torch.kernels.quant_matmul import ref
 
 __all__ = ["expert_quant_matmul_grouped_cuda", "expert_quant_matmul_cuda",
@@ -78,11 +79,6 @@ def _check_common(name, x, out_dtype, group_size):
                          f"K % group_size == 0 (K={k}, gs={group_size})")
 
 
-def _raise_on(name: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-
-
 def expert_quant_matmul_grouped_cuda(
         x: torch.Tensor, hi_packed: torch.Tensor, hi_scales: torch.Tensor,
         lo_packed: Optional[torch.Tensor], lo_scales: Optional[torch.Tensor],
@@ -90,8 +86,6 @@ def expert_quant_matmul_grouped_cuda(
         group_size: int, out_dtype=torch.bfloat16) -> torch.Tensor:
     """K1: one launch over the combined (E, cap_hi + cap_lo, K) buffer.
     ``counts`` (E, 2) int32 live-row watermarks, read on the device."""
-    from repro_torch.kernels.quant_matmul._build import load
-
     name = "expert_quant_matmul_grouped"
     _check_common(name, x, out_dtype, group_size)
     e, m, k = x.shape
@@ -112,15 +106,14 @@ def expert_quant_matmul_grouped_cuda(
     out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = load("eqm_grouped")
-    err = lib.eqm_grouped_launch(
+    err = load("eqm_grouped")(
         x.data_ptr(), _DT[x.dtype], hi_packed.data_ptr(),
         hi_scales.data_ptr(), lo_packed.data_ptr() if has_lo else None,
         lo_scales.data_ptr() if has_lo else None, counts.data_ptr(),
         out.data_ptr(), _DT[out_dtype], e, m, k, n, cap_hi, hi_bits,
         lo_bits if has_lo else 0, group_size,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(name, err)
+    raise_on_error(name, err)
     LAUNCHES[name] += 1
     return out
 
@@ -132,8 +125,6 @@ def expert_quant_matmul_cuda(
         group_size: int, out_dtype=torch.bfloat16) -> torch.Tensor:
     """K2: ``y[e] = x[e] @ dequant(critical[e] ? hi_e : lo_e)``;
     ``critical`` (E,) int32, read on the device."""
-    from repro_torch.kernels.quant_matmul._build import load
-
     name = "expert_quant_matmul"
     _check_common(name, x, out_dtype, group_size)
     e, m, k = x.shape
@@ -151,14 +142,13 @@ def expert_quant_matmul_cuda(
     out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = load("eqm_expert")
-    err = lib.eqm_expert_launch(
+    err = load("eqm_expert")(
         x.data_ptr(), _DT[x.dtype], hi_packed.data_ptr(),
         hi_scales.data_ptr(), lo_packed.data_ptr() if has_lo else None,
         lo_scales.data_ptr() if has_lo else None, critical.data_ptr(),
         out.data_ptr(), _DT[out_dtype], e, m, k, n, hi_bits,
         lo_bits if has_lo else 0, group_size,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(name, err)
+    raise_on_error(name, err)
     LAUNCHES[name] += 1
     return out

@@ -1,4 +1,4 @@
-"""Public entry points of the packed-expert matmuls (torch twin of
+"""Public entry points of the packed-weight matmuls (torch twin of
 ``repro/kernels/quant_matmul/ops.py``).
 
 Dispatch is by the device of ``x`` alone: a CUDA tensor launches the
@@ -11,21 +11,28 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import on_cuda
 from repro_torch.kernels.quant_matmul import ref
 from repro_torch.kernels.quant_matmul.expert_quant_matmul import \
     expert_quant_matmul_cuda, expert_quant_matmul_grouped_cuda
+from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul_cuda
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
 
-__all__ = ["expert_quant_matmul", "expert_quant_matmul_fixed",
+__all__ = ["quant_matmul", "expert_quant_matmul", "expert_quant_matmul_fixed",
            "expert_quant_matmul_grouped"]
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {x.device}")
+def quant_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``y = x @ dequant(qt)`` with x of shape (..., K) -> (..., N)."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    kw = dict(bits=qt.bits, group_size=qt.group_size, out_dtype=out_dtype)
+    if not on_cuda(x):
+        y = ref.quant_matmul_ref(x2, qt.packed, qt.scales, **kw)
+    else:
+        y = quant_matmul_cuda(x2.contiguous(), qt.packed, qt.scales, **kw)
+    return y.reshape(*lead, -1)
 
 
 def expert_quant_matmul_grouped(x: torch.Tensor,
@@ -47,7 +54,7 @@ def expert_quant_matmul_grouped(x: torch.Tensor,
               group_size=hi.group_size, out_dtype=out_dtype)
     lo_p = lo.packed if lo is not None else None
     lo_s = lo.scales if lo is not None else None
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return ref.expert_quant_matmul_grouped_ref(
             x, hi.packed, hi.scales, lo_p, lo_s, counts, **kw)
     if counts is None:
@@ -76,7 +83,7 @@ def expert_quant_matmul(x: torch.Tensor, weights: MixedPrecisionWeights,
               group_size=hi.group_size, out_dtype=out_dtype)
     lo_p = lo.packed if lo is not None else None
     lo_s = lo.scales if lo is not None else None
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return ref.expert_quant_matmul_ref(x, hi.packed, hi.scales, lo_p,
                                            lo_s, critical, **kw)
     return expert_quant_matmul_cuda(
@@ -89,7 +96,7 @@ def expert_quant_matmul_fixed(x: torch.Tensor, qt: QuantizedTensor, *,
     """Every expert at ``qt``'s one precision — the per-buffer entry point
     of the two-dispatch (``fused=False``) oracle path. On CUDA it is K2
     with an all-critical mask, as in the JAX package."""
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return ref.expert_quant_matmul_fixed_ref(
             x, qt.packed, qt.scales, bits=qt.bits, group_size=qt.group_size,
             out_dtype=out_dtype)

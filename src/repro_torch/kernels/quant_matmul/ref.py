@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the packed-expert matmul kernels (torch twin
-of ``repro/kernels/quant_matmul/ref.py``, written batched: the JAX
-package's ``custom_vmap`` row oracles exist only because it vmaps decode
-over slots, and the port writes the slot batch out instead).
+"""Plain PyTorch versions of the packed-weight matmul kernels (torch twin
+of ``repro/kernels/quant_matmul/ref.py``; the expert ones are written
+batched: the JAX package's ``custom_vmap`` row oracles exist only because
+it vmaps decode over slots, and the port writes the slot batch out
+instead).
 
 Each expert is streamed on its own — its codes dequantized to f32 and
 dotted with x widened to f32 — so no dense (E, K, N) weight is built.
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.quant.quantize import dequantize_tensor
 
-__all__ = ["expert_quant_matmul_ref", "expert_quant_matmul_fixed_ref",
+__all__ = ["quant_matmul_ref", "expert_quant_matmul_ref", "expert_quant_matmul_fixed_ref",
            "expert_quant_matmul_grouped_ref"]
 
 
@@ -24,6 +25,14 @@ def _mm(xe: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         bits: int, group_size: int) -> torch.Tensor:
     w = dequantize_tensor(packed, scales, bits, group_size, torch.float32)
     return xe.to(torch.float32) @ w
+
+
+def quant_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
+                     scales: torch.Tensor, *, bits: int, group_size: int,
+                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain K3: ``y = x @ dequant(W)``. x (M, K); packed (N, K/vpb);
+    scales (K/gs, N). Dequantized to f32, x widened to f32, f32 matmul."""
+    return _mm(x, packed, scales, bits, group_size).to(out_dtype)
 
 
 def expert_quant_matmul_ref(

@@ -29,6 +29,7 @@ from repro_torch.core.importance import heavy_hitter_mask, \
     select_critical, select_critical_rows, stable_topk
 from repro_torch.core.prefetch import predict_next_gates, prefetch_targets
 from repro_torch.core.schedule import critical_counts
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kv_cache import KVCache, fill_kv_cache, init_kv_cache
 from repro_torch.models.layers.attention import attention_decode, \
@@ -71,13 +72,15 @@ def _index_tree(tree, i):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
-    """Random parameters from ``generator`` (on ``device``), stacked along
-    a leading L dim with the JAX package's tree layout and init scales.
+    """Random parameters from ``generator`` (on ``device``; ``None`` takes
+    the generator's device), stacked along a leading L dim with the JAX
+    package's tree layout and init scales.
     Stacked weights are drawn layer by layer, so no full-depth f32
     temporary is built. (Torch RNG cannot reproduce ``jax.random``: tests
     bring JAX-made parameters across with ``repro_torch.params``.)"""
     cfg.validate()
     _check_supported(cfg)
+    device = resolve_device(generator.device if device is None else device)
     dt = _dtype(cfg)
     L, dm, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
     h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -343,8 +346,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None) -> Dict[str, KVCache]:
-    """Fresh stacked caches sized for ``seq_len`` context."""
+    """Fresh stacked caches sized for ``seq_len`` context (``device``
+    None means CUDA)."""
     _check_supported(cfg)
+    device = resolve_device(device)
     return {"layers": init_kv_cache(batch, cfg.num_kv_heads, seq_len,
                                     cfg.head_dim, _dtype(cfg), device,
                                     layers=cfg.num_layers)}

@@ -2,7 +2,8 @@
 
 ``from_reference(tree, device)`` turns the JAX package's params or
 qparams — given as nested dicts of numpy arrays — into the port's: numpy
-arrays become tensors on ``device`` (bf16 arrives as numpy's ``bfloat16``
+arrays become tensors on ``device`` (``None`` means CUDA, and raises where
+there is none: pass ``"cpu"`` for the CPU; bf16 arrives as numpy's ``bfloat16``
 extension dtype or as a uint16 view, and is reinterpreted bit for bit), a
 ``QuantizedTensor`` arrives as ``{packed, scales, bits, group_size, k}``
 and a ``MixedPrecisionWeights`` as ``{high, low}``. Stacked leading L dims
@@ -15,6 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
 
 __all__ = ["from_reference", "tensor_from_numpy"]
@@ -23,6 +25,7 @@ _QT_KEYS = {"packed", "scales", "bits", "group_size", "k"}
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
@@ -31,6 +34,7 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
 
 
 def from_reference(tree: Any, device=None) -> Any:
+    device = resolve_device(device)
     if isinstance(tree, dict):
         if set(tree) == _QT_KEYS:
             return QuantizedTensor(

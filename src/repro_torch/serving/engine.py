@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import _check_supported, quantize_model
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
@@ -40,22 +41,6 @@ class GenerationResult:
     decode_wall_s: Optional[float] = None  # first token on host -> result
     ttft_s: float = math.nan        # modeled edge TTFT: not ported yet
     tpot_s: float = math.nan        # modeled edge TPOT: not ported yet
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA; asking for CUDA without it raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: the engine runs on the GPU unless "
-                "the caller passes device='cpu' explicitly")
-        # true f32 for f32 work on the card (parity with the reference)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def to_device(tree, device: torch.device):

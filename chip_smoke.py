@@ -6,9 +6,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   0. build — every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
      (one nvcc per source, all started together), with ptxas's report;
   1. kernels — K1 (``expert_quant_matmul_grouped``) and K2
-     (``expert_quant_matmul``) at OLMoE-1B-7B shapes, "4/2" and "4/0",
-     held against their plain PyTorch versions on the same CUDA inputs;
-     times (CUDA events, median), bound, plain and library times;
+     (``expert_quant_matmul``) at OLMoE-1B-7B shapes, "4/2" and "4/0"
+     (K1 also with f32 activations), held against their plain PyTorch
+     versions on the same CUDA inputs; times (CUDA events, median), bounds,
+     plain and library times;
   2. kernel API — K3 (``quant_matmul``) at OLMoE-1B-7B's dense projection
      shape and K4 + K5 (``flash_fwd``, ``key_mass``) at its full attention
      width, held against their plain versions and timed as in phase 1;
@@ -40,6 +41,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+TC_FLOP_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
 TIMED_RUNS = 25
 # kernel -> (CUDA source, the Pallas function it replaces as file:line, the
 # one PyTorch call timed beside it as "library_ms" or None)
@@ -130,16 +132,23 @@ def _kernel_cases(cfg, dev):
             lo = mp.low if mix == "4/2" else None
             lo_p = lo.packed if lo is not None else None
             lo_s = lo.scales if lo is not None else None
-            # ---- K1: decode regions (cap 4, 8) and an admission wave
-            for region, cap in (("decode", 4), ("decode", 8),
-                                ("wave", 4 * cap_solo)):
+            # ---- K1: decode regions (cap 4, 8) and an admission wave with
+            # bf16 x (the full-width model's dtype); gate/up "4/2" also
+            # with f32 x and out (what a model in f32 runs)
+            k1_cases = [("decode", 4, torch.bfloat16),
+                        ("decode", 8, torch.bfloat16),
+                        ("wave", 4 * cap_solo, torch.bfloat16)]
+            if name == "gate_up" and mix == "4/2":
+                k1_cases += [("decode", 4, torch.float32),
+                             ("wave", 4 * cap_solo, torch.float32)]
+            for region, cap, xdt in k1_cases:
                 m = 2 * cap if lo is not None else cap
                 counts_h = rng.integers(0, cap + 1, (e, 2)).astype(np.int32)
                 counts_h[0, 0], counts_h[1, 0] = 0, cap   # empty and full
                 if lo is None:
                     counts_h[:, 1] = 0
                 x = torch.randn((e, m, k), generator=gen, device=dev
-                                ).to(torch.bfloat16)
+                                ).to(xdt)
                 for i in range(e):       # the dispatch's zero-fill contract
                     x[i, counts_h[i, 0]:cap] = 0
                     if lo is not None:
@@ -150,6 +159,7 @@ def _kernel_cases(cfg, dev):
                 kw = dict(cap_hi=cap, hi_bits=4, lo_bits=2 if lo else 0,
                           group_size=gs)
                 plain = km.PLAIN["expert_quant_matmul_grouped"]
+                el = x.element_size()    # x and the timed out: one dtype
                 got32 = km.expert_quant_matmul_grouped_cuda(
                     *args, out_dtype=torch.float32, **kw)
                 ref32 = plain(*args, out_dtype=torch.float32, **kw)
@@ -157,6 +167,7 @@ def _kernel_cases(cfg, dev):
                 ref = plain(*args, **kw)
                 torch.cuda.synchronize()
                 err = _check(got32, ref32, got, ref)
+                kw["out_dtype"] = xdt
                 for i in range(e):
                     assert not got[i, counts_h[i, 0]:cap].any(), "dead hi"
                     if lo is not None:
@@ -169,17 +180,20 @@ def _kernel_cases(cfg, dev):
                 n_lo = int((wm[:, 1] > 0).sum())
                 nbytes = (qbytes(mp.high, n_hi)
                           + (qbytes(lo, n_lo) if lo is not None else 0)
-                          + live_rows * k * 2 + e * m * n * 2)
+                          + live_rows * k * el + e * m * n * el)
                 flops = 2.0 * live_rows * k * n
-                w_cat = torch.cat([deq["high"], deq["low"]]) \
-                    if lo is not None else deq["high"]
+                w_cat = (torch.cat([deq["high"], deq["low"]])
+                         if lo is not None else deq["high"]).to(xdt)
                 xs = x.reshape(e, 2, cap, k).transpose(0, 1).reshape(
                     2 * e, cap, k) if lo is not None else x
                 records["expert_quant_matmul_grouped"].append(_time_case(
-                    f"{name} {mix} {region} cap={cap}",
+                    f"{name} {mix} {region} cap={cap}"
+                    + (" x f32" if xdt == torch.float32 else ""),
                     lambda: km.expert_quant_matmul_grouped_cuda(*args, **kw),
                     lambda: plain(*args, **kw),
-                    lambda: torch.bmm(xs, w_cat), err, nbytes, flops))
+                    lambda: torch.bmm(xs, w_cat), err, nbytes, flops,
+                    packed=True))
+                del w_cat
             # ---- K2: solo admission prefill, M = _capacity(cfg, 512)
             m = cap_solo
             x = torch.randn((e, m, k), generator=gen, device=dev
@@ -210,7 +224,8 @@ def _kernel_cases(cfg, dev):
                 f"{name} {mix} solo M={m}",
                 lambda: km.expert_quant_matmul_cuda(*args, **kw),
                 lambda: plain(*args, **kw),
-                lambda: torch.bmm(x, w_sel), err, nbytes, flops))
+                lambda: torch.bmm(x, w_sel), err, nbytes, flops,
+                packed=True))
     return records
 
 
@@ -228,9 +243,22 @@ def _check(got32, ref32, got, ref) -> float:
     return float(d32.max().item())
 
 
-def _time_case(label, kernel, plain, library, err, nbytes, flops):
+def _time_case(label, kernel, plain, library, err, nbytes, flops,
+               packed=False):
+    """One kernel case: CUDA-event medians of the kernel, its plain version
+    and the library call, and the least time the card could take.
+
+    ``packed`` (K1-K3): the products are of bf16 or f32 activations and
+    integer codes of at most 8 bits, exact on the bf16 tensor cores, so
+    ``bound_ms`` (also written as ``tc_bound_ms``) counts the FLOPs at the
+    bf16 dense rate. For f32 x the same count at that rate is a lower
+    limit too: an exact f32 product there takes three bf16 planes. The f32
+    CUDA-core figure, which K1-K3 were held to before K1 reached the
+    tensor cores, stays as ``f32_core_bound_ms``. K4/K5 are held to the
+    f32 CUDA-core rate."""
     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_o = flops / F32_FLOP_PER_S * 1e3
+    f32_o = flops / F32_FLOP_PER_S * 1e3
+    bound_o = flops / TC_FLOP_PER_S * 1e3 if packed else f32_o
     rec = dict(case=label, max_abs_err=err,
                ms=_median_ms(kernel, TIMED_RUNS),
                plain_ms=_median_ms(plain, 5, warmup=1),
@@ -239,6 +267,9 @@ def _time_case(label, kernel, plain, library, err, nbytes, flops):
                bound_ms=max(bound_b, bound_o),
                bound_by="bytes" if bound_b >= bound_o else "operations",
                bytes=nbytes, flops=flops)
+    if packed:
+        rec["tc_bound_ms"] = rec["bound_ms"]
+        rec["f32_core_bound_ms"] = max(bound_b, f32_o)
     print("  " + json.dumps(rec), flush=True)
     return rec
 
@@ -295,7 +326,7 @@ def _api_cases(cfg, dev):
                 lambda: qm.quant_matmul_cuda(*args, **kw),
                 lambda: plain(*args, **kw),
                 lambda: torch.matmul(x, w_deq), err, nbytes,
-                2.0 * m * k * n))
+                2.0 * m * k * n, packed=True))
     h, d = cfg.num_heads, cfg.head_dim
     # f32 at two lengths, and bf16 as the model's layer hands them over
     for s, dt in ((512, torch.float32), (4096, torch.float32),
@@ -585,6 +616,14 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    # K1's tile is sized to the register file: a toolchain that spills it
+    # fails here, not silently in its times (checked where this run built it)
+    if "eqm_grouped" in logs:
+        spills = [ln for ln in logs["eqm_grouped"].splitlines()
+                  if "spill" in ln]
+        assert spills and all("0 bytes spill stores, 0 bytes spill loads"
+                              in ln for ln in spills), \
+            f"eqm_grouped spills: {spills}"
 
     cfg = get_config("olmoe_1b_7b")
     records = _kernel_cases(cfg, dev)
@@ -607,9 +646,12 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=library,
+            **{k: head[k] for k in ("tc_bound_ms", "f32_core_bound_ms")
+               if k in head},
             case=head["case"],
             cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")}
+                                      "tc_bound_ms", "f32_core_bound_ms",
+                                      "bound_by", "library_ms") if k in c}
                    for c in cases]))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -43,7 +43,7 @@ class Lib:
 LIBS: Dict[str, Lib] = {
     "eqm_grouped": Lib(
         "quant_matmul", "expert_quant_matmul_grouped.cu",
-        ("dequant_tile.cuh",), "eqm_grouped_launch",
+        ("mma_tile.cuh",), "eqm_grouped_launch",
         (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
          _P)),
     "eqm_expert": Lib(

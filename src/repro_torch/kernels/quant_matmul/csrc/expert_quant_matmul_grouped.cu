@@ -1,4 +1,5 @@
-// K1: fused dual-precision grouped expert matmul with live-row watermarks.
+// K1: fused dual-precision grouped expert matmul with live-row watermarks,
+// on Hopper's tensor cores.
 //
 // Replaces the TPU kernel expert_quant_matmul_grouped_pallas
 // (src/repro/kernels/quant_matmul/expert_quant_matmul.py, bodies
@@ -7,67 +8,116 @@
 //   y[e, :cap_hi] = x[e, :cap_hi] @ dequant(hi_e)
 //   y[e, cap_hi:] = x[e, cap_hi:] @ dequant(lo_e)
 // Rows at or past the (expert, precision) watermark counts[e, p] (clipped
-// to the region's capacity) are written as zeros and cost no codes, no
-// activations and no FLOPs. "4/0" (no lo store) runs one precision group.
+// to the region's capacity) are written as exact zeros; their activations
+// and codes are never read. "4/0" (no lo store) runs one region.
 //
-// What bounds it on an H100: weight bandwidth. A decode region holds at
-// most live_cap rows (<= the slot count), far fewer than a tensor-core
-// tile, so each live (expert, precision) group must stream its codes
-// (1 MiB of 4-bit or 512 KiB of 2-bit codes plus 128 KiB of f32 scales per
-// OLMoE matrix) and reuse them for all its rows. The design: grid
-// (N / BN, E, P), one block per (column tile, expert, precision); the
-// watermark is read from device memory inside the block (no host sync, no
-// grid sized from it), dead groups only write zeros, and a live group's
-// codes are unpacked once per BM-row tile into shared memory and reused by
-// every row of it. Arithmetic is f32 on the CUDA cores (x widened to f32,
-// f32 accumulate), matching the reference's true-f32 dot; admission-wave
-// regions (hundreds of rows) are compute-heavy and would want wgmma.
-#include "dequant_tile.cuh"
+// What bounds it on an H100, and the design (mma_tile.cuh):
+//  * Decode (a region of at most a few live rows, cap 4-8) is bound by the
+//    code bytes (1 MiB of 4-bit or 512 KiB of 2-bit codes plus 128 KiB of
+//    scales per OLMoE matrix and expert). It wants many blocks and many
+//    bytes in flight: where no region holds more than 16 rows, blocks of
+//    one m16 tile (MT = 1: 128 registers a thread and 29-34 KiB of
+//    shared memory, so 4 blocks an SM), one per (128-column tile, expert,
+//    region): 1024-2048 blocks for OLMoE, each streaming its codes once
+//    through a 2-stage cp.async ring.
+//  * Admission waves (cap 320 rows per region) are bound by operations:
+//    exact bf16 mma.sync on the integer codes (three MMAs per step for f32
+//    x), 64-row tiles (MT = 4), so each code a block stages feeds 64 rows.
+//  * The rows split over a grid dimension sized from the capacity (shapes
+//    only): ceil(max(cap_hi, cap_lo) / (16 MT)) row tiles, not a row loop
+//    in the block. A loop would keep one block's accumulators for every row
+//    tile of a column tile or restage its codes per tile; the grid
+//    dimension puts the row tiles of one (column tile, expert) next to each
+//    other in launch order, so their code reads after the first hit L2. A
+//    tile at or past the watermark only writes its zeros and returns.
+// The watermark is read from device memory inside the block: no host sync.
+#include "mma_tile.cuh"
 
-namespace eqm {
+namespace eqm_mma {
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(THREADS)
+using namespace mmt;
+
+// MT = 1 (decode) is held to 128 registers a thread so 4 blocks fit an SM
+// (without spills); MT = 4 needs its 128 accumulator registers and more.
+template <typename Tin, int MT>
+__global__ void __launch_bounds__(THREADS, MT == 1 ? 4 : 1)
 grouped_kernel(const Tin* __restrict__ x, const uint8_t* __restrict__ hp,
                const float* __restrict__ hs, const uint8_t* __restrict__ lp,
                const float* __restrict__ ls, const int* __restrict__ counts,
-               Tout* __restrict__ out, int M, int K, int N, int cap_hi,
-               int hi_bits, int lo_bits, int gs) {
-  __shared__ Smem sm;
-  const int n0 = blockIdx.x * BN;
-  const int e = blockIdx.y;
-  const int p = blockIdx.z;           // 0: hi region, 1: lo region
+               void* __restrict__ out, int out_bf16, int M, int K, int N,
+               int cap_hi, int hi_bits, int lo_bits, int gs) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int regions = lp != nullptr ? 2 : 1;
+  const int e = blockIdx.z / regions;
+  const int p = blockIdx.z - e * regions;    // 0: hi region, 1: lo region
   const int cap = p == 0 ? cap_hi : M - cap_hi;
-  const int row0 = p == 0 ? 0 : cap_hi;
+  constexpr int BM = 16 * MT;
+  const int tile0 = blockIdx.x * BM;
+  if (tile0 >= cap) return;                  // past this region's capacity
+  const int rows = min(BM, cap - tile0);
   const int wm = max(0, min(counts[2 * e + p], cap));
+  const int live = max(0, min(wm - tile0, rows));
+  const int n0 = blockIdx.y * BN;
+  const size_t row_base = (size_t)e * M + (p == 0 ? 0 : cap_hi) + tile0;
+  const int ncols = min(BN, N - n0);
+  // dead rows of the tile: exact zeros (the output comes from torch.empty)
+  for (int i = threadIdx.x; i < (rows - live) * ncols; i += THREADS) {
+    const int r = live + i / ncols;
+    const size_t o = (row_base + r) * N + n0 + i % ncols;
+    if (out_bf16)
+      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(0.f);
+    else
+      static_cast<float*>(out)[o] = 0.f;
+  }
+  if (live == 0) return;
   const int bits = p == 0 ? hi_bits : lo_bits;
-  const uint8_t* packed = p == 0 ? hp : lp;
-  const float* scales = p == 0 ? hs : ls;
   const size_t kp = (size_t)K * bits / 8;
-  region_tile<Tin, Tout>(sm, x + ((size_t)e * M + row0) * K, wm, cap, K, N,
-                         packed + (size_t)e * N * kp,
-                         scales + (size_t)e * (K / gs) * N, bits, gs,
-                         out + ((size_t)e * M + row0) * N, n0);
+  const uint8_t* packed = (p == 0 ? hp : lp) + (size_t)e * N * kp;
+  const float* scales = (p == 0 ? hs : ls) + (size_t)e * (K / gs) * N;
+  const Tin* xt = x + row_base * K;
+  void* ot = out_bf16
+                 ? static_cast<void*>(static_cast<__nv_bfloat16*>(out) +
+                                      row_base * N)
+                 : static_cast<void*>(static_cast<float*>(out) + row_base * N);
+  if (bits == 4)
+    region_tile<Tin, 4, MT>(smem, xt, live, K, N, packed, scales, gs, ot,
+                        out_bf16, n0);
+  else if (bits == 2)
+    region_tile<Tin, 2, MT>(smem, xt, live, K, N, packed, scales, gs, ot,
+                        out_bf16, n0);
+  else
+    region_tile<Tin, 8, MT>(smem, xt, live, K, N, packed, scales, gs, ot,
+                        out_bf16, n0);
 }
 
-template <typename Tin, typename Tout>
-static void launch(const void* x, const void* hp, const void* hs,
-                   const void* lp, const void* ls, const void* counts,
-                   void* out, int E, int M, int K, int N, int cap_hi,
-                   int hi_bits, int lo_bits, int gs, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, E, lp != nullptr ? 2 : 1);
-  grouped_kernel<Tin, Tout><<<grid, THREADS, 0, stream>>>(
+template <typename Tin, int MT>
+static int launch(const void* x, const void* hp, const void* hs,
+                  const void* lp, const void* ls, const void* counts,
+                  void* out, int out_bf16, int E, int M, int K, int N,
+                  int cap_hi, int hi_bits, int lo_bits, int gs,
+                  cudaStream_t stream) {
+  constexpr int smem = smem_bytes<Tin, MT>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      grouped_kernel<Tin, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int regions = lp != nullptr ? 2 : 1;
+  const int cap_max = max(cap_hi, M - cap_hi);
+  dim3 grid((cap_max + 16 * MT - 1) / (16 * MT), (N + BN - 1) / BN,
+            E * regions);
+  grouped_kernel<Tin, MT><<<grid, THREADS, smem, stream>>>(
       static_cast<const Tin*>(x), static_cast<const uint8_t*>(hp),
       static_cast<const float*>(hs), static_cast<const uint8_t*>(lp),
-      static_cast<const float*>(ls), static_cast<const int*>(counts),
-      static_cast<Tout*>(out), M, K, N, cap_hi, hi_bits, lo_bits, gs);
+      static_cast<const float*>(ls), static_cast<const int*>(counts), out,
+      out_bf16, M, K, N, cap_hi, hi_bits, lo_bits, gs);
+  return (int)cudaGetLastError();
 }
 
-}  // namespace eqm
+}  // namespace eqm_mma
 
 // Plain C entry point for ctypes. x_bf16 / out_bf16 select bf16 (1) or f32
-// (0). lp/ls are null under "4/0". Returns cudaGetLastError() after the
-// launch (0 on success); the Python wrapper raises on anything else.
+// (0). lp/ls are null under "4/0". Returns the CUDA error of the launch (0
+// on success); the Python wrapper raises on anything else.
 extern "C" int eqm_grouped_launch(const void* x, int x_bf16, const void* hp,
                                   const void* hs, const void* lp,
                                   const void* ls, const void* counts,
@@ -75,18 +125,19 @@ extern "C" int eqm_grouped_launch(const void* x, int x_bf16, const void* hp,
                                   int K, int N, int cap_hi, int hi_bits,
                                   int lo_bits, int gs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && out_bf16)
-    eqm::launch<__nv_bfloat16, __nv_bfloat16>(x, hp, hs, lp, ls, counts, out,
-                                              E, M, K, N, cap_hi, hi_bits,
-                                              lo_bits, gs, s);
-  else if (x_bf16)
-    eqm::launch<__nv_bfloat16, float>(x, hp, hs, lp, ls, counts, out, E, M,
-                                      K, N, cap_hi, hi_bits, lo_bits, gs, s);
-  else if (out_bf16)
-    eqm::launch<float, __nv_bfloat16>(x, hp, hs, lp, ls, counts, out, E, M,
-                                      K, N, cap_hi, hi_bits, lo_bits, gs, s);
-  else
-    eqm::launch<float, float>(x, hp, hs, lp, ls, counts, out, E, M, K, N,
-                              cap_hi, hi_bits, lo_bits, gs, s);
-  return (int)cudaGetLastError();
+  // one m16 tile a block where no region holds more than 16 rows (decode)
+  const bool small = cap_hi <= 16 && M - cap_hi <= 16;
+  if (x_bf16)
+    return small ? eqm_mma::launch<__nv_bfloat16, 1>(
+                       x, hp, hs, lp, ls, counts, out, out_bf16, E, M, K, N,
+                       cap_hi, hi_bits, lo_bits, gs, s)
+                 : eqm_mma::launch<__nv_bfloat16, 4>(
+                       x, hp, hs, lp, ls, counts, out, out_bf16, E, M, K, N,
+                       cap_hi, hi_bits, lo_bits, gs, s);
+  return small ? eqm_mma::launch<float, 1>(x, hp, hs, lp, ls, counts, out,
+                                           out_bf16, E, M, K, N, cap_hi,
+                                           hi_bits, lo_bits, gs, s)
+               : eqm_mma::launch<float, 4>(x, hp, hs, lp, ls, counts, out,
+                                           out_bf16, E, M, K, N, cap_hi,
+                                           hi_bits, lo_bits, gs, s);
 }

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card: K1, K2 and K3, built from
+"""The port's CUDA kernels on the card: K1 (tensor cores, cases of its own
+in ``test_cuda_grouped_matches_plain``), K2 and K3, built from
 ``src/repro_torch/kernels/quant_matmul/csrc``, and K4 and K5, built from
 ``src/repro_torch/kernels/attn_scores/csrc``, against their plain PyTorch
 versions on the same CUDA inputs, at ragged shapes (S and M not multiples
@@ -70,6 +71,114 @@ def test_cuda_kernels_match_plain(lo):
         before["expert_quant_matmul_grouped"] + 1
     assert kmod.LAUNCHES["expert_quant_matmul"] == \
         before["expert_quant_matmul"] + 1
+
+
+def _grouped_case(dev, rng, hi, lo, cap, k, gs, x_dtype, n=200, e=4,
+                  row_scale=None, x_offset=0):
+    """One K1 call at f32 and bf16 out against the plain version. Expert 0
+    has no live hi row, expert 1 a full hi region (and, with a lo store,
+    the reverse), the rest random watermarks. x's dead rows hold NaN: the
+    kernel must not read them (the plain version gets them as zeros).
+    ``row_scale`` (M,) powers of two multiply x's rows; the tolerance is
+    then held in each row's own units (both outputs divided by its scale,
+    exactly), so a row at 2^-100 is checked as strictly as one at 1.
+    ``x_offset`` elements shift x's storage off its 16-byte alignment."""
+    w = torch.from_numpy(rng.standard_normal((e, k, n)).astype(
+        np.float32)).to(dev) * k ** -0.5
+    mp = MixedPrecisionWeights.build(w, hi, lo, gs)
+    m = 2 * cap if lo else cap
+    xh = rng.standard_normal((e, m, k)).astype(np.float32)
+    if row_scale is not None:
+        xh *= row_scale[None, :, None]
+    counts_h = rng.integers(0, cap + 1, (e, 2)).astype(np.int32)
+    counts_h[0] = (0, cap)
+    counts_h[1] = (cap, 0)
+    if not lo:
+        counts_h[:, 1] = 0
+    dead = np.zeros((e, m), dtype=bool)
+    for i in range(e):
+        dead[i, counts_h[i, 0]:cap] = True
+        if lo:
+            dead[i, cap + counts_h[i, 1]:] = True
+    x_nan = torch.from_numpy(np.where(dead[..., None], np.nan, xh)).to(
+        dev, x_dtype)
+    x_zero = torch.from_numpy(np.where(dead[..., None], 0.0, xh)).to(
+        dev, x_dtype)
+    if x_offset:
+        buf = torch.empty(x_nan.numel() + x_offset, dtype=x_dtype,
+                          device=dev)
+        buf[x_offset:].copy_(x_nan.flatten())
+        x_nan = buf[x_offset:].view(x_nan.shape)
+    counts = torch.from_numpy(counts_h).to(dev)
+    lo_p = mp.low.packed if lo else None
+    lo_s = mp.low.scales if lo else None
+    kw = dict(cap_hi=cap, hi_bits=hi, lo_bits=lo or 0, group_size=gs)
+    before = kmod.LAUNCHES["expert_quant_matmul_grouped"]
+    got32 = kmod.expert_quant_matmul_grouped_cuda(
+        x_nan, mp.high.packed, mp.high.scales, lo_p, lo_s, counts,
+        out_dtype=torch.float32, **kw)
+    assert kmod.LAUNCHES["expert_quant_matmul_grouped"] == before + 1
+    got16 = kmod.expert_quant_matmul_grouped_cuda(
+        x_nan, mp.high.packed, mp.high.scales, lo_p, lo_s, counts,
+        out_dtype=torch.bfloat16, **kw)
+    assert kmod.LAUNCHES["expert_quant_matmul_grouped"] == before + 2
+    torch.cuda.synchronize()
+    ref = kmod.PLAIN["expert_quant_matmul_grouped"](
+        x_zero, mp.high.packed, mp.high.scales, lo_p, lo_s, counts,
+        out_dtype=torch.float32, **kw)
+    g, r = got32, ref
+    if row_scale is not None:
+        rs = torch.from_numpy(row_scale).to(dev)[None, :, None]
+        g, r = got32 / rs, ref / rs
+    d = (g - r).abs()
+    assert torch.all(d <= 5e-4 * (1 + r.abs())), d.max().item()
+    assert torch.equal(got16, got32.to(torch.bfloat16))
+    dead_t = torch.from_numpy(dead).to(dev)
+    assert torch.all(got32[dead_t] == 0) and torch.all(got16[dead_t] == 0)
+    return got32, ref
+
+
+@pytest.mark.parametrize("k,gs", [(192, 64), (256, 16), (256, 128), (80, 16)])
+@pytest.mark.parametrize("cap", [1, 5, 37, 130])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+@pytest.mark.parametrize("hi,lo", [(4, 2), (4, None), (8, 4), (2, 2)],
+                         ids=["4/2", "4/0", "8/4", "2/2"])
+def test_cuda_grouped_matches_plain(hi, lo, x_dtype, cap, k, gs):
+    """K1 on the tensor cores against the plain version: f32 out within
+    5e-4·(1 + |ref|) (exact products, f32 sums in another order), bf16 out
+    exactly the f32 out rounded, dead rows exactly 0 though x's dead rows
+    hold NaN, one launch per call. Caps ragged against the 16-row MMA tile
+    and spanning more than one 64-row tile; N 200 is not a multiple of the
+    128-column tile; K 80 ends in a short 16-deep chunk, and its 2- and
+    4-bit code rows (20 and 40 bytes) are staged by 4-byte copies."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(hi * 1000 + (lo or 0) * 100 + cap + k + gs)
+    _grouped_case(dev, rng, hi, lo, cap, k, gs, x_dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+def test_cuda_grouped_unaligned_x(x_dtype):
+    """x one element past a 16-byte boundary is staged by plain loads
+    instead of 16-byte copies, with the same result."""
+    dev = _need_cuda()
+    _grouped_case(dev, np.random.default_rng(5), 4, 2, 37, 256, 64, x_dtype,
+                  x_offset=1)
+
+
+def test_cuda_grouped_f32_split_wide_range():
+    """f32 x whose rows span 2^-100 to 2^100: the three-plane bf16 split
+    keeps every product exact over the whole range (a bf16 x alone would
+    miss the 5e-4 tolerance by rounding each x to 8 bits)."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(11)
+    cap, k = 37, 256
+    exps = np.linspace(-100, 100, 2 * cap).round().astype(int)
+    scale = np.ldexp(1.0, exps).astype(np.float32)
+    got, _ = _grouped_case(dev, rng, 4, 2, cap, k, 64, torch.float32,
+                           row_scale=scale)
+    assert torch.isfinite(got).all()
 
 
 def test_cuda_wrappers_refuse_bad_inputs():

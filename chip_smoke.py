@@ -5,13 +5,15 @@ GPU. Run from the repository root: ``python3 chip_smoke.py``.
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. build — every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
      (one nvcc per source, all started together), with ptxas's report;
+     fails if K1, K2 or K3 (the tensor-core tile) spills;
   1. kernels — K1 (``expert_quant_matmul_grouped``) and K2
      (``expert_quant_matmul``) at OLMoE-1B-7B shapes, "4/2" and "4/0"
-     (K1 also with f32 activations), held against their plain PyTorch
-     versions on the same CUDA inputs; times (CUDA events, median), bounds,
-     plain and library times;
+     (K2 at the 512- and 64-token solo admissions; both also with f32
+     activations), held against their plain PyTorch versions on the same
+     CUDA inputs; times (CUDA events, median), bounds, plain and library
+     times;
   2. kernel API — K3 (``quant_matmul``) at OLMoE-1B-7B's dense projection
-     shape and K4 + K5 (``flash_fwd``, ``key_mass``) at its full attention
+     shape (also with f32 activations at M 512) and K4 + K5 (``flash_fwd``, ``key_mass``) at its full attention
      width, held against their plain versions and timed as in phase 1;
      then the public entry points ``repro_torch.kernels.quant_matmul`` and
      ``flash_attention_with_scores`` on one layer of a full-width
@@ -108,8 +110,11 @@ def _kernel_cases(cfg, dev):
 
     e, gs = cfg.num_experts, cfg.dymoe.group_size
     cap_solo = _capacity(cfg, 512)                       # 80
+    cap_64 = _capacity(cfg, 64)                          # 10
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    rng_new = np.random.default_rng(10)
+    gen_new = torch.Generator(device=dev).manual_seed(10)
     shapes = {"gate_up": (cfg.d_model, cfg.expert_d_ff),   # (K, N)
               "down": (cfg.expert_d_ff, cfg.d_model)}
     stores = {}
@@ -194,38 +199,50 @@ def _kernel_cases(cfg, dev):
                     lambda: torch.bmm(xs, w_cat), err, nbytes, flops,
                     packed=True))
                 del w_cat
-            # ---- K2: solo admission prefill, M = _capacity(cfg, 512)
-            m = cap_solo
-            x = torch.randn((e, m, k), generator=gen, device=dev
-                            ).to(torch.bfloat16)
-            crit_h = (rng.random(e) < 0.5).astype(np.int32)
-            crit = torch.from_numpy(crit_h).to(dev)
-            args = (x, mp.high.packed, mp.high.scales, lo_p, lo_s, crit)
-            kw = dict(hi_bits=4, lo_bits=2 if lo else 0, group_size=gs)
-            plain = km.PLAIN["expert_quant_matmul"]
-            got32 = km.expert_quant_matmul_cuda(*args,
-                                                out_dtype=torch.float32, **kw)
-            ref32 = plain(*args, out_dtype=torch.float32, **kw)
-            got = km.expert_quant_matmul_cuda(*args, **kw)
-            ref = plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = _check(got32, ref32, got, ref)
-            if lo is None:
-                assert not got[crit_h == 0].any(), "4/0 sub-critical not 0"
-            n_run = int(crit_h.sum()) if lo is None else e
-            nbytes = (qbytes(mp.high, int(crit_h.sum()))
-                      + (qbytes(lo, e - int(crit_h.sum())) if lo else 0)
-                      + n_run * m * k * 2 + e * m * n * 2)
-            flops = 2.0 * n_run * m * k * n
-            w_sel = torch.where(crit.bool()[:, None, None], deq["high"],
-                                deq["low"] if lo is not None
-                                else torch.zeros_like(deq["high"]))
-            records["expert_quant_matmul"].append(_time_case(
-                f"{name} {mix} solo M={m}",
-                lambda: km.expert_quant_matmul_cuda(*args, **kw),
-                lambda: plain(*args, **kw),
-                lambda: torch.bmm(x, w_sel), err, nbytes, flops,
-                packed=True))
+            # ---- K2: solo admission prefill, M = _capacity(cfg, 512), and
+            # the profiled 64-token request's, M = _capacity(cfg, 64); gate/up
+            # "4/2" also with f32 x and out (the reference phase's model)
+            k2_cases = [(cap_solo, torch.bfloat16), (cap_64, torch.bfloat16)]
+            if name == "gate_up" and mix == "4/2":
+                k2_cases.append((cap_solo, torch.float32))
+            for i, (m, xdt) in enumerate(k2_cases):
+                # added cases draw from generators of their own, so the
+                # first case's inputs and all later cases' stay as they were
+                g, r = (gen, rng) if i == 0 else (gen_new, rng_new)
+                x = torch.randn((e, m, k), generator=g, device=dev).to(xdt)
+                crit_h = (r.random(e) < 0.5).astype(np.int32)
+                crit = torch.from_numpy(crit_h).to(dev)
+                args = (x, mp.high.packed, mp.high.scales, lo_p, lo_s, crit)
+                kw = dict(hi_bits=4, lo_bits=2 if lo else 0, group_size=gs)
+                plain = km.PLAIN["expert_quant_matmul"]
+                el = x.element_size()    # x and the timed out: one dtype
+                got32 = km.expert_quant_matmul_cuda(
+                    *args, out_dtype=torch.float32, **kw)
+                ref32 = plain(*args, out_dtype=torch.float32, **kw)
+                got = km.expert_quant_matmul_cuda(*args, **kw)
+                ref = plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = _check(got32, ref32, got, ref)
+                kw["out_dtype"] = xdt
+                if lo is None:
+                    assert not got[crit_h == 0].any(), "4/0 sub-critical not 0"
+                n_run = int(crit_h.sum()) if lo is None else e
+                nbytes = (qbytes(mp.high, int(crit_h.sum()))
+                          + (qbytes(lo, e - int(crit_h.sum())) if lo else 0)
+                          + n_run * m * k * el + e * m * n * el)
+                flops = 2.0 * n_run * m * k * n
+                w_sel = torch.where(crit.bool()[:, None, None], deq["high"],
+                                    deq["low"] if lo is not None
+                                    else torch.zeros_like(deq["high"])
+                                    ).to(xdt)
+                records["expert_quant_matmul"].append(_time_case(
+                    f"{name} {mix} solo M={m}"
+                    + (" x f32" if xdt == torch.float32 else ""),
+                    lambda: km.expert_quant_matmul_cuda(*args, **kw),
+                    lambda: plain(*args, **kw),
+                    lambda: torch.bmm(x, w_sel), err, nbytes, flops,
+                    packed=True))
+                del w_sel
     return records
 
 
@@ -298,6 +315,7 @@ def _api_cases(cfg, dev):
     from repro_torch.quant.quantize import dequantize_tensor
 
     gen = torch.Generator(device=dev).manual_seed(1)
+    gen_new = torch.Generator(device=dev).manual_seed(11)   # added cases
     k = n = cfg.d_model
     gs = cfg.dymoe.group_size
     records = {"quant_matmul": [], "flash_fwd": [], "key_mass": []}
@@ -308,10 +326,13 @@ def _api_cases(cfg, dev):
         qt = QuantizedTensor.quantize(w, bits, gs)
         w_deq = dequantize_tensor(qt.packed, qt.scales, bits, gs,
                                   torch.bfloat16)
-        kw = dict(bits=bits, group_size=gs)
-        for m in (1, 16, 512):
-            x = torch.randn((m, k), generator=gen, device=dev
-                            ).to(torch.bfloat16)
+        # bf16 x at M 1, 16, 512; 4-bit also f32 x and out at M 512
+        cases = [(m, torch.bfloat16, gen) for m in (1, 16, 512)]
+        if bits == 4:
+            cases.append((512, torch.float32, gen_new))
+        for m, xdt, g in cases:
+            kw = dict(bits=bits, group_size=gs)
+            x = torch.randn((m, k), generator=g, device=dev).to(xdt)
             args = (x, qt.packed, qt.scales)
             got32 = qm.quant_matmul_cuda(*args, out_dtype=torch.float32, **kw)
             ref32 = plain(*args, out_dtype=torch.float32, **kw)
@@ -319,13 +340,17 @@ def _api_cases(cfg, dev):
             ref = plain(*args, **kw)
             torch.cuda.synchronize()
             err = _check(got32, ref32, got, ref)
-            nbytes = (qt.packed.numel() + qt.scales.numel() * 4 + m * k * 2
-                      + m * n * 2)
+            kw["out_dtype"] = xdt
+            el = x.element_size()
+            nbytes = (qt.packed.numel() + qt.scales.numel() * 4 + m * k * el
+                      + m * n * el)
+            w_lib = w_deq.to(xdt)
             records["quant_matmul"].append(_time_case(
-                f"{bits}-bit K={k} N={n} M={m}",
+                f"{bits}-bit K={k} N={n} M={m}"
+                + (" x f32" if xdt == torch.float32 else ""),
                 lambda: qm.quant_matmul_cuda(*args, **kw),
                 lambda: plain(*args, **kw),
-                lambda: torch.matmul(x, w_deq), err, nbytes,
+                lambda: torch.matmul(x, w_lib), err, nbytes,
                 2.0 * m * k * n, packed=True))
     h, d = cfg.num_heads, cfg.head_dim
     # f32 at two lengths, and bf16 as the model's layer hands them over
@@ -549,7 +574,9 @@ def _profile_decode(engine, activities) -> dict:
     """Where the time of one request goes: a 64-token solo admission and
     one 16-step decode chunk, timed once plain and once under
     torch.profiler. Device busy = the sum of the CUDA kernels' device time
-    (one stream, so they do not overlap); idle share = 1 - busy / wall."""
+    (one stream, so they do not overlap); idle share = 1 - busy / wall;
+    the eight largest kernels by device time, and every instantiation of
+    the port's packed matmuls (K1, K2) with its time and count."""
     import torch
     from repro_torch.serving import Request
     from torch.profiler import profile
@@ -569,12 +596,16 @@ def _profile_decode(engine, activities) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # the port's own kernels (K1-K3 instantiations), wherever they rank
+    ours = {e.key.split("(")[0].removeprefix("void "): dict(
+        ms=e.self_device_time_total / 1e3, count=e.count)
+        for e in kernels if "eqm_mma::" in e.key or "qm_mma::" in e.key}
     return dict(
         wall_ms=wall * 1e3, decode_ms_per_step=res.decode_wall_s * 1e3 / 16,
         traced_wall_ms=wall_traced * 1e3, device_busy_ms=busy_us / 1e3,
         idle_share=1 - busy_us / 1e6 / wall_traced,
-        kernel_launches=sum(e.count for e in kernels),
+        kernel_launches=sum(e.count for e in kernels), port_kernels=ours,
         top_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
                           count=e.count) for e in top])
 
@@ -616,14 +647,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
-    # K1's tile is sized to the register file: a toolchain that spills it
-    # fails here, not silently in its times (checked where this run built it)
-    if "eqm_grouped" in logs:
-        spills = [ln for ln in logs["eqm_grouped"].splitlines()
-                  if "spill" in ln]
-        assert spills and all("0 bytes spill stores, 0 bytes spill loads"
-                              in ln for ln in spills), \
-            f"eqm_grouped spills: {spills}"
+    # the tensor-core tile of K1-K3 is sized to the register file: a
+    # toolchain that spills it fails here, not silently in its times
+    # (checked where this run built them)
+    for name in ("eqm_grouped", "eqm_expert", "qm_dense"):
+        if name in logs:
+            spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
+            assert spills and all("0 bytes spill stores, 0 bytes spill loads"
+                                  in ln for ln in spills), \
+                f"{name} spills: {spills}"
 
     cfg = get_config("olmoe_1b_7b")
     records = _kernel_cases(cfg, dev)

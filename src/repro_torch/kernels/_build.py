@@ -47,11 +47,11 @@ LIBS: Dict[str, Lib] = {
         (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
          _P)),
     "eqm_expert": Lib(
-        "quant_matmul", "expert_quant_matmul.cu", ("dequant_tile.cuh",),
+        "quant_matmul", "expert_quant_matmul.cu", ("mma_tile.cuh",),
         "eqm_expert_launch",
         (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "qm_dense": Lib(
-        "quant_matmul", "quant_matmul.cu", ("dequant_tile.cuh",),
+        "quant_matmul", "quant_matmul.cu", ("mma_tile.cuh",),
         "qm_dense_launch", (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "attn_flash_fwd": Lib(
         "attn_scores", "flash_fwd.cu", ("attn_tile.cuh",),

@@ -1,65 +1,87 @@
 // K2: grouped expert matmul at a per-expert precision picked by a
-// critical mask read inside the kernel.
+// critical mask read inside the kernel, on Hopper's tensor cores.
 //
 // Replaces the TPU kernel expert_quant_matmul_pallas
 // (src/repro/kernels/quant_matmul/expert_quant_matmul.py, bodies
 // _dual_kernel and _skip_kernel). For x (E, M, K) and critical (E,):
 //   y[e] = x[e] @ dequant(critical[e] ? hi_e : lo_e)
 // The store an expert does not use is never read. Under "4/0" (no lo
-// store) a sub-critical expert's output is written as zeros without its
-// codes being unpacked.
+// store) a sub-critical expert's rows are written as exact zeros, and
+// neither its codes nor its x rows are read. Every row of a running
+// expert is live: the dispatch zero-fills the padded slots of its
+// capacity buffer, as the JAX package does.
 //
-// What bounds it on an H100: at the solo admission prefill's shapes
-// (M = _capacity(cfg, S) rows, 80 for a 512-token OLMoE prompt) each
-// expert's matmul is a skinny GEMM: 2*M*K*N FLOPs against K*N*bits/8 code
-// bytes, 4*M operations per 4-bit code byte (320 at M = 80), far above the
-// f32 CUDA-core ridge of about 20, so it is bound by operations (f32, since
-// the reference widens x to f32). The design: grid (N / BN, E), one block per (column
-// tile, expert); the mask is read from device memory inside the block (no
-// host sync), and the selected precision's codes are unpacked once per
-// BM-row tile into shared memory and reused by all rows of the tile, with
-// f32 accumulation (x widened to f32, as in the reference). Tensor cores
-// (wgmma) would lift the compute roof; that is later work.
-#include "dequant_tile.cuh"
+// What bounds it on an H100, and the design (mma_tile.cuh, as K1):
+//  * The solo admission prefill (M = _capacity(cfg, S) rows, 80 for a
+//    512-token OLMoE prompt) is a skinny GEMM per expert: 4*M operations
+//    per 4-bit code byte, 320 at M = 80, about the bf16 tensor-core ridge
+//    of 295, so bytes and operations bound it about equally. Exact bf16
+//    mma.sync on the integer codes (three MMAs per step for f32 x), row
+//    tiles of 64 (MT = 4) so each staged code feeds 64 rows. A ragged last
+//    tile of at most 16 rows (M = 80: 64 + 16) runs the one-m16 routine
+//    instead of issuing MMAs for 64 rows.
+//  * At M <= 16 (a 64-token admission, M = 10; the fixed-precision
+//    decode entry point) it is bound by the code bytes, as K1's decode:
+//    blocks of one m16 tile (MT = 1, 4 blocks an SM), 512-1024 blocks for
+//    OLMoE's 64 experts, each streaming its codes once through the 2-stage
+//    cp.async ring.
+//  * Grid (row tile, 128-column tile, expert), sized from shapes only; the
+//    row tiles of one (column tile, expert) run next to each other, so
+//    their code reads after the first hit L2. The mask is read from device
+//    memory inside the block: no host sync.
+#include "mma_tile.cuh"
 
-namespace eqm {
+namespace eqm_mma {
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(THREADS)
+using namespace mmt;
+
+template <typename Tin, int MT>
+__global__ void __launch_bounds__(THREADS, MT == 1 ? 4 : 1)
 expert_kernel(const Tin* __restrict__ x, const uint8_t* __restrict__ hp,
               const float* __restrict__ hs, const uint8_t* __restrict__ lp,
               const float* __restrict__ ls, const int* __restrict__ crit,
-              Tout* __restrict__ out, int M, int K, int N, int hi_bits,
-              int lo_bits, int gs) {
-  __shared__ Smem sm;
-  const int n0 = blockIdx.x * BN;
-  const int e = blockIdx.y;
+              void* __restrict__ out, int out_bf16, int M, int K, int N,
+              int hi_bits, int lo_bits, int gs) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int e = blockIdx.z;
+  const int tile0 = blockIdx.x * 16 * MT;
+  const int rows = min(16 * MT, M - tile0);
+  const int n0 = blockIdx.y * BN;
+  const size_t row_base = (size_t)e * M + tile0;
   const bool hi = crit[e] > 0;
-  const bool run = hi || lp != nullptr;
+  if (!hi && lp == nullptr) {                  // "4/0": skipped expert
+    zero_rows(out, out_bf16, row_base, rows, N, n0);
+    return;
+  }
   const int bits = hi ? hi_bits : lo_bits;
-  const uint8_t* packed = hi ? hp : lp;
-  const float* scales = hi ? hs : ls;
-  const size_t kp = run ? (size_t)K * bits / 8 : 0;
-  region_tile<Tin, Tout>(sm, x + (size_t)e * M * K, run ? M : 0, M, K, N,
-                         run ? packed + (size_t)e * N * kp : nullptr,
-                         run ? scales + (size_t)e * (K / gs) * N : nullptr,
-                         bits, gs, out + (size_t)e * M * N, n0);
+  const size_t kp = (size_t)K * bits / 8;
+  const uint8_t* packed = (hi ? hp : lp) + (size_t)e * N * kp;
+  const float* scales = (hi ? hs : ls) + (size_t)e * (K / gs) * N;
+  row_tile<Tin, MT>(bits, smem, x + row_base * K, rows, K, N, packed,
+                    scales, gs, out_at(out, out_bf16, row_base * N),
+                    out_bf16, n0);
 }
 
-template <typename Tin, typename Tout>
-static void launch(const void* x, const void* hp, const void* hs,
-                   const void* lp, const void* ls, const void* crit,
-                   void* out, int E, int M, int K, int N, int hi_bits,
-                   int lo_bits, int gs, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, E, 1);
-  expert_kernel<Tin, Tout><<<grid, THREADS, 0, stream>>>(
+template <typename Tin, int MT>
+static int launch(const void* x, const void* hp, const void* hs,
+                  const void* lp, const void* ls, const void* crit,
+                  void* out, int out_bf16, int E, int M, int K, int N,
+                  int hi_bits, int lo_bits, int gs, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<Tin, MT>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      expert_kernel<Tin, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((M + 16 * MT - 1) / (16 * MT), (N + BN - 1) / BN, E);
+  expert_kernel<Tin, MT><<<grid, THREADS, smem, stream>>>(
       static_cast<const Tin*>(x), static_cast<const uint8_t*>(hp),
       static_cast<const float*>(hs), static_cast<const uint8_t*>(lp),
-      static_cast<const float*>(ls), static_cast<const int*>(crit),
-      static_cast<Tout*>(out), M, K, N, hi_bits, lo_bits, gs);
+      static_cast<const float*>(ls), static_cast<const int*>(crit), out,
+      out_bf16, M, K, N, hi_bits, lo_bits, gs);
+  return (int)cudaGetLastError();
 }
 
-}  // namespace eqm
+}  // namespace eqm_mma
 
 // Plain C entry point for ctypes; see eqm_grouped_launch for the
 // conventions. crit is an int32 (E,) mask on the device.
@@ -70,18 +92,19 @@ extern "C" int eqm_expert_launch(const void* x, int x_bf16, const void* hp,
                                  int hi_bits, int lo_bits, int gs,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && out_bf16)
-    eqm::launch<__nv_bfloat16, __nv_bfloat16>(x, hp, hs, lp, ls, crit, out,
-                                              E, M, K, N, hi_bits, lo_bits,
-                                              gs, s);
-  else if (x_bf16)
-    eqm::launch<__nv_bfloat16, float>(x, hp, hs, lp, ls, crit, out, E, M, K,
-                                      N, hi_bits, lo_bits, gs, s);
-  else if (out_bf16)
-    eqm::launch<float, __nv_bfloat16>(x, hp, hs, lp, ls, crit, out, E, M, K,
-                                      N, hi_bits, lo_bits, gs, s);
-  else
-    eqm::launch<float, float>(x, hp, hs, lp, ls, crit, out, E, M, K, N,
-                              hi_bits, lo_bits, gs, s);
-  return (int)cudaGetLastError();
+  // one m16 tile a block where an expert holds at most 16 rows
+  const bool small = M <= 16;
+  if (x_bf16)
+    return small ? eqm_mma::launch<__nv_bfloat16, 1>(
+                       x, hp, hs, lp, ls, crit, out, out_bf16, E, M, K, N,
+                       hi_bits, lo_bits, gs, s)
+                 : eqm_mma::launch<__nv_bfloat16, 4>(
+                       x, hp, hs, lp, ls, crit, out, out_bf16, E, M, K, N,
+                       hi_bits, lo_bits, gs, s);
+  return small ? eqm_mma::launch<float, 1>(x, hp, hs, lp, ls, crit, out,
+                                           out_bf16, E, M, K, N, hi_bits,
+                                           lo_bits, gs, s)
+               : eqm_mma::launch<float, 4>(x, hp, hs, lp, ls, crit, out,
+                                           out_bf16, E, M, K, N, hi_bits,
+                                           lo_bits, gs, s);
 }

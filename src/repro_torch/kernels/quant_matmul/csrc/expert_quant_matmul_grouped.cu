@@ -59,35 +59,15 @@ grouped_kernel(const Tin* __restrict__ x, const uint8_t* __restrict__ hp,
   const int live = max(0, min(wm - tile0, rows));
   const int n0 = blockIdx.y * BN;
   const size_t row_base = (size_t)e * M + (p == 0 ? 0 : cap_hi) + tile0;
-  const int ncols = min(BN, N - n0);
-  // dead rows of the tile: exact zeros (the output comes from torch.empty)
-  for (int i = threadIdx.x; i < (rows - live) * ncols; i += THREADS) {
-    const int r = live + i / ncols;
-    const size_t o = (row_base + r) * N + n0 + i % ncols;
-    if (out_bf16)
-      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(0.f);
-    else
-      static_cast<float*>(out)[o] = 0.f;
-  }
+  zero_rows(out, out_bf16, row_base + live, rows - live, N, n0);
   if (live == 0) return;
   const int bits = p == 0 ? hi_bits : lo_bits;
   const size_t kp = (size_t)K * bits / 8;
-  const uint8_t* packed = (p == 0 ? hp : lp) + (size_t)e * N * kp;
-  const float* scales = (p == 0 ? hs : ls) + (size_t)e * (K / gs) * N;
-  const Tin* xt = x + row_base * K;
-  void* ot = out_bf16
-                 ? static_cast<void*>(static_cast<__nv_bfloat16*>(out) +
-                                      row_base * N)
-                 : static_cast<void*>(static_cast<float*>(out) + row_base * N);
-  if (bits == 4)
-    region_tile<Tin, 4, MT>(smem, xt, live, K, N, packed, scales, gs, ot,
-                        out_bf16, n0);
-  else if (bits == 2)
-    region_tile<Tin, 2, MT>(smem, xt, live, K, N, packed, scales, gs, ot,
-                        out_bf16, n0);
-  else
-    region_tile<Tin, 8, MT>(smem, xt, live, K, N, packed, scales, gs, ot,
-                        out_bf16, n0);
+  region_tile_bits<Tin, MT>(
+      bits, smem, x + row_base * K, live, K, N,
+      (p == 0 ? hp : lp) + (size_t)e * N * kp,
+      (p == 0 ? hs : ls) + (size_t)e * (K / gs) * N, gs,
+      out_at(out, out_bf16, row_base * N), out_bf16, n0);
 }
 
 template <typename Tin, int MT>

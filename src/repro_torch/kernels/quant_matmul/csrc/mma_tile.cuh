@@ -1,10 +1,15 @@
 // Tensor-core block routine of the packed-weight matmuls: exact bf16
 // mma.sync on the integer codes, group scales applied to f32 partial sums,
-// cp.async-staged codes, scales and live activation rows.
+// cp.async-staged codes, scales and live activation rows. Its users are
+// the three packed matmul kernels: K1 (expert_quant_matmul_grouped.cu), K2
+// (expert_quant_matmul.cu) and K3 (quant_matmul.cu); each is a kernel body
+// that picks a store and a row tile and calls region_tile (K3's split over
+// K: tile_sums on a K range, the sums added across a cluster, store_tile).
 //
 // One thread block owns one (16*MT-row tile, BN-column tile) of
 //   y = x @ dequant(packed, scales)
-// for one (expert, precision region), and walks K in BK-deep chunks through
+// for one store (an expert's precision region, an expert's chosen
+// precision, or a dense matrix), and walks K in BK-deep chunks through
 // a STAGES-deep ring in shared memory (one barrier per chunk; the copies of
 // chunk c + STAGES - 1 are in flight while the tensor cores work on chunk c).
 //
@@ -336,30 +341,39 @@ __device__ __forceinline__ void store2(void* out, bool out_bf16, size_t i,
 
 // ------------------------------------------------------------ block tile
 
-// out[r, n] = sum_k x[r, k] * dequant(packed, scales)[k, n] for the rows
-// r < live_rows (1 <= live_rows <= 16 * MT) and the columns [n0, n0 + BN) ∩
-// [0, N) of the block's tile. x, packed, scales and out point at the
-// tile's first row / its expert's store. smem holds smem_bytes<Tin, MT>().
-// Rows past live_rows are neither read nor written here.
+// The block's sums live in registers in mma.sync's accumulator layout:
+// acc[mi][j][v] is element v of this lane's fragment of m16 tile mi and n8
+// tile j of its warp's columns.
+template <int MT>
+using Acc = float[MT][NT][4];
+
+// acc = sum over the K chunks [c_begin, c_end) (c_begin * BK a multiple of
+// gs, so no scale group straddles two ranges; c_end * BK >= K or a group
+// boundary) of x[r, k] * dequant(packed, scales)[k, n], for the rows
+// r < live_rows (1 <= live_rows <= 16 * MT) and the columns [n0, n0 + BN)
+// ∩ [0, N) of the block's tile; the sums of rows past live_rows are 0. x,
+// packed and scales point at the tile's first row / its store, K is their
+// full depth. smem holds smem_bytes<Tin, MT>(); other warps may still
+// read it on return (a barrier comes before any other use).
 template <typename Tin, int BITS, int MT>
-__device__ __forceinline__ void region_tile(
-    uint8_t* smem, const Tin* __restrict__ x, int live_rows, int K, int N,
-    const uint8_t* __restrict__ packed, const float* __restrict__ scales,
-    int gs, void* out, bool out_bf16, int n0) {
+__device__ __forceinline__ void tile_sums(
+    Acc<MT>& acc, uint8_t* smem, const Tin* __restrict__ x, int live_rows,
+    int K, int N, const uint8_t* __restrict__ packed,
+    const float* __restrict__ scales, int gs, int n0, int c_begin,
+    int c_end) {
   constexpr int CS = code_stride(BITS);
   constexpr int PL = planes<Tin>();
   constexpr int SB = stage_bytes<Tin, MT>();
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int nchunks = (K + BK - 1) / BK;
   const int gsteps = gs / 16;                    // k16 steps per group
   const bool x16 = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool codes_aligned =
       (reinterpret_cast<uintptr_t>(packed) & 15) == 0 &&
       ((size_t)K * BITS / 8) % 16 == 0;
 
-  float acc[MT][NT][4], part[MT][NT][4];
+  float part[MT][NT][4];
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -368,7 +382,7 @@ __device__ __forceinline__ void region_tile(
       for (int v = 0; v < 4; ++v) acc[mi][j][v] = part[mi][j][v] = 0.f;
 
   auto issue = [&](int c) {
-    if (c < nchunks) {
+    if (c < c_end) {
       const int k0 = c * BK, kc = min(BK, K - k0);
       load_stage<Tin, BITS, MT>(smem + (c % STAGES) * SB, x, live_rows, K, N,
                             packed, scales, gs, n0, k0, kc, x16,
@@ -377,11 +391,11 @@ __device__ __forceinline__ void region_tile(
     cp_async_commit();                           // empty groups keep count
   };
 #pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) issue(c);
+  for (int c = 0; c < STAGES - 1; ++c) issue(c_begin + c);
 
-  int gpos = 0;          // k16 steps of the current scale group done
-  int gidx = 0;          // current scale group
-  for (int c = 0; c < nchunks; ++c) {
+  int gpos = 0;                  // k16 steps of the current scale group done
+  int gidx = c_begin * BK / gs;  // current scale group
+  for (int c = c_begin; c < c_end; ++c) {
     cp_async_wait<STAGES - 2>();                 // chunk c has landed
     __syncthreads();     // ... for every thread; chunk c-1's stage is free
     issue(c + STAGES - 1);
@@ -435,7 +449,16 @@ __device__ __forceinline__ void region_tile(
     }
   }
   cp_async_wait<0>();
+}
 
+// out[r, n] = acc for the rows r < live_rows and the columns [n0, n0 + BN)
+// ∩ [0, N) of the block's tile; out points at the tile's first row.
+template <int MT>
+__device__ __forceinline__ void store_tile(const Acc<MT>& acc,
+                                           int live_rows, int N, void* out,
+                                           bool out_bf16, int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
   const bool pair_ok = (N % 2) == 0;
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi) {
@@ -452,6 +475,87 @@ __device__ __forceinline__ void region_tile(
       }
     }
   }
+}
+
+// out[r, n] = sum_k x[r, k] * dequant(packed, scales)[k, n] over all of K,
+// for the rows r < live_rows (1 <= live_rows <= 16 * MT) and the columns
+// [n0, n0 + BN) ∩ [0, N) of the block's tile. x, packed, scales and out
+// point at the tile's first row / its expert's store. smem holds
+// smem_bytes<Tin, MT>(). Rows past live_rows are neither read nor written
+// here.
+template <typename Tin, int BITS, int MT>
+__device__ __forceinline__ void region_tile(
+    uint8_t* smem, const Tin* __restrict__ x, int live_rows, int K, int N,
+    const uint8_t* __restrict__ packed, const float* __restrict__ scales,
+    int gs, void* out, bool out_bf16, int n0) {
+  Acc<MT> acc;
+  tile_sums<Tin, BITS, MT>(acc, smem, x, live_rows, K, N, packed, scales,
+                           gs, n0, 0, (K + BK - 1) / BK);
+  store_tile<MT>(acc, live_rows, N, out, out_bf16, n0);
+}
+
+// ------------------------------------------------------------ kernel helpers
+
+// out + elems elements, in the output's element type
+__device__ __forceinline__ void* out_at(void* out, bool out_bf16,
+                                        size_t elems) {
+  return out_bf16 ? static_cast<void*>(static_cast<__nv_bfloat16*>(out) +
+                                       elems)
+                  : static_cast<void*>(static_cast<float*>(out) + elems);
+}
+
+// Rows [row0, row0 + rows) x columns [n0, n0 + BN) ∩ [0, N) of out (row
+// pitch N) as exact zeros: the dead or skipped rows of a tile (the output
+// comes from torch.empty).
+__device__ __forceinline__ void zero_rows(void* out, bool out_bf16,
+                                          size_t row0, int rows, int N,
+                                          int n0) {
+  const int ncols = min(BN, N - n0);
+  for (int i = threadIdx.x; i < rows * ncols; i += THREADS) {
+    const size_t o = (row0 + i / ncols) * N + n0 + i % ncols;
+    if (out_bf16)
+      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(0.f);
+    else
+      static_cast<float*>(out)[o] = 0.f;
+  }
+}
+
+// region_tile at a store's bit width (2, 4 or 8; block-uniform)
+template <typename Tin, int MT>
+__device__ __forceinline__ void region_tile_bits(
+    int bits, uint8_t* smem, const Tin* x, int live_rows, int K, int N,
+    const uint8_t* packed, const float* scales, int gs, void* out,
+    bool out_bf16, int n0) {
+  if (bits == 4)
+    region_tile<Tin, 4, MT>(smem, x, live_rows, K, N, packed, scales, gs,
+                            out, out_bf16, n0);
+  else if (bits == 2)
+    region_tile<Tin, 2, MT>(smem, x, live_rows, K, N, packed, scales, gs,
+                            out, out_bf16, n0);
+  else
+    region_tile<Tin, 8, MT>(smem, x, live_rows, K, N, packed, scales, gs,
+                            out, out_bf16, n0);
+}
+
+// One row tile of a grid of 16*MT-row tiles, all `rows` of it live: the
+// one-m16 routine where the tile holds at most 16 rows (the ragged last
+// tile of M = 80 is 16 rows: MMAs for 16 rows, not 64), else region_tile
+// at MT. K2 and K3, whose rows are all live, take their tiles through it.
+template <typename Tin, int MT>
+__device__ __forceinline__ void row_tile(int bits, uint8_t* smem,
+                                         const Tin* x, int rows, int K,
+                                         int N, const uint8_t* packed,
+                                         const float* scales, int gs,
+                                         void* out, bool out_bf16, int n0) {
+  if constexpr (MT > 1) {
+    if (rows <= 16) {
+      region_tile_bits<Tin, 1>(bits, smem, x, rows, K, N, packed, scales,
+                               gs, out, out_bf16, n0);
+      return;
+    }
+  }
+  region_tile_bits<Tin, MT>(bits, smem, x, rows, K, N, packed, scales, gs,
+                            out, out_bf16, n0);
 }
 
 }  // namespace mmt

@@ -9,6 +9,13 @@ expert matmuls, beside their plain PyTorch versions.
   replaces ``expert_quant_matmul_pallas``; its plain version is
   :func:`~repro_torch.kernels.quant_matmul.ref.expert_quant_matmul_ref`.
 
+Both kernels (and K3, ``quant_matmul.py``) are bodies over one
+tensor-core block routine, ``csrc/mma_tile.cuh``: exact bf16 ``mma.sync``
+on the integer codes (f32 x as three bf16 planes), group scales applied to
+f32 partial sums, codes staged by ``cp.async``. Products are exact; sums
+run in another order than the plain version's f32 matmul, so the kernels
+agree with it to 5e-4·(1 + |ref|), not bitwise.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty`` (the kernels write every element, dead rows
 as zeros), launches on the current stream without synchronising, raises
@@ -72,8 +79,8 @@ def _check_common(name, x, out_dtype, group_size):
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (E, M, K) tensor")
     k = x.shape[2]
-    # one 32-bit word of codes must sit inside one scale group, and every
-    # packed row must be a whole number of aligned words
+    # each k16 MMA step must lie inside one scale group (its partial sum
+    # takes one scale), and K must hold whole groups
     if group_size % 16 or k % group_size:
         raise ValueError(f"{name}: needs group_size % 16 == 0 and "
                          f"K % group_size == 0 (K={k}, gs={group_size})")

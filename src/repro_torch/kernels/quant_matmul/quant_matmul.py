@@ -4,7 +4,13 @@ matmul, beside its plain PyTorch version.
 K3 ``quant_matmul_cuda`` (``csrc/quant_matmul.cu``) replaces
 ``quant_matmul_pallas`` (``repro/kernels/quant_matmul/quant_matmul.py``);
 its plain version is
-:func:`~repro_torch.kernels.quant_matmul.ref.quant_matmul_ref`.
+:func:`~repro_torch.kernels.quant_matmul.ref.quant_matmul_ref`. The kernel
+is a body over the tensor-core block routine of K1 and K2
+(``csrc/mma_tile.cuh``) with one store and no mask: exact bf16
+``mma.sync`` on the integer codes, group scales on f32 partial sums, row
+tiles of 64 for a prefill and of 16 for at most 16 rows, where K splits
+over a thread block cluster until every SM has a block (the splits' sums
+added in a fixed order in shared memory: one launch, no workspace).
 
 The wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on the current stream without

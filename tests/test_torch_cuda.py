@@ -1,9 +1,11 @@
-"""The port's CUDA kernels on the card: K1 (tensor cores, cases of its own
-in ``test_cuda_grouped_matches_plain``), K2 and K3, built from
-``src/repro_torch/kernels/quant_matmul/csrc``, and K4 and K5, built from
+"""The port's CUDA kernels on the card: the three packed matmuls on the
+tensor-core tile of ``mma_tile.cuh`` — K1 (``test_cuda_grouped_*``), K2
+(``test_cuda_expert_*``) and K3 (``test_cuda_quant_matmul_*``), built from
+``src/repro_torch/kernels/quant_matmul/csrc`` — and K4 and K5, built from
 ``src/repro_torch/kernels/attn_scores/csrc``, against their plain PyTorch
-versions on the same CUDA inputs, at ragged shapes (S and M not multiples
-of a tile). (The engine's greedy tokens on the card
+versions on the same CUDA inputs, at ragged shapes (S, M and N not
+multiples of a tile), with f32 and bf16 x, unaligned x, and f32 rows
+spanning 2^-100 to 2^100. (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -73,16 +75,56 @@ def test_cuda_kernels_match_plain(lo):
         before["expert_quant_matmul"] + 1
 
 
+def _shifted(x, offset):
+    """x's values in storage ``offset`` elements past a 16-byte boundary
+    (0: x itself)."""
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:].copy_(x.flatten())
+    return buf[offset:].view(x.shape)
+
+
+def _held_to_plain(mod, name, x_nan, x_zero, args, kw, dead=None,
+                   row_scale=None):
+    """One kernel ``name`` of wrapper module ``mod`` on ``x_nan`` at f32
+    and bf16 out against its plain version on ``x_zero``: f32 out within
+    5e-4·(1 + |ref|) (exact products, f32 sums in another order), bf16 out
+    exactly the f32 out rounded, rows marked ``dead`` (their x rows hold
+    NaN, the plain version's zeros) exactly 0, one launch per call.
+    ``row_scale`` (rows,) powers of two that multiplied x's rows (axis -2):
+    the tolerance is then held in each row's own units (both outputs
+    divided by its scale, exactly), so a row at 2^-100 is checked as
+    strictly as one at 1. Returns (f32 out, f32 ref)."""
+    kernel = getattr(mod, name + "_cuda")
+    before = mod.LAUNCHES[name]
+    got32 = kernel(x_nan, *args, out_dtype=torch.float32, **kw)
+    assert mod.LAUNCHES[name] == before + 1
+    got16 = kernel(x_nan, *args, out_dtype=torch.bfloat16, **kw)
+    assert mod.LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    ref = mod.PLAIN[name](x_zero, *args, out_dtype=torch.float32, **kw)
+    g, r = got32, ref
+    if row_scale is not None:
+        rs = torch.from_numpy(row_scale).to(x_nan.device)[:, None]
+        g, r = got32 / rs, ref / rs
+    d = (g - r).abs()
+    assert torch.all(d <= 5e-4 * (1 + r.abs())), d.max().item()
+    assert torch.equal(got16, got32.to(torch.bfloat16))
+    if dead is not None:
+        dead_t = torch.from_numpy(dead).to(x_nan.device)
+        assert torch.all(got32[dead_t] == 0) and torch.all(got16[dead_t] == 0)
+    return got32, ref
+
+
 def _grouped_case(dev, rng, hi, lo, cap, k, gs, x_dtype, n=200, e=4,
                   row_scale=None, x_offset=0):
-    """One K1 call at f32 and bf16 out against the plain version. Expert 0
-    has no live hi row, expert 1 a full hi region (and, with a lo store,
-    the reverse), the rest random watermarks. x's dead rows hold NaN: the
-    kernel must not read them (the plain version gets them as zeros).
-    ``row_scale`` (M,) powers of two multiply x's rows; the tolerance is
-    then held in each row's own units (both outputs divided by its scale,
-    exactly), so a row at 2^-100 is checked as strictly as one at 1.
-    ``x_offset`` elements shift x's storage off its 16-byte alignment."""
+    """One K1 call at f32 and bf16 out against the plain version
+    (``_held_to_plain``). Expert 0 has no live hi row, expert 1 a full hi
+    region (and, with a lo store, the reverse), the rest random
+    watermarks. x's dead rows hold NaN: the kernel must not read them.
+    ``row_scale`` (M,) powers of two multiply x's rows. ``x_offset``
+    elements shift x's storage off its 16-byte alignment."""
     w = torch.from_numpy(rng.standard_normal((e, k, n)).astype(
         np.float32)).to(dev) * k ** -0.5
     mp = MixedPrecisionWeights.build(w, hi, lo, gs)
@@ -100,42 +142,15 @@ def _grouped_case(dev, rng, hi, lo, cap, k, gs, x_dtype, n=200, e=4,
         dead[i, counts_h[i, 0]:cap] = True
         if lo:
             dead[i, cap + counts_h[i, 1]:] = True
-    x_nan = torch.from_numpy(np.where(dead[..., None], np.nan, xh)).to(
-        dev, x_dtype)
+    x_nan = _shifted(torch.from_numpy(np.where(dead[..., None], np.nan, xh))
+                     .to(dev, x_dtype), x_offset)
     x_zero = torch.from_numpy(np.where(dead[..., None], 0.0, xh)).to(
         dev, x_dtype)
-    if x_offset:
-        buf = torch.empty(x_nan.numel() + x_offset, dtype=x_dtype,
-                          device=dev)
-        buf[x_offset:].copy_(x_nan.flatten())
-        x_nan = buf[x_offset:].view(x_nan.shape)
-    counts = torch.from_numpy(counts_h).to(dev)
-    lo_p = mp.low.packed if lo else None
-    lo_s = mp.low.scales if lo else None
+    args = (mp.high.packed, mp.high.scales, mp.low.packed if lo else None,
+            mp.low.scales if lo else None, torch.from_numpy(counts_h).to(dev))
     kw = dict(cap_hi=cap, hi_bits=hi, lo_bits=lo or 0, group_size=gs)
-    before = kmod.LAUNCHES["expert_quant_matmul_grouped"]
-    got32 = kmod.expert_quant_matmul_grouped_cuda(
-        x_nan, mp.high.packed, mp.high.scales, lo_p, lo_s, counts,
-        out_dtype=torch.float32, **kw)
-    assert kmod.LAUNCHES["expert_quant_matmul_grouped"] == before + 1
-    got16 = kmod.expert_quant_matmul_grouped_cuda(
-        x_nan, mp.high.packed, mp.high.scales, lo_p, lo_s, counts,
-        out_dtype=torch.bfloat16, **kw)
-    assert kmod.LAUNCHES["expert_quant_matmul_grouped"] == before + 2
-    torch.cuda.synchronize()
-    ref = kmod.PLAIN["expert_quant_matmul_grouped"](
-        x_zero, mp.high.packed, mp.high.scales, lo_p, lo_s, counts,
-        out_dtype=torch.float32, **kw)
-    g, r = got32, ref
-    if row_scale is not None:
-        rs = torch.from_numpy(row_scale).to(dev)[None, :, None]
-        g, r = got32 / rs, ref / rs
-    d = (g - r).abs()
-    assert torch.all(d <= 5e-4 * (1 + r.abs())), d.max().item()
-    assert torch.equal(got16, got32.to(torch.bfloat16))
-    dead_t = torch.from_numpy(dead).to(dev)
-    assert torch.all(got32[dead_t] == 0) and torch.all(got16[dead_t] == 0)
-    return got32, ref
+    return _held_to_plain(kmod, "expert_quant_matmul_grouped", x_nan, x_zero,
+                          args, kw, dead, row_scale)
 
 
 @pytest.mark.parametrize("k,gs", [(192, 64), (256, 16), (256, 128), (80, 16)])
@@ -181,6 +196,74 @@ def test_cuda_grouped_f32_split_wide_range():
     assert torch.isfinite(got).all()
 
 
+def _expert_case(dev, rng, hi, lo, m, k, gs, x_dtype, n=200, e=4,
+                 row_scale=None, x_offset=0):
+    """One K2 call at f32 and bf16 out against the plain version
+    (``_held_to_plain``). A random critical mask with expert 0 critical
+    and expert 1 not. Under "4/0" a sub-critical expert's x rows hold NaN:
+    the kernel must write its rows as zeros without reading them."""
+    w = torch.from_numpy(rng.standard_normal((e, k, n)).astype(
+        np.float32)).to(dev) * k ** -0.5
+    mp = MixedPrecisionWeights.build(w, hi, lo, gs)
+    xh = rng.standard_normal((e, m, k)).astype(np.float32)
+    if row_scale is not None:
+        xh *= row_scale[None, :, None]
+    crit_h = (rng.random(e) < 0.5).astype(np.int32)
+    crit_h[:2] = (1, 0)
+    dead = np.zeros((e, m), dtype=bool)
+    if not lo:
+        dead[crit_h == 0] = True
+    x_nan = _shifted(torch.from_numpy(np.where(dead[..., None], np.nan, xh))
+                     .to(dev, x_dtype), x_offset)
+    x_zero = torch.from_numpy(np.where(dead[..., None], 0.0, xh)).to(
+        dev, x_dtype)
+    args = (mp.high.packed, mp.high.scales, mp.low.packed if lo else None,
+            mp.low.scales if lo else None, torch.from_numpy(crit_h).to(dev))
+    kw = dict(hi_bits=hi, lo_bits=lo or 0, group_size=gs)
+    return _held_to_plain(kmod, "expert_quant_matmul", x_nan, x_zero, args,
+                          kw, dead, row_scale)
+
+
+@pytest.mark.parametrize("k,gs", [(192, 64), (256, 16), (256, 128), (80, 16)])
+@pytest.mark.parametrize("m", [1, 10, 37, 80, 130])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+@pytest.mark.parametrize("hi,lo", [(4, 2), (4, None), (8, 4), (2, 2)],
+                         ids=["4/2", "4/0", "8/4", "2/2"])
+def test_cuda_expert_matches_plain(hi, lo, x_dtype, m, k, gs):
+    """K2 on the tensor cores against the plain version: f32 out within
+    5e-4·(1 + |ref|), bf16 out exactly the f32 out rounded, under "4/0"
+    sub-critical experts exactly 0 though their x rows hold NaN, one
+    launch per call. M 1 and 10 run one-m16 blocks; 37 one ragged 64-row
+    tile; 80 and 130 a full 64-row tile and a last tile of at most 16 rows
+    (the one-m16 routine); N 200 and K 80 as in K1's cases."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(hi * 1000 + (lo or 0) * 100 + m + k + gs)
+    _expert_case(dev, rng, hi, lo, m, k, gs, x_dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+def test_cuda_expert_unaligned_x(x_dtype):
+    """K2 with x one element past a 16-byte boundary (plain loads instead
+    of 16-byte copies), under "4/0" so skipped experts are in it too."""
+    dev = _need_cuda()
+    _expert_case(dev, np.random.default_rng(6), 4, None, 80, 256, 64,
+                 x_dtype, x_offset=1)
+
+
+def test_cuda_expert_f32_split_wide_range():
+    """K2 with f32 x whose rows span 2^-100 to 2^100, each checked in its
+    own units: the three-plane split keeps every product exact."""
+    dev = _need_cuda()
+    m = 80
+    scale = np.ldexp(1.0, np.linspace(-100, 100, m).round().astype(int)
+                     ).astype(np.float32)
+    got, _ = _expert_case(dev, np.random.default_rng(12), 4, 2, m, 256, 64,
+                          torch.float32, row_scale=scale)
+    assert torch.isfinite(got).all()
+
+
 def test_cuda_wrappers_refuse_bad_inputs():
     dev = _need_cuda()
     w = torch.randn(2, 64, 32, device=dev)
@@ -198,30 +281,75 @@ def test_cuda_wrappers_refuse_bad_inputs():
             lo_bits=0, group_size=64)
 
 
+def _dense_case(dev, rng, bits, m, k, gs, x_dtype, n=200, row_scale=None,
+                x_offset=0):
+    """One K3 call at f32 and bf16 out against the plain version
+    (``_held_to_plain``)."""
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(
+        np.float32)).to(dev) * k ** -0.5
+    qt = QuantizedTensor.quantize(w, bits, gs)
+    xh = rng.standard_normal((m, k)).astype(np.float32)
+    if row_scale is not None:
+        xh *= row_scale[:, None]
+    x = torch.from_numpy(xh).to(dev, x_dtype)
+    return _held_to_plain(dmod, "quant_matmul", _shifted(x, x_offset), x,
+                          (qt.packed, qt.scales),
+                          dict(bits=bits, group_size=gs),
+                          row_scale=row_scale)
 
+
+@pytest.mark.parametrize("k,gs", [(256, 64), (80, 16)])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+@pytest.mark.parametrize("m", [1, 5, 16, 45, 130])
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("m", [1, 45])         # 45: not a multiple of BM
-def test_cuda_quant_matmul_matches_plain(bits, m):
-    """K3, bf16 x: f32 out within 5e-4·(1 + |ref|) of the plain version
-    (K summed in another order), bf16 out exactly the f32 out rounded."""
+def test_cuda_quant_matmul_matches_plain(bits, m, x_dtype, k, gs):
+    """K3 on the tensor cores: f32 out within 5e-4·(1 + |ref|) of the
+    plain version (exact products, K summed in another order), bf16 out
+    exactly the f32 out rounded, one launch per call. M 1, 5, 16 run
+    one-m16 blocks split over K; 45 one ragged 64-row tile; 130 two full
+    tiles and a 2-row tail."""
     dev = _need_cuda()
-    rng = np.random.default_rng(bits * 100 + m)
-    w = torch.from_numpy(rng.standard_normal((256, 200)).astype(
-        np.float32)).to(dev) * 256 ** -0.5
-    qt = QuantizedTensor.quantize(w, bits, 64)
-    x = torch.from_numpy(rng.standard_normal((m, 256)).astype(
-        np.float32)).to(dev, torch.bfloat16)
-    kw = dict(bits=bits, group_size=64)
-    before = dmod.LAUNCHES["quant_matmul"]
-    got32 = dmod.quant_matmul_cuda(x, qt.packed, qt.scales,
-                                   out_dtype=torch.float32, **kw)
-    got = dmod.quant_matmul_cuda(x, qt.packed, qt.scales, **kw)
-    torch.cuda.synchronize()
-    ref = dmod.PLAIN["quant_matmul"](x, qt.packed, qt.scales,
-                                     out_dtype=torch.float32, **kw)
-    assert torch.all((got32 - ref).abs() <= 5e-4 * (1 + ref.abs()))
-    assert torch.equal(got, got32.to(torch.bfloat16))
-    assert dmod.LAUNCHES["quant_matmul"] == before + 2
+    rng = np.random.default_rng(bits * 1000 + m + k + gs)
+    _dense_case(dev, rng, bits, m, k, gs, x_dtype)
+
+
+@pytest.mark.parametrize("k,gs", [(1040, 16), (640, 128), (960, 48),
+                                  (64, 64)])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+@pytest.mark.parametrize("m", [1, 16])
+def test_cuda_quant_matmul_split_k(m, x_dtype, k, gs):
+    """K3 at M <= 16 splits K over a thread block cluster (N 200: two
+    column tiles, so up to 8 splits): K 1040 (17 chunks, the last 16 deep)
+    gives 6 splits of 3 chunks and a ragged last split of 2; gs 128 splits
+    in pairs of chunks and gs 48 in threes (whole scale groups); K 64 is
+    one chunk and does not split. 2-bit codes at K 1040 are 260-byte rows,
+    staged by 4-byte copies. Held as every K3 case."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(k + gs + m)
+    _dense_case(dev, rng, 2 if k == 1040 else 4, m, k, gs, x_dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+def test_cuda_quant_matmul_unaligned_x(x_dtype):
+    """K3 with x one element past a 16-byte boundary."""
+    dev = _need_cuda()
+    _dense_case(dev, np.random.default_rng(8), 4, 45, 256, 64, x_dtype,
+                x_offset=1)
+
+
+def test_cuda_quant_matmul_f32_split_wide_range():
+    """K3 with f32 x whose rows span 2^-100 to 2^100, each checked in its
+    own units."""
+    dev = _need_cuda()
+    m = 45
+    scale = np.ldexp(1.0, np.linspace(-100, 100, m).round().astype(int)
+                     ).astype(np.float32)
+    got, _ = _dense_case(dev, np.random.default_rng(13), 4, m, 256, 64,
+                         torch.float32, row_scale=scale)
+    assert torch.isfinite(got).all()
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -5,16 +5,18 @@ GPU. Run from the repository root: ``python3 chip_smoke.py``.
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. build — every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
      (one nvcc per source, all started together), with ptxas's report;
-     fails if K1, K2 or K3 (the tensor-core tile) spills;
+     fails if any of K1-K5 (all on the tensor cores) spills;
   1. kernels — K1 (``expert_quant_matmul_grouped``) and K2
      (``expert_quant_matmul``) at OLMoE-1B-7B shapes, "4/2" and "4/0"
      (K2 at the 512- and 64-token solo admissions; both also with f32
      activations), held against their plain PyTorch versions on the same
-     CUDA inputs; times (CUDA events, median), bounds, plain and library
+     CUDA inputs; times (CUDA events, median; and the device time of the
+     kernels alone under torch.profiler), bounds, plain and library
      times;
   2. kernel API — K3 (``quant_matmul``) at OLMoE-1B-7B's dense projection
-     shape (also with f32 activations at M 512) and K4 + K5 (``flash_fwd``, ``key_mass``) at its full attention
-     width, held against their plain versions and timed as in phase 1;
+     shape (also with f32 activations at M 512) and K4 + K5
+     (``flash_fwd``, ``key_mass``) at its full attention width, f32 and
+     bf16, held against their plain versions and timed as in phase 1;
      then the public entry points ``repro_torch.kernels.quant_matmul`` and
      ``flash_attention_with_scores`` on one layer of a full-width
      OLMoE-1B-7B and a 512-token prompt, with the launch counts of K3-K5
@@ -77,6 +79,29 @@ def _smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def _device_ms(fn, runs: int = 5):
+    """Device time of one call of ``fn``: the self time of the CUDA kernels
+    it launches under torch.profiler, over ``runs`` calls, per call. Unlike
+    ``_median_ms`` (CUDA events around one call) it leaves out the host's
+    time before the launch, which at S 512 is of the kernels' order. A
+    trace now and then comes back without the kernels: it is taken again,
+    and after three empty ones the time is None (not measured), never 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / runs / 1e3
+    return None
 
 
 def _median_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -196,8 +221,7 @@ def _kernel_cases(cfg, dev):
                     + (" x f32" if xdt == torch.float32 else ""),
                     lambda: km.expert_quant_matmul_grouped_cuda(*args, **kw),
                     lambda: plain(*args, **kw),
-                    lambda: torch.bmm(xs, w_cat), err, nbytes, flops,
-                    packed=True))
+                    lambda: torch.bmm(xs, w_cat), err, nbytes, flops))
                 del w_cat
             # ---- K2: solo admission prefill, M = _capacity(cfg, 512), and
             # the profiled 64-token request's, M = _capacity(cfg, 64); gate/up
@@ -240,8 +264,7 @@ def _kernel_cases(cfg, dev):
                     + (" x f32" if xdt == torch.float32 else ""),
                     lambda: km.expert_quant_matmul_cuda(*args, **kw),
                     lambda: plain(*args, **kw),
-                    lambda: torch.bmm(x, w_sel), err, nbytes, flops,
-                    packed=True))
+                    lambda: torch.bmm(x, w_sel), err, nbytes, flops))
                 del w_sel
     return records
 
@@ -260,33 +283,35 @@ def _check(got32, ref32, got, ref) -> float:
     return float(d32.max().item())
 
 
-def _time_case(label, kernel, plain, library, err, nbytes, flops,
-               packed=False):
+def _time_case(label, kernel, plain, library, err, nbytes, flops):
     """One kernel case: CUDA-event medians of the kernel, its plain version
-    and the library call, and the least time the card could take.
+    and the library call, their device times, and the least time the card
+    could take.
 
-    ``packed`` (K1-K3): the products are of bf16 or f32 activations and
-    integer codes of at most 8 bits, exact on the bf16 tensor cores, so
-    ``bound_ms`` (also written as ``tc_bound_ms``) counts the FLOPs at the
-    bf16 dense rate. For f32 x the same count at that rate is a lower
-    limit too: an exact f32 product there takes three bf16 planes. The f32
-    CUDA-core figure, which K1-K3 were held to before K1 reached the
-    tensor cores, stays as ``f32_core_bound_ms``. K4/K5 are held to the
-    f32 CUDA-core rate."""
+    Every kernel's products run on the bf16 tensor cores (K1-K3:
+    activations and integer codes of at most 8 bits; K4/K5: q, k, v and
+    the probabilities), so ``bound_ms`` (also written as
+    ``tc_bound_ms``) counts the FLOPs at the bf16 dense rate. For f32
+    inputs the same count at that rate is a lower limit too: an f32
+    product there takes several bf16 planes. The f32 CUDA-core figure,
+    which each kernel was held to before it reached the tensor cores,
+    stays as ``f32_core_bound_ms``."""
     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
     f32_o = flops / F32_FLOP_PER_S * 1e3
-    bound_o = flops / TC_FLOP_PER_S * 1e3 if packed else f32_o
+    bound_o = flops / TC_FLOP_PER_S * 1e3
     rec = dict(case=label, max_abs_err=err,
                ms=_median_ms(kernel, TIMED_RUNS),
                plain_ms=_median_ms(plain, 5, warmup=1),
                library_ms=(_median_ms(library, 10) if library is not None
                            else None),
+               device_ms=_device_ms(kernel),
+               library_device_ms=(_device_ms(library)
+                                  if library is not None else None),
                bound_ms=max(bound_b, bound_o),
                bound_by="bytes" if bound_b >= bound_o else "operations",
                bytes=nbytes, flops=flops)
-    if packed:
-        rec["tc_bound_ms"] = rec["bound_ms"]
-        rec["f32_core_bound_ms"] = max(bound_b, f32_o)
+    rec["tc_bound_ms"] = rec["bound_ms"]
+    rec["f32_core_bound_ms"] = max(bound_b, f32_o)
     print("  " + json.dumps(rec), flush=True)
     return rec
 
@@ -351,11 +376,12 @@ def _api_cases(cfg, dev):
                 lambda: qm.quant_matmul_cuda(*args, **kw),
                 lambda: plain(*args, **kw),
                 lambda: torch.matmul(x, w_lib), err, nbytes,
-                2.0 * m * k * n, packed=True))
+                2.0 * m * k * n))
     h, d = cfg.num_heads, cfg.head_dim
     # f32 at two lengths, and bf16 as the model's layer hands them over
+    # (at 4096 too: against SDPA in bf16, which rounds P to bf16)
     for s, dt in ((512, torch.float32), (4096, torch.float32),
-                  (512, torch.bfloat16)):
+                  (512, torch.bfloat16), (4096, torch.bfloat16)):
         q, kk, v = (torch.randn((h, s, d), generator=gen, device=dev
                                 ).to(dt) for _ in range(3))
         out, lse = am.flash_fwd_cuda(q, kk, v, causal=True)
@@ -647,10 +673,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
-    # the tensor-core tile of K1-K3 is sized to the register file: a
-    # toolchain that spills it fails here, not silently in its times
+    # the tensor-core tiles of K1-K5 are sized to the register file: a
+    # toolchain that spills one fails here, not silently in its times
     # (checked where this run built them)
-    for name in ("eqm_grouped", "eqm_expert", "qm_dense"):
+    for name in ("eqm_grouped", "eqm_expert", "qm_dense", "attn_flash_fwd",
+                 "attn_key_mass"):
         if name in logs:
             spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
             assert spills and all("0 bytes spill stores, 0 bytes spill loads"
@@ -678,12 +705,13 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], library=library,
-            **{k: head[k] for k in ("tc_bound_ms", "f32_core_bound_ms")
-               if k in head},
+            tc_bound_ms=head["tc_bound_ms"],
+            f32_core_bound_ms=head["f32_core_bound_ms"],
             case=head["case"],
             cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                       "tc_bound_ms", "f32_core_bound_ms",
-                                      "bound_by", "library_ms") if k in c}
+                                      "bound_by", "library_ms", "device_ms",
+                                      "library_device_ms")}
                    for c in cases]))
     print(smi)
     print(json.dumps({"kernels": kernels}))

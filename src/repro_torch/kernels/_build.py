@@ -31,13 +31,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 class Lib:
     directory: str              # kernel directory under repro_torch/kernels
     source: str                 # csrc/<source>
-    headers: Tuple[str, ...]    # csrc/ headers it includes (hashed)
+    headers: Tuple[str, ...]    # headers it includes, from csrc/ (hashed)
     entry: str                  # its extern "C" launch function
     argtypes: tuple
 
     def path(self, name: str) -> Path:
         return _KERNELS / self.directory / "csrc" / name
 
+
+# K4/K5's score tile and the MMA primitives it shares with K1-K3's tile
+_ATTN_HEADERS = ("score_tile.cuh", "../../quant_matmul/csrc/mma_tile.cuh")
 
 # library name -> what it is built from and how its entry point is called
 LIBS: Dict[str, Lib] = {
@@ -54,10 +57,10 @@ LIBS: Dict[str, Lib] = {
         "quant_matmul", "quant_matmul.cu", ("mma_tile.cuh",),
         "qm_dense_launch", (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "attn_flash_fwd": Lib(
-        "attn_scores", "flash_fwd.cu", ("attn_tile.cuh",),
-        "flash_fwd_launch", (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P)),
+        "attn_scores", "flash_fwd.cu", _ATTN_HEADERS, "flash_fwd_launch",
+        (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P)),
     "attn_key_mass": Lib(
-        "attn_scores", "key_mass.cu", ("attn_tile.cuh",), "key_mass_launch",
+        "attn_scores", "key_mass.cu", _ATTN_HEADERS, "key_mass_launch",
         (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P)),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,8 +8,9 @@ per-key mass, beside their plain PyTorch versions.
   ``key_mass_pallas``; its plain version is
   :func:`~repro_torch.kernels.attn_scores.ref.key_mass_ref`.
 
-Inputs are (H, S, D) head-major, f32 or bf16 (widened to f32 in the
-kernel), any S, 1 <= D <= 256; the scale is 1/sqrt(D). Each wrapper checks
+Inputs are (H, S, D) head-major, f32 or bf16 (on the bf16 tensor cores,
+f32 as exact bf16 planes: ``csrc/score_tile.cuh``), any S, 1 <= D <= 256;
+the scale is 1/sqrt(D). Each wrapper checks
 device, dtype, shape and contiguity, allocates its f32 outputs with
 ``torch.empty`` (the kernels write every element), launches on the
 current stream without synchronising, raises if the launch is refused, and
@@ -32,7 +33,7 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "key_mass": 0}
 # each kernel's plain PyTorch version (what a CPU tensor runs)
 PLAIN = {"flash_fwd": ref.flash_fwd_ref, "key_mass": ref.key_mass_ref}
 
-_MAX_HEAD_DIM = 256          # csrc/attn_tile.cuh MAX_D
+_MAX_HEAD_DIM = 256          # csrc/score_tile.cuh MAX_D
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
 

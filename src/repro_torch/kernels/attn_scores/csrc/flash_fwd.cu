@@ -1,144 +1,258 @@
-// K4: flash-attention forward with the per-query log-sum-exp.
+// K4: flash-attention forward with the per-query log-sum-exp, on the bf16
+// tensor cores.
 //
 // Replaces the TPU kernel flash_fwd_pallas
 // (src/repro/kernels/attn_scores/attn_scores.py, body _fwd_kernel). For
 // q, k, v (H, S, D) and scale 1/sqrt(D):
 //   out[h, i] = softmax_j(s_ij) v[h, j],   lse[h, i] = log sum_j exp(s_ij)
 // with s_ij = scale q_i . k_j, and under `causal` s_ij = -1e30 for j > i
-// (the reference's masked logit). A query that sees no key gets out 0 and
-// lse -1e30.
+// (the reference's masked logit: weight exactly 0). A query that sees no
+// key gets out 0 and lse -1e30.
 //
-// What bounds it on an H100: 4 H S^2 D f32 operations (half of it under
-// causal) against 4 H S D elements moved, some 20 operations per byte
-// already at S 128: bound by f32 operations on the CUDA cores (true f32,
-// as the reference; tensor cores would need TF32 or bf16 and another
-// tolerance). The design: grid (ceil(S / 64), H), one block per (query
-// tile, head); the loop over key tiles inside the block takes the place
-// of the TPU grid's sequential key axis and its VMEM scratch. The running
-// max m, sum l and the 64 x D output accumulator stay in registers; each
-// key tile's scores go through shared memory once, where four threads per
-// row take the online-softmax step. Under `causal` the key tiles wholly
-// above the diagonal are skipped: once the first key tile has made m
-// finite they would add exp(-1e30 - m) = 0 and rescale by exp(0) = 1.
-// Keys and queries past S (a ragged last tile) are masked in the kernel.
-#include "attn_tile.cuh"
+// What bounds it on an H100: 4 H S^2 D operations (half of it under
+// causal) against 4 H S D elements moved. At the bf16 tensor-core rate
+// (989 TFLOP/s) that is bound by operations from S ~ 512 in f32 and by
+// bytes below ~ 1000 in bf16; at S 4096, D 128, H 16 causal 6.87e10 FLOP,
+// 0.069 ms. The tensor cores run more MMAs than that count to keep f32
+// accuracy (score_tile.cuh):
+//   QK^T  bf16: 1 MMA;  f32: 6 (three bf16 planes of q and of k).
+//   P V   bf16: 2 (p as hi + lo planes, v as it is);
+//         f32: 3 (p.hi v.hi, p.hi v.lo, p.lo v.hi; v in two planes).
+// P is f32 in [0, 1]: one bf16 plane would move out by ~2e-3 on rows with
+// few keys, beyond the 1e-4 (1 + |ref|) tolerance; two keep it at 2^-16.
+//
+// The design: one block of 4 warps per (64-query tile, head), 16 query
+// rows a warp; a 1-D grid ordered heaviest first (under `causal` block b
+// takes query tile nq - 1 - b / H of head b % H, so the short tiles fill
+// the tail). The block loops over key tiles of CT rows (the TPU grid's
+// sequential key axis):
+//   - bf16: k and v land by cp.async in a 2-deep ring, one barrier a tile;
+//   - f32: k and v land by cp.async in one f32 buffer while the tensor
+//     cores work on the previous tile's planes; at the tile's turn the
+//     block splits them into bf16 planes (k: 3, v: 2), two barriers a
+//     tile. CT 32 at D > 64 so that two blocks fit an SM.
+// A warp's q fragments stay in registers for bf16 up to D 128; f32 q is
+// split into planes from shared memory at every tile (three planes would
+// not fit beside o). S = Q K^T stays in MMA accumulators; the online
+// softmax (row max and sum over a lane quad by shuffles, in the log2
+// domain, exp2 on the SFU) runs in registers with no block barrier; the
+// m16n8 accumulators of two adjacent key n8 tiles are, re-packed as bf16
+// planes, the m16n8k16 A fragment of P V, so P never leaves registers. V
+// is the B operand through ldmatrix.trans.
+// Under `causal` the key tiles wholly above the block's diagonal are not
+// loaded, a warp skips a tile wholly above its own rows (weight 0, and
+// its max and sum stay), and only tiles that cross a warp's diagonal or
+// the ragged end S are masked.
+//
+// Shared memory (D 128): bf16 85 KB (q 17 KB, ring 68 KB): two blocks an
+// SM; f32 110.5 KB (q 36 KB, landing 32 KB, planes 42.5 KB): two blocks.
+// D 256: bf16 165 KB, f32 214.5 KB (CT 32): one block.
+#include "score_tile.cuh"
 
 namespace attn {
 
+template <typename T>
+__host__ __device__ constexpr size_t fwd_smem_bytes(int ct, int dp) {
+  return row_tile_bytes<T>(dp) +
+         (sizeof(T) == 4 ? 2 * landing_bytes(ct, dp) + 5 * plane_bytes(ct, dp)
+                         : 4 * plane_bytes(ct, dp));
+}
+
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, DMAX > 128 ? 1 : 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int S, int D, int causal,
-                 float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sq = smem;                    // [BQ][ld]
-  float* sk = sq + BQ * ld;            // [BK][ld]
-  float* sv = sk + BK * ld;            // [BK][D]
-  float* sp = sv + BK * D;             // [BQ][BK + 1] scores, then p
-  float* s_alpha = sp + BQ * (BK + 1); // [BQ]
-  float* s_l = s_alpha + BQ;           // [BQ]
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+                 float* __restrict__ lse, int H, int S, int D, int causal,
+                 float scale, int vec) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int CT = col_rows<T>(DMAX);   // keys of a tile
+  constexpr int NB = CT / 8;              // n8 score tiles of a key tile
+  constexpr int NO = DMAX / 8;            // n8 output tiles, at most
+  constexpr int KMAX = DMAX / 16;         // k16 steps of q . k, at most
+  // bf16 q fragments stay in registers up to D 128 (32 registers); f32
+  // ones (three planes) do not fit beside o, so each tile reloads them
+  constexpr bool QREG = !F32 && DMAX <= 128;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int dp = pad16(D), lda = ld_rows<T>(dp), ldb = ld_bf16(dp);
+  const int pst = CT * ldb;               // elements of a tile or a plane
+  T* sq = reinterpret_cast<T*>(smem);
+  uint8_t* rest = smem + row_tile_bytes<T>(dp);
+  // f32: the landing buffer (k rows, then v rows); then the bf16 tiles:
+  // f32 k hi, mid, lo, v hi, lo; bf16 the ring, stage s = k, v at 2 s pst
+  float* land = reinterpret_cast<float*>(rest);
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(
+      F32 ? rest + 2 * landing_bytes(CT, dp) : rest);
+
+  const int h = blockIdx.x % H;
+  const int nq = gridDim.x / H;
+  const int qt = causal ? nq - 1 - blockIdx.x / H : blockIdx.x / H;
+  const int q0 = ROWS * qt;
   const size_t head = (size_t)h * S * D;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int sr = tid / 4, sc = (tid % 4) * 16;  // softmax: row, 16 columns
-  constexpr int DJ = DMAX / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = q0 + 16 * warp;        // the warp's first query
 
-  float o[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
-  float m_i = NEG, l_i = 0.f;   // of row sr, replicated over its 4 threads
+  if (D < dp) {                           // depth padding of copied tiles
+    zero_cols<ROWS>(sq, lda, D, dp);
+    if constexpr (F32)
+      zero_cols<2 * CT>(land, dp, D, dp);
+    else
+      zero_cols<4 * CT>(tiles, ldb, D, dp);
+  }
+  copy_rows<ROWS>(sq, lda, q + head, q0, S, D, vec);
+  const int k_end = causal ? min(S, q0 + ROWS) : S;
+  const int nk = (k_end + CT - 1) / CT;
+  auto issue = [&](int kt) {
+    const int k0 = kt * CT;
+    if constexpr (F32) {
+      copy_rows<CT>(land, dp, k + head, k0, S, D, vec);
+      copy_rows<CT>(land + CT * dp, dp, v + head, k0, S, D, vec);
+    } else {
+      __nv_bfloat16* st = tiles + (kt & 1) * 2 * pst;
+      copy_rows<CT>(st, ldb, k + head, k0, S, D, vec);
+      copy_rows<CT>(st + pst, ldb, v + head, k0, S, D, vec);
+    }
+    cp_async_commit();
+  };
+  issue(0);                               // one group with q
 
-  load_rows(sq, ld, q + head, q0, S, D);
-  const int k_end = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();           // the previous tile's sk, sv, sp are read
-    load_rows(sk, ld, k + head, k0, S, D);
-    load_rows(sv, D, v + head, k0, S, D);
-    __syncthreads();
-    float s[4][4];
-    score_tile(sq, sk, ld, D, ty, tx, s);
+  float o[NO][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NO; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = q0 + ty + 16 * i, kj = k0 + tx + 16 * j;
-        float val = s[i][j] * scale;
-        if (kj >= S) val = -INFINITY;          // no such key: weight 0
-        else if (causal && kj > qi) val = NEG;
-        sp[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = val;
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // rows g and g + 8 of the warp: running max (log2 domain) and this
+  // lane's part of the running sum (the quad adds its parts at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * LOG2E;
+  const int ksteps = dp / 16;
+  uint32_t qf[QREG ? KMAX : 1][planes<T>()][4];
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();          // tile kt has landed; tile kt - 1 is read
+    if constexpr (F32) {
+      split_rows<3, CT>(tiles, pst, land, dp);
+      split_rows<2, CT>(tiles + 3 * pst, pst, land + CT * dp, dp);
+      __syncthreads();        // planes ready, landing buffer free
+    }
+    if constexpr (QREG)
+      if (kt == 0) load_rows_a<T, KMAX>(qf, sq, lda, ksteps);
+    if (kt + 1 < nk) issue(kt + 1);
+    const __nv_bfloat16* kb = F32 ? tiles : tiles + (kt & 1) * 2 * pst;
+    const __nv_bfloat16* vb = kb + (F32 ? 3 : 1) * pst;
+    const int k0 = kt * CT;
+    if (causal && k0 > r_lo + 15) continue;   // above every row of the warp
+
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (QREG)
+      score_tile<1, NB, KMAX>(s, qf, kb, ldb, pst, ksteps);
+    else
+      score_tile<T, NB, KMAX>(s, sq, lda, kb, ldb, pst, ksteps);
+
+    // online softmax step, rows g (e 0, 1) and g + 8 (e 2, 3)
+    const bool edge = k0 + CT > S || (causal && k0 + CT - 1 > r_lo);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = r_lo + g + 8 * (e >> 1);
+          if (key >= S || (causal && key > row)) x = -INFINITY;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-    __syncthreads();
-    // online softmax step of row sr, four threads per row
-    float* row = sp + sr * (BK + 1) + sc;
-    float mx = -INFINITY;
+    float mu[2], alpha[2];
 #pragma unroll
-    for (int c = 0; c < 16; ++c) mx = fmaxf(mx, row[c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_i, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const float p = expf(row[c] - m_new);
-      row[c] = p;
-      sum += p;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float mn = fmaxf(m[i], mx[i]);
+      mu[i] = mn == -INFINITY ? 0.f : mn;     // no key seen yet
+      alpha[i] = exp2_fast(m[i] - mu[i]);
+      m[i] = mn;
+      l[i] *= alpha[i];
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float alpha = expf(m_i - m_new);
-    l_i = l_i * alpha + sum;
-    m_i = m_new;
-    if ((tid & 3) == 0) s_alpha[sr] = alpha;
-    __syncthreads();
-    // o = alpha o + p v for the 4 rows x DJ columns this thread owns
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = s_alpha[ty + 16 * i];
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) o[i][j] *= a;
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_fast(s[j][e] - mu[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
     }
-#pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
+
+    // o += P V, k16 step kk = key n8 tiles 2 kk and 2 kk + 1
+    const __nv_bfloat16* vrow = vb + (lane & 15) * ldb + (lane >> 4) * 8;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sp[(ty + 16 * i) * (BK + 1) + c];
+    for (int kk = 0; kk < NB / 2; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_p(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_p(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      const __nv_bfloat16* vk = vrow + 16 * kk * ldb;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        const float vv = d < D ? sv[c * D + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) o[i][j] = fmaf(p[i], vv, o[i][j]);
+      for (int jp = 0; jp < NO / 2; ++jp) {
+        if (16 * jp >= dp) break;                // block-uniform
+        uint32_t vh[4];
+        ldmatrix_x4_trans(vh, vk + 16 * jp);
+        mma_bf16(o[2 * jp], pl, vh[0], vh[1]);
+        mma_bf16(o[2 * jp + 1], pl, vh[2], vh[3]);
+        if constexpr (F32) {
+          uint32_t vl[4];
+          ldmatrix_x4_trans(vl, vk + pst + 16 * jp);
+          mma_bf16(o[2 * jp], ph, vl[0], vl[1]);
+          mma_bf16(o[2 * jp + 1], ph, vl[2], vl[3]);
+        }
+        mma_bf16(o[2 * jp], ph, vh[0], vh[1]);
+        mma_bf16(o[2 * jp + 1], ph, vh[2], vh[3]);
       }
     }
   }
-  __syncthreads();
-  if ((tid & 3) == 0) {
-    s_alpha[sr] = m_i;
-    s_l[sr] = l_i;
+
+  // the quad's parts of each row sum, in a fixed order
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  __syncthreads();
+  const bool pairs = (D & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= S) continue;
-    const float l = s_l[r];
-    const float safe = l == 0.f ? 1.f : l;
-    float* dst = out + head + (size_t)(q0 + r) * D;
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + g + 8 * i;
+    if (row >= S) continue;
+    const float safe = l[i] == 0.f ? 1.f : l[i];
+    float* dst = out + head + (size_t)row * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) dst[d] = o[i][j] / safe;
+    for (int j = 0; j < NO; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c >= D) break;
+      const float v0 = o[j][2 * i] / safe, v1 = o[j][2 * i + 1] / safe;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst + c) = make_float2(v0, v1);
+      } else {
+        dst[c] = v0;
+        if (c + 1 < D) dst[c + 1] = v1;
+      }
     }
-  }
-  if (tid < BQ && q0 + tid < S) {
-    const float l = s_l[tid];
-    lse[(size_t)h * S + q0 + tid] = l == 0.f ? NEG : s_alpha[tid] + logf(l);
+    if (t == 0)
+      lse[(size_t)h * S + row] =
+          l[i] == 0.f ? NEG : (m[i] + log2f(l[i])) * LN2;
   }
 }
 
@@ -146,17 +260,18 @@ template <typename T, int DMAX>
 static int launch(const void* q, const void* k, const void* v, float* out,
                   float* lse, int H, int S, int D, int causal, float scale,
                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(BQ + BK) * (D + 1) +
-                                       (size_t)BK * D + BQ * (BK + 1) +
-                                       2 * BQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BQ - 1) / BQ, H, 1);
-  flash_fwd_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
+  constexpr int CT = col_rows<T>(DMAX);
+  // once, for the most shared memory any D of this instantiation takes
+  static const cudaError_t attr =
+      allow_smem(flash_fwd_kernel<T, DMAX>, fwd_smem_bytes<T>(CT, DMAX));
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = fwd_smem_bytes<T>(CT, pad16(D));
+  const int vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                  (D * sizeof(T)) % 16 == 0;
+  const unsigned blocks = (unsigned)H * ((S + ROWS - 1) / ROWS);
+  flash_fwd_kernel<T, DMAX><<<blocks, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, lse, S, D, causal, scale);
+      static_cast<const T*>(v), out, lse, H, S, D, causal, scale, vec);
   return (int)cudaGetLastError();
 }
 

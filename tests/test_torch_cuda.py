@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: the three packed matmuls on the
 tensor-core tile of ``mma_tile.cuh`` — K1 (``test_cuda_grouped_*``), K2
 (``test_cuda_expert_*``) and K3 (``test_cuda_quant_matmul_*``), built from
-``src/repro_torch/kernels/quant_matmul/csrc`` — and K4 and K5, built from
-``src/repro_torch/kernels/attn_scores/csrc``, against their plain PyTorch
+``src/repro_torch/kernels/quant_matmul/csrc`` — and K4 and K5 on the
+tensor-core score tile of ``score_tile.cuh`` (``test_cuda_attn_*``), built
+from ``src/repro_torch/kernels/attn_scores/csrc``, against their plain PyTorch
 versions on the same CUDA inputs, at ragged shapes (S, M and N not
 multiples of a tile), with f32 and bf16 x, unaligned x, and f32 rows
 spanning 2^-100 to 2^100. (The engine's greedy tokens on the card
@@ -352,16 +353,16 @@ def test_cuda_quant_matmul_f32_split_wide_range():
     assert torch.isfinite(got).all()
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,d", [(1, 8), (77, 40), (200, 128), (70, 256)])
-def test_cuda_attn_scores_match_plain(causal, dtype, s, d):
-    """K4 out and lse, K5 mass: |Δ| <= 1e-4·(1 + |ref|) against the plain
-    versions (f32 sums in another order); masses sum to S per head."""
-    dev = _need_cuda()
-    rng = np.random.default_rng(s * 1000 + d)
+def _attn_case(dev, rng, s, d, dtype, causal, qk_scale=1.0):
+    """K4 out and lse, K5 mass and the op's importance against the plain
+    versions on the same inputs: |Δ| <= 1e-4·(1 + |ref|) (f32 sums in
+    another order; f32 q, k, v as exact bf16 planes on the tensor cores);
+    masses sum to S per head within 1e-5·S; one launch of each kernel per
+    call. q and k are scaled by ``qk_scale``. Returns (q, k, v, out, lse,
+    mass, reference logits)."""
     q, k, v = (torch.from_numpy(rng.standard_normal((3, s, d)).astype(
-        np.float32)).to(dev, dtype) for _ in range(3))
+        np.float32)).to(dev) for _ in range(3))
+    q, k, v = (q * qk_scale).to(dtype), (k * qk_scale).to(dtype), v.to(dtype)
     before = dict(amod.LAUNCHES)
     out, lse = amod.flash_fwd_cuda(q, k, v, causal=causal)
     mass = amod.key_mass_cuda(q, k, lse, causal=causal)
@@ -373,10 +374,52 @@ def test_cuda_attn_scores_match_plain(causal, dtype, s, d):
                      (imp, rmass.mean(0))):
         assert torch.all((got - ref).abs() <= 1e-4 * (1 + ref.abs())), \
             (got - ref).abs().max().item()
-    assert torch.allclose(mass.sum(1), torch.full((3,), float(s),
-                                                  device=dev), rtol=1e-5)
+    assert torch.all((mass.sum(1) - s).abs() <= 1e-5 * s), mass.sum(1)
     assert amod.LAUNCHES == {"flash_fwd": before["flash_fwd"] + 2,
                              "key_mass": before["key_mass"] + 2}
+    logits = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * d ** -0.5
+    return q, k, v, out, lse, mass, logits
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d", [(1, 8), (77, 40), (200, 128), (70, 256),
+                                 (130, 33), (1000, 64), (1030, 128),
+                                 (1030, 256)])
+def test_cuda_attn_scores_match_plain(causal, dtype, s, d):
+    """K4 and K5 against their plain versions (``_attn_case``) at ragged S
+    from one tile to many key tiles past a ragged end, and every D bucket
+    of the kernels (zero-padded depth at 8, 33 and 40; at odd D the rows
+    are not 16-byte pieces, so the tiles are copied element-wise)."""
+    dev = _need_cuda()
+    _attn_case(dev, np.random.default_rng(s * 1000 + d), s, d, dtype, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_attn_scores_large_logits(causal, dtype, d):
+    """Logits up to |s| ~ 50 (q and k scaled by sqrt(11): s has std 11),
+    where a two-plane split of f32 q and k (2^-16 relative) would break
+    the tolerance: K4/K5 still hold 1e-4·(1 + |ref|)."""
+    dev = _need_cuda()
+    *_, logits = _attn_case(dev, np.random.default_rng(50 + d), 300, d,
+                            dtype, causal, qk_scale=11 ** 0.5)
+    assert logits.abs().max().item() >= 40
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attn_scores_deterministic(dtype):
+    """Two calls give bitwise-equal out, lse and mass (fixed-order sums,
+    no atomics)."""
+    dev = _need_cuda()
+    q, k, v, out, lse, mass, _ = _attn_case(
+        dev, np.random.default_rng(5), 1030, 128, dtype, True)
+    out2, lse2 = amod.flash_fwd_cuda(q, k, v, causal=True)
+    mass2 = amod.key_mass_cuda(q, k, lse2, causal=True)
+    torch.cuda.synchronize()
+    for a, b in ((out, out2), (lse, lse2), (mass, mass2)):
+        assert torch.equal(a, b)
 
 
 def test_cuda_new_wrappers_refuse_bad_inputs():

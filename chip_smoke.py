@@ -22,12 +22,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      OLMoE-1B-7B and a 512-token prompt, with the launch counts of K3-K5
      read around these calls: the op's mass must equal the model's own
      Eq. 1 importance from ``attention_train``;
-  3. reference — greedy tokens of the engine on the card equal the plain
-     path's on the CPU for a reduced f32 OLMoE;
+  3. reference — on a reduced f32 OLMoE, the engine on the card against
+     the plain path on the CPU: greedy tokens and every request's modeled
+     edge numbers (TTFT, TPOT, cache stats, weight bytes) equal exactly in
+     "4/2" and "4/0"; seeded sampled tokens equal, and a sampled request's
+     solo ``generate`` equals its batch row;
   4. serve — full-width OLMoE-1B-7B ("4/2", random weights from a seeded
      CUDA generator, quantized on the card): ``generate_batch`` over 8
      ragged requests on 4 slots, then one ``generate``; the launch counts
-     of K1 and K2 are read around these calls and checked.
+     of K1 and K2 are read around these calls and checked. Printed: each
+     request's modeled TTFT/TPOT under ``modeled_edge_<profile>`` (the
+     cost model's edge device, not the card), the modeled cache hit rate,
+     the replay's host seconds and the host syncs of the batch; then four
+     seeded sampled requests against the same four greedy (wall, decode
+     ms per step, host syncs).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -480,8 +488,13 @@ def _api_phase(cfg, dev):
 
 
 def _reference_phase(dev):
-    """Greedy tokens on the card (K1/K2) equal the plain path's on the CPU
-    for a reduced f32 OLMoE, in "4/2" and "4/0"."""
+    """The engine on the card against the plain path on the CPU for a
+    reduced f32 OLMoE, in "4/2" and "4/0": greedy tokens equal, and every
+    request's modeled edge numbers (TTFT, TPOT, cache stats, weight
+    bytes: the host replay of the card's telemetry) equal exactly. Then a
+    seeded sampled set (temperature 0.7, top_k 0 and 20, one greedy row):
+    card tokens equal CPU tokens, and one sampled request's solo
+    ``generate`` equals its batch row on the card."""
     import dataclasses
 
     import numpy as np
@@ -496,17 +509,42 @@ def _reference_phase(dev):
     reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
         1, base.vocab_size, int(s))], max_new_tokens=int(m))
         for s, m in ((9, 6), (17, 11), (5, 8), (12, 20))]
+    modeled = ("ttft_s", "tpot_s", "cache_stats", "prefill_weight_bytes",
+               "decode_weight_bytes_per_tok")
     for low_bits in (2, 0):
         cfg = dataclasses.replace(base, dymoe=dataclasses.replace(
             base.dymoe, low_bits=low_bits))
-        cpu = [r.tokens for r in DyMoEEngine(cfg, params, device="cpu")
-               .generate_batch(reqs, num_slots=2)]
-        gpu = [r.tokens for r in DyMoEEngine(cfg, params, device=dev)
-               .generate_batch(reqs, num_slots=2)]
-        assert gpu == cpu, f"card tokens {gpu} != CPU plain tokens {cpu}"
+        cpu = DyMoEEngine(cfg, params, device="cpu").generate_batch(
+            reqs, num_slots=2)
+        gpu = DyMoEEngine(cfg, params, device=dev).generate_batch(
+            reqs, num_slots=2)
+        ct, gt = [r.tokens for r in cpu], [r.tokens for r in gpu]
+        assert gt == ct, f"card tokens {gt} != CPU plain tokens {ct}"
+        for i, (c, g) in enumerate(zip(cpu, gpu)):
+            for f in modeled:
+                assert getattr(g, f) == getattr(c, f), \
+                    f"request {i} {f}: card {getattr(g, f)} != CPU " \
+                    f"{getattr(c, f)}"
         print(f"reference: reduced olmoe f32 4/{low_bits}, {len(reqs)} "
               f"requests, card tokens == CPU plain tokens "
-              f"({sum(map(len, gpu))} tokens)", flush=True)
+              f"({sum(map(len, gt))} tokens); modeled ttft/tpot, cache "
+              f"stats, weight bytes == CPU (ttft_s "
+              f"{[r.ttft_s for r in gpu]})", flush=True)
+    sampled = [dataclasses.replace(r, temperature=t, top_k=k, seed=sd)
+               for r, (t, k, sd) in zip(reqs, ((0.7, 0, 5), (0.7, 20, 6),
+                                               (0.0, 0, None), (0.7, 0, 7)))]
+    cpu_eng = DyMoEEngine(base, params, device="cpu")
+    gpu_eng = DyMoEEngine(base, params, device=dev)
+    ct = [r.tokens for r in cpu_eng.generate_batch(sampled, num_slots=2)]
+    gt = [r.tokens for r in gpu_eng.generate_batch(sampled, num_slots=2)]
+    greedy = [r.tokens for r in gpu_eng.generate_batch(reqs, num_slots=2)]
+    assert gt == ct, f"sampled card tokens {gt} != CPU tokens {ct}"
+    assert gt[2] == greedy[2] and gt[0] != greedy[0]
+    solo = gpu_eng.generate(sampled[1]).tokens
+    assert solo == gt[1], f"solo sampled {solo} != batch row {gt[1]}"
+    print(f"reference: reduced olmoe f32 4/2, {len(sampled)} seeded requests"
+          f" (temperature 0.7, top_k 0 / 20, one greedy): card tokens == CPU "
+          f"tokens, solo generate == batch row", flush=True)
 
 
 # ------------------------------------------------------------------ serve
@@ -558,6 +596,7 @@ def _serve_phase(dev):
     launches = dict(km.LAUNCHES)                   # main path ends here
     solo_stats = dict(engine.last_stats)
     peak = torch.cuda.max_memory_allocated()
+    sampling = _sampled_batch(engine, reqs[:4])
     profiled = _profile_decode(engine, [
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
@@ -575,17 +614,33 @@ def _serve_phase(dev):
     k2_solo = launches["expert_quant_matmul"] - k2_batch
     k1_solo = launches["expert_quant_matmul_grouped"] - k1_batch
     assert k2_solo >= 3 * L and k1_solo == 3 * L * solo_stats["decode_steps"]
-    # where the batch run synchronized with the card (file:line counts)
-    sync_at = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs
-                      if "synchroniz" in str(w.message))
+    profile_name = engine.ecfg.profile.name
+    for r in out + [solo]:
+        assert np.isfinite(r.ttft_s) and r.ttft_s > 0, r.ttft_s
+        assert np.isfinite(r.tpot_s) and r.tpot_s > 0, r.tpot_s
+    final = max((r.cache_stats for r in out),
+                key=lambda c: c["hits"] + c["misses"])
     summary = dict(
+        # outputs of the edge cost model (EngineConfig.profile), replayed
+        # from this run's telemetry: NOT times of the card that ran it
+        **{f"modeled_edge_{profile_name}": dict(
+            ttft_s=[r.ttft_s for r in out], tpot_s=[r.tpot_s for r in out],
+            prefill_weight_bytes=[r.prefill_weight_bytes for r in out],
+            decode_weight_bytes_per_tok=[r.decode_weight_bytes_per_tok
+                                         for r in out],
+            cache_hit_rate=final["hits"] / (final["hits"] + final["misses"]),
+            cache_stats=final)},
+        replay_host_s=batch_stats["replay_s"],
+        replay_jobs=batch_stats["replay_jobs"],
+        host_syncs_in_batch=_sync_sites(syncs),
+        sampled=sampling,
         requests=len(reqs), prompt_tokens=[q.prompt_len for q in reqs],
         new_tokens=[len(r.tokens) for r in out], batch_wall_s=batch_wall,
         batch_decode_tok_per_s=(n_tok - len(reqs)) / batch_wall,
         wall_s=[r.wall_s for r in out],
         queue_wait_s=[r.queue_wait_s for r in out],
         decode_wall_s=[r.decode_wall_s for r in out], batch=batch_stats,
-        host_syncs_in_batch=dict(sync_at), solo_wall_s=solo_wall,
+        solo_wall_s=solo_wall,
         solo_tokens=len(solo.tokens), solo=solo_stats,
         solo_matches_batch_row=solo.tokens == out[3].tokens,
         k1_launches=launches["expert_quant_matmul_grouped"],
@@ -594,6 +649,90 @@ def _serve_phase(dev):
         max_memory_allocated_gib=peak / 2**30, profile=profiled)
     print("serve: " + json.dumps(summary), flush=True)
     return launches
+
+
+def _sync_sites(caught) -> dict:
+    """Where a run synchronized with the card: file:line -> count, from
+    the warnings of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    return dict(Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                        if "synchroniz" in str(w.message)))
+
+
+def _sampler_step(dev, v) -> dict:
+    """What one sampled decode step adds, alone: the per-row keys folded
+    with the rows' counts and ``sample_token_rows`` over 4 rows of a
+    ``v``-token vocabulary (temperature 0.7, top_k 0 and 20), against the
+    greedy step's argmax. Host ms per call (50 calls, one sync at the
+    end: the eager dispatch a decode step pays) and device ms."""
+    import torch
+    from repro_torch.serving.sampler import PRNGKey, fold_in, \
+        sample_token_rows
+    g = torch.Generator(device=dev).manual_seed(5)
+    logits = torch.randn((4, v), generator=g, device=dev) * 3
+    keys = fold_in(PRNGKey(9).to(dev).expand(4, 2),
+                   torch.arange(4, device=dev))
+    temps = torch.full((4,), 0.7, device=dev)
+    topks = torch.tensor([0, 20, 0, 20], device=dev)
+    emitted = torch.arange(4, dtype=torch.int32, device=dev)
+
+    def sampled():
+        return sample_token_rows(logits, fold_in(keys, emitted), temps,
+                                 topks)
+
+    def greedy():
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def host_ms(fn, n=50):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    return dict(vocab=v, rows=4, sampled_host_ms=host_ms(sampled),
+                sampled_device_ms=_device_ms(sampled),
+                greedy_host_ms=host_ms(greedy),
+                greedy_device_ms=_device_ms(greedy))
+
+
+def _sampled_batch(engine, reqs) -> dict:
+    """Four seeded sampled requests (temperature 0.7, top_k 0 and 20) on 4
+    slots against the same four served greedily, in turns G S S G: each
+    run's wall, decode ms per step (the longest request's decode wall
+    over the steps dispatched) and, for the first sampled run, where it
+    synchronized with the card; then the sampling step alone
+    (``_sampler_step``)."""
+    import dataclasses
+    import warnings as _w
+
+    import torch
+    sampled = [dataclasses.replace(r, temperature=0.7, top_k=(0, 20)[i % 2],
+                                   seed=100 + i) for i, r in enumerate(reqs)]
+    runs, syncs_sampled = [], None
+    for kind in ("greedy", "sampled", "sampled", "greedy"):
+        batch = sampled if kind == "sampled" else reqs
+        with _w.catch_warnings(record=True) as caught:
+            _w.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            out = engine.generate_batch(batch, num_slots=4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode("default")
+        if kind == "sampled" and syncs_sampled is None:
+            syncs_sampled = _sync_sites(caught)
+        steps = engine.last_stats["decode_steps"]
+        runs.append(dict(kind=kind, wall_s=wall, decode_steps=steps,
+                         decode_ms_per_step=1e3 * max(
+                             r.decode_wall_s for r in out) / steps,
+                         tokens=[len(r.tokens) for r in out]))
+        for r, q in zip(out, batch):
+            assert len(r.tokens) == q.max_new_tokens, (len(r.tokens), q)
+    return dict(runs=runs, host_syncs_in_sampled=syncs_sampled,
+                step=_sampler_step(engine.device, engine.cfg.vocab_size))
 
 
 def _profile_decode(engine, activities) -> dict:

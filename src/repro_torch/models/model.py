@@ -421,10 +421,13 @@ def decode_many_batched(params, cfg: ModelConfig, tokens: torch.Tensor,
                         done: torch.Tensor, n_emitted: torch.Tensor,
                         limits: torch.Tensor, eos_tokens: torch.Tensor,
                         qparams: dict, live_cap: Optional[int] = None,
+                        rng_keys: Optional[torch.Tensor] = None,
+                        temperatures: Optional[torch.Tensor] = None,
+                        top_ks: Optional[torch.Tensor] = None,
                         ) -> Tuple[torch.Tensor, Dict[str, KVCache],
                                    DyMoEInfo, torch.Tensor, torch.Tensor]:
-    """Greedy multi-step decode over a slot batch with a per-row
-    done-mask — the device half of the continuous-batching scheduler.
+    """Multi-step decode over a slot batch with a per-row done-mask — the
+    device half of the continuous-batching scheduler.
 
     A row freezes once it emits its ``eos_tokens`` entry (-1 = none) or
     its ``n_emitted`` count reaches ``limits``: its token re-feeds
@@ -435,9 +438,19 @@ def decode_many_batched(params, cfg: ModelConfig, tokens: torch.Tensor,
     MoE precision region at that many rows (a power of two >= the live
     count, from the scheduler's ladder).
 
+    Sampling is greedy unless ``rng_keys`` (B, 2) raw per-row PRNG keys,
+    ``temperatures`` (B,) and ``top_ks`` (B,) are given: row r's step then
+    draws with ``fold_in(rng_keys[r], n_emitted[r])``, its own emitted
+    count, through :func:`repro_torch.serving.sampler.sample_token_rows`,
+    so its tokens equal a solo run's and do not depend on the chunk
+    length or the slot. Rows with ``temperature <= 0`` take the argmax.
+
     tokens/done/n_emitted/limits/eos_tokens: (B,). Returns (tokens
     (num_steps, B) int32, caches (updated in place), DyMoEInfo with
     leaves (num_steps, L, B, E), done (B,), n_emitted (B,))."""
+    # local import: serving depends on models, not the reverse
+    from repro_torch.serving.sampler import fold_in, sample_token_rows
+
     tok = tokens.to(torch.int32)
     dn = done.to(torch.bool)
     emitted = n_emitted.to(torch.int32)
@@ -447,7 +460,11 @@ def decode_many_batched(params, cfg: ModelConfig, tokens: torch.Tensor,
         logits, caches, info = decode_step(
             params, cfg, tok, caches, qparams=qparams, live_rows=live,
             moe_capacity=live_cap)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # first max
+        if rng_keys is None:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # first max
+        else:
+            nxt = sample_token_rows(logits, fold_in(rng_keys, emitted),
+                                    temperatures, top_ks)
         nxt = torch.where(dn, tok, nxt)
         emitted = emitted + live.to(torch.int32)
         dn = dn | ((eos_tokens >= 0) & (nxt == eos_tokens)) \

@@ -6,7 +6,9 @@ tensor-core score tile of ``score_tile.cuh`` (``test_cuda_attn_*``), built
 from ``src/repro_torch/kernels/attn_scores/csrc``, against their plain PyTorch
 versions on the same CUDA inputs, at ragged shapes (S, M and N not
 multiples of a tile), with f32 and bf16 x, unaligned x, and f32 rows
-spanning 2^-100 to 2^100. (The engine's greedy tokens on the card
+spanning 2^-100 to 2^100; and the sampler's threefry bits and per-row
+tokens on the card against the CPU's (``test_cuda_sampler_equals_cpu``).
+(The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -20,6 +22,7 @@ from repro_torch.kernels.attn_scores import attn_scores as amod
 from repro_torch.kernels.quant_matmul import expert_quant_matmul as kmod
 from repro_torch.kernels.quant_matmul import quant_matmul as dmod
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
+from repro_torch.serving import sampler
 
 pytestmark = pytest.mark.cuda
 
@@ -447,3 +450,43 @@ def test_cuda_new_wrappers_refuse_bad_inputs():
         amod.flash_fwd_cuda(q, q[:, :8].contiguous(), q)
     with pytest.raises(ValueError):            # lse of another shape
         amod.key_mass_cuda(q, q, torch.zeros(2, 8, device=dev))
+
+
+def test_cuda_sampler_equals_cpu():
+    """The sampler on the card against the CPU for the same keys: folded
+    keys, threefry bits and uniforms bitwise (integer ops and one exact
+    f32 step); Gumbels within 4 ulp of max(1, |g|): CUDA's and the CPU's
+    f32 ``log`` are each within 1 ulp of the true value, so the inner
+    -log(u) may differ by 2 ulp of itself (2 ulp of max(1, |g|) after
+    the outer log) and the outer logs by 2 more; per-row sampled tokens
+    over a 50,304-token vocabulary equal, mixed temperatures and top_k,
+    and a greedy row; on the card, ``sample_token`` of row i equals row
+    i of ``sample_token_rows``."""
+    dev = _need_cuda()
+    keys = sampler.fold_in(sampler.PRNGKey(3).expand(4, 2), torch.arange(4))
+    keys_d = sampler.fold_in(sampler.PRNGKey(3).to(dev).expand(4, 2),
+                             torch.arange(4, device=dev))
+    assert torch.equal(keys_d.cpu(), keys)
+    shape = (1, 50304)
+    assert torch.equal(sampler.bits(keys_d, shape).cpu(),
+                       sampler.bits(keys, shape))
+    assert torch.equal(sampler.uniform(keys_d, shape).cpu(),
+                       sampler.uniform(keys, shape))
+    g, g_d = sampler.gumbel(keys, shape), sampler.gumbel(keys_d, shape).cpu()
+    ulp = torch.from_numpy(np.spacing(np.maximum(g.abs().numpy(), 1.0)))
+    assert torch.all((g_d - g).abs() <= 4 * ulp)
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy((rng.standard_normal((4, 50304)) * 3).astype(
+        np.float32))
+    temps = torch.tensor([0.7, 0.7, 0.0, 1.3])
+    topks = torch.tensor([0, 20, 0, 50304 + 5])
+    want = sampler.sample_token_rows(logits, keys, temps, topks)
+    got = sampler.sample_token_rows(logits.to(dev), keys_d, temps.to(dev),
+                                    topks.to(dev))
+    assert torch.equal(got.cpu(), want)
+    assert int(want[2]) == int(torch.argmax(logits[2]))
+    for i in range(4):
+        solo = sampler.sample_token(logits[i:i + 1].to(dev), keys_d[i],
+                                    temperature=float(temps[i]),
+                                    top_k=int(topks[i]))
+        assert int(solo[0]) == int(want[i])

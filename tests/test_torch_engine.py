@@ -1,8 +1,9 @@
 """Port parity end to end: ``repro_torch``'s continuous-batching
-``generate_batch`` gives the JAX engine's greedy tokens (exact) on ragged
-requests; the engine refuses to run without CUDA unless asked for the
-CPU; and the port (``repro_torch.serving.engine``, ``chip_smoke``) imports
-with ``jax`` and ``repro`` made unimportable."""
+``generate_batch`` gives the JAX engine's greedy tokens and modeled
+TTFT/TPOT (exact) on ragged requests; the engine refuses to run without
+CUDA unless asked for the CPU; and the port (its serving, replay and
+sampling modules, ``chip_smoke``) imports with ``jax`` and ``repro`` made
+unimportable."""
 import os
 import subprocess
 import sys
@@ -52,7 +53,9 @@ def test_generate_batch_tokens_equal_jax_engine(low_bits):
     assert [r.tokens for r in tout] == [r.tokens for r in jout]
     assert [len(r.tokens) for r in tout] == [m for _, m in shapes]
     assert eng.last_stats["waves_batched"] >= 1   # a ragged wave ran
-    assert all(np.isnan(r.ttft_s) and r.wall_s > 0 for r in tout)
+    assert [(r.ttft_s, r.tpot_s) for r in tout] == \
+        [(r.ttft_s, r.tpot_s) for r in jout]       # modeled: exact
+    assert all(np.isfinite(r.ttft_s) and r.wall_s > 0 for r in tout)
 
 
 def test_engine_without_device_needs_cuda():
@@ -69,6 +72,11 @@ def test_port_imports_without_jax_or_repro():
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             "import repro_torch.serving.engine\n"
+            "import repro_torch.serving.scheduler\n"
+            "import repro_torch.serving.sampler\n"
+            "import repro_torch.serving.cost_model\n"
+            "import repro_torch.core.cache\n"
+            "import repro_torch.core.orchestrator\n"
             "import repro_torch.params\n"
             "import repro_torch.kernels.quant_matmul.ops\n"
             "import chip_smoke\n")

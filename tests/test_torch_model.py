@@ -47,7 +47,13 @@ def _olmoe_reduced(low_bits):
 
 CFGS = {"tiny-4/2": lambda: _moe_cfg(2), "tiny-4/0": lambda: _moe_cfg(0),
         "olmoe_reduced-4/2": lambda: _olmoe_reduced(2),
-        "olmoe_reduced-4/0": lambda: _olmoe_reduced(0)}
+        "olmoe_reduced-4/0": lambda: _olmoe_reduced(0),
+        # shared experts; the paper's two evaluation models
+        "qwen2_moe_reduced-4/2": lambda: jget_config(
+            "qwen2_moe_a2p7b").reduced(),
+        "mixtral_reduced-4/2": lambda: jget_config("mixtral_8x7b").reduced(),
+        "qwen3_30b_reduced-4/2": lambda: jget_config(
+            "qwen3_30b_a3b").reduced()}
 
 
 def _setup(name):
@@ -124,7 +130,7 @@ def test_decode_many_batched_matches(name):
 
 @pytest.mark.parametrize("name,mode", [
     (name, mode) for name in CFGS for mode in ("solo", "ragged", "wave")
-    if not (mode == "ragged" and name.startswith("olmoe"))])
+    if not (mode == "ragged" and not name.startswith("tiny"))])
 def test_prefill_matches(name, mode):
     """solo: one shared Critical set (K2 path); ragged: right-aligned
     batch with one shared set (off the scheduler's path, so on the tiny

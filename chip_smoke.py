@@ -26,16 +26,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the plain path on the CPU: greedy tokens and every request's modeled
      edge numbers (TTFT, TPOT, cache stats, weight bytes) equal exactly in
      "4/2" and "4/0"; seeded sampled tokens equal, and a sampled request's
-     solo ``generate`` equals its batch row;
+     solo ``generate`` equals its batch row (on the card the decode chunks
+     run as CUDA graph replays);
   4. serve — full-width OLMoE-1B-7B ("4/2", random weights from a seeded
-     CUDA generator, quantized on the card): ``generate_batch`` over 8
-     ragged requests on 4 slots, then one ``generate``; the launch counts
-     of K1 and K2 are read around these calls and checked. Printed: each
-     request's modeled TTFT/TPOT under ``modeled_edge_<profile>`` (the
+     CUDA generator, quantized on the card): a warm run of
+     ``generate_batch`` over 8 ragged requests on 4 slots and one
+     ``generate`` captures the compiled decode chunk's keys (its host
+     syncs are reported apart); then the same calls again, counted: the
+     launch counts of K1 and K2 are read around them and checked. Printed:
+     each request's modeled TTFT/TPOT under ``modeled_edge_<profile>`` (the
      cost model's edge device, not the card), the modeled cache hit rate,
      the replay's host seconds and the host syncs of the batch; then four
      seeded sampled requests against the same four greedy (wall, decode
-     ms per step, host syncs).
+     ms per step, host syncs). Then the compiled chunk: the graph gate
+     (the same 16-step chunk from a copy of the same state, eager
+     ``decode_many_batched`` against the graph replay: tokens, masks,
+     done and emitted equal, greedy and sampled; eager and replay ms per
+     step; the K1 kernels a replay runs under torch.profiler), one
+     request profiled with graphs and eager, and every captured key
+     replayed once under torch.profiler with its rows frozen (right after
+     the counted runs for their keys, at the end for the rest): the port's
+     kernels the replay ran must equal the counts each replay adds to the
+     launch counters, in the ``graph:`` line.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -80,6 +92,12 @@ KERNELS = {
         "src/repro_torch/kernels/attn_scores/csrc/key_mass.cu",
         "src/repro/kernels/attn_scores/attn_scores.py:141", None),
 }
+# launch counter -> its kernel's symbol (a substring of the profiler's key)
+SYMBOLS = {"expert_quant_matmul_grouped": "eqm_mma::grouped_kernel",
+           "expert_quant_matmul": "eqm_mma::expert_kernel",
+           "quant_matmul": "qm_mma::dense_",
+           "flash_fwd": "attn::flash_fwd_kernel",
+           "key_mass": "attn::key_mass_kernel"}
 
 
 def _smi() -> str:
@@ -577,6 +595,21 @@ def _serve_phase(dev):
     solo_req = reqs[3]
 
     torch.cuda.reset_peak_memory_stats()
+    # the warm (cold-start) run: the compiled chunk captures the keys the
+    # counted runs below meet; its host syncs (the captures') apart
+    with warnings.catch_warnings(record=True) as warm_syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        warm = engine.generate_batch(reqs, num_slots=4)
+        torch.cuda.synchronize()
+        cold_wall = time.perf_counter() - t0
+        cold_stats = dict(engine.last_stats)
+        engine.generate(solo_req)
+        torch.cuda.synchronize()
+        cold_solo_stats = dict(engine.last_stats)
+        torch.cuda.set_sync_debug_mode("default")
+
     km.reset_launch_counts()                       # main path starts here
     with warnings.catch_warnings(record=True) as syncs:
         warnings.simplefilter("always")
@@ -595,11 +628,25 @@ def _serve_phase(dev):
     solo_wall = time.perf_counter() - t0
     launches = dict(km.LAUNCHES)                   # main path ends here
     solo_stats = dict(engine.last_stats)
+    checked = set()          # the counted runs' keys, measured at replay
+    replay_counts = _replay_counts(engine._decode_batched, checked)
     peak = torch.cuda.max_memory_allocated()
+    assert [r.tokens for r in out] == [r.tokens for r in warm]
+    assert batch_stats["compiles"] == 0 and solo_stats["compiles"] == 0, \
+        "the counted runs met a key the warm run did not capture"
     sampling = _sampled_batch(engine, reqs[:4])
-    profiled = _profile_decode(engine, [
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    profiled = _profile_decode(engine, activities)
+    graph = _graph_phase(engine, activities, profiled)
+    replay_counts += _replay_counts(engine._decode_batched, checked)
+    graph.update(serve_wall_cold_s=cold_wall, serve_wall_warm_s=batch_wall,
+                 cold_batch=dict(compiles=cold_stats["compiles"],
+                                 compile_s=cold_stats["compile_s"]),
+                 cold_solo=dict(compiles=cold_solo_stats["compiles"],
+                                compile_s=cold_solo_stats["compile_s"]),
+                 host_syncs_in_warm_run=_sync_sites(warm_syncs),
+                 replay_counts=replay_counts)
 
     n_tok = sum(len(r.tokens) for r in out)
     for r, q in zip(out, reqs):
@@ -631,6 +678,7 @@ def _serve_phase(dev):
             cache_hit_rate=final["hits"] / (final["hits"] + final["misses"]),
             cache_stats=final)},
         replay_host_s=batch_stats["replay_s"],
+        replay_share_of_wall=batch_stats["replay_s"] / batch_wall,
         replay_jobs=batch_stats["replay_jobs"],
         host_syncs_in_batch=_sync_sites(syncs),
         sampled=sampling,
@@ -648,14 +696,61 @@ def _serve_phase(dev):
         k1_expected_batch=k1_expect,
         max_memory_allocated_gib=peak / 2**30, profile=profiled)
     print("serve: " + json.dumps(summary), flush=True)
+    print("graph: " + json.dumps(graph), flush=True)
     return launches
+
+
+def _replay_counts(compiled, checked: set) -> list:
+    """Every compiled key of ``compiled``'s decode states not yet in
+    ``checked``, replayed once under torch.profiler on its own state with
+    every row frozen (the caches do not change): the port's kernels the
+    replay ran, counted by symbol (``SYMBOLS``), must equal the counts the
+    key adds to the launch counters at each replay (its capture's). Adds
+    the keys to ``checked``; returns one row a key."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    for st in compiled.states():
+        b, dev = st.num_slots, st.inputs["tokens"].device
+        for key, entry in list(st.entries.items()):
+            ident = (b, st.slots_len, *key)
+            if ident in checked:
+                continue
+            steps, cap, sampled = key
+            host = dict(done=np.ones(b, bool), n_emitted=np.zeros(b, np.int32),
+                        limits=np.ones(b, np.int32),
+                        eos_tokens=np.full(b, -1, np.int32))
+            if sampled:
+                host.update(rng_keys=np.zeros((b, 2), np.int64),
+                            temperatures=np.zeros(b, np.float32),
+                            top_ks=np.zeros(b, np.int64))
+            tok = torch.zeros(b, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                compiled(st, tok, num_steps=steps, live_cap=cap, **host)
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            ran = {name: sum(e.count for e in kernels if sym in e.key)
+                   for name, sym in SYMBOLS.items()}
+            assert set(entry.launches) == set(SYMBOLS), entry.launches
+            assert ran == entry.launches, \
+                f"key {ident}: the replay ran {ran}, counted {entry.launches}"
+            checked.add(ident)
+            rows.append(dict(slots=b, slots_len=st.slots_len, num_steps=steps,
+                             live_cap=cap, sampled=sampled, kernels=ran))
+    return rows
 
 
 def _sync_sites(caught) -> dict:
     """Where a run synchronized with the card: file:line -> count, from
-    the warnings of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    the warnings of ``torch.cuda.set_sync_debug_mode("warn")`` (not its
+    one-time notice that the mode is a prototype)."""
     return dict(Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                        if "synchroniz" in str(w.message)))
+                        if "synchroniz" in str(w.message)
+                        and "prototype" not in str(w.message)))
 
 
 def _sampler_step(dev, v) -> dict:
@@ -700,7 +795,8 @@ def _sampler_step(dev, v) -> dict:
 
 def _sampled_batch(engine, reqs) -> dict:
     """Four seeded sampled requests (temperature 0.7, top_k 0 and 20) on 4
-    slots against the same four served greedily, in turns G S S G: each
+    slots against the same four served greedily: one warm run of each
+    (capturing their keys), then in turns G S S G: each
     run's wall, decode ms per step (the longest request's decode wall
     over the steps dispatched) and, for the first sampled run, where it
     synchronized with the card; then the sampling step alone
@@ -711,6 +807,14 @@ def _sampled_batch(engine, reqs) -> dict:
     import torch
     sampled = [dataclasses.replace(r, temperature=0.7, top_k=(0, 20)[i % 2],
                                    seed=100 + i) for i, r in enumerate(reqs)]
+    warm = []                   # capture both modes' keys first
+    for batch in (reqs, sampled):
+        t0 = time.perf_counter()
+        engine.generate_batch(batch, num_slots=4)
+        torch.cuda.synchronize()
+        warm.append(dict(wall_s=time.perf_counter() - t0,
+                         compiles=engine.last_stats["compiles"],
+                         compile_s=engine.last_stats["compile_s"]))
     runs, syncs_sampled = [], None
     for kind in ("greedy", "sampled", "sampled", "greedy"):
         batch = sampled if kind == "sampled" else reqs
@@ -725,20 +829,21 @@ def _sampled_batch(engine, reqs) -> dict:
         if kind == "sampled" and syncs_sampled is None:
             syncs_sampled = _sync_sites(caught)
         steps = engine.last_stats["decode_steps"]
+        assert engine.last_stats["compiles"] == 0, engine.last_stats
         runs.append(dict(kind=kind, wall_s=wall, decode_steps=steps,
                          decode_ms_per_step=1e3 * max(
                              r.decode_wall_s for r in out) / steps,
                          tokens=[len(r.tokens) for r in out]))
         for r, q in zip(out, batch):
             assert len(r.tokens) == q.max_new_tokens, (len(r.tokens), q)
-    return dict(runs=runs, host_syncs_in_sampled=syncs_sampled,
+    return dict(warm=warm, runs=runs, host_syncs_in_sampled=syncs_sampled,
                 step=_sampler_step(engine.device, engine.cfg.vocab_size))
 
 
 def _profile_decode(engine, activities) -> dict:
     """Where the time of one request goes: a 64-token solo admission and
-    one 16-step decode chunk, timed once plain and once under
-    torch.profiler. Device busy = the sum of the CUDA kernels' device time
+    one 16-step decode chunk (warm: its chunk key captured), timed once
+    plain and once under torch.profiler. Device busy = the sum of the CUDA kernels' device time
     (one stream, so they do not overlap); idle share = 1 - busy / wall;
     the eight largest kernels by device time, and every instantiation of
     the port's packed matmuls (K1, K2) with its time and count."""
@@ -758,7 +863,8 @@ def _profile_decode(engine, activities) -> dict:
         engine.generate(req)
         torch.cuda.synchronize()
         wall_traced = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -771,8 +877,158 @@ def _profile_decode(engine, activities) -> dict:
         traced_wall_ms=wall_traced * 1e3, device_busy_ms=busy_us / 1e3,
         idle_share=1 - busy_us / 1e6 / wall_traced,
         kernel_launches=sum(e.count for e in kernels), port_kernels=ours,
+        # the host's launch calls (kernels, graphs) as the trace saw them
+        runtime_launches={e.key: e.count for e in events
+                          if e.device_type == torch.autograd.DeviceType.CPU
+                          and "Launch" in e.key},
         top_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
                           count=e.count) for e in top])
+
+
+def _graph_phase(engine, activities, profiled) -> dict:
+    """The compiled decode chunk on full-width OLMoE-1B-7B: the profiled
+    request of ``_profile_decode`` again with the chunk run eagerly (the
+    same static-buffer protocol without graphs) beside its graph run
+    (``profiled``), the graph gate (``_graph_gate``), and every graph the
+    engine captured in this run, with its warm-up and capture seconds, and
+    the bytes of their shared pool."""
+    from repro_torch.serving.compiled import CompiledDecodeChunk
+
+    compiled = engine._decode_batched
+    engine._decode_batched = CompiledDecodeChunk(engine, graphs=False)
+    try:
+        eager = _profile_decode(engine, activities)
+    finally:
+        engine._decode_batched = compiled
+    gate = _graph_gate(engine)
+    keep = ("wall_ms", "decode_ms_per_step", "traced_wall_ms",
+            "device_busy_ms", "idle_share", "kernel_launches",
+            "runtime_launches")
+    captured = [dict(slots=st.num_slots, slots_len=st.slots_len,
+                     num_steps=k[0], live_cap=k[1], sampled=k[2],
+                     warmup_s=e.warmup_s, capture_s=e.capture_s,
+                     k1_per_replay=e.launches["expert_quant_matmul_grouped"])
+                for st in compiled.states() for k, e in st.entries.items()]
+    states = compiled.states()
+    return dict(graphs_captured=compiled.compiles, graphs_kept=len(captured),
+                states_kept=[(st.num_slots, st.slots_len) for st in states],
+                state_cache_bytes=sum(
+                    t.numel() * t.element_size() for st in states
+                    for t in (st.caches["layers"].k, st.caches["layers"].v)),
+                compile_s_total=compiled.compile_s,
+                pool_bytes=compiled.pool_bytes(),
+                profiled_request={"eager": {k: eager[k] for k in keep},
+                                  "graph": {k: profiled[k] for k in keep}},
+                gate=gate, captured=captured)
+
+
+def _graph_gate(engine) -> dict:
+    """The compiled chunk against the eager one at full width: 4 slots
+    prefilled with 64-token prompts (one slot dead, one row reaching its
+    limit in the second chunk), the same 16-step chunks run by eager
+    ``decode_many_batched`` on a copy of the state and by the engine's
+    compiled chunk on the state itself, greedy and sampled: tokens,
+    Critical/active masks, done and emitted must be equal (the float
+    telemetry's largest difference is reported). Three chunks a mode: the
+    first captures; the eager chunk and the replay are timed between two
+    syncs; the third replay runs under torch.profiler (its device busy
+    time and idle share, from the host's clock around it), where the K1
+    kernels it ran must number 3 × L × 16."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.model import decode_many_batched, prefill
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, dev = engine.cfg, engine.device
+    b, s, steps, chunks, live_cap = 4, 64, 16, 3, 4
+    prompts = torch.randint(1, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(7))
+    slots = s + steps * chunks
+    logits, rc, _ = prefill(engine.params, cfg, prompts,
+                            qparams=engine.qparams, cache_slots=slots)
+    compiled = engine._decode_batched
+    fields = ("k", "v", "positions", "length", "offset")
+    result = {}
+    for sampled in (False, True):
+        state = compiled.acquire(b, slots)
+        ref = {"layers": dataclasses.replace(rc["layers"], **{
+            f: getattr(rc["layers"], f).clone() for f in fields})}
+        for f in fields:
+            getattr(state.caches["layers"], f).copy_(
+                getattr(rc["layers"], f))
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        host = dict(done=np.array([False, False, False, True]),
+                    n_emitted=np.ones(b, np.int32),
+                    limits=np.array([64, 64, 24, 64], np.int32),
+                    eos_tokens=np.full(b, -1, np.int32))
+        if sampled:
+            host.update(
+                rng_keys=np.arange(2 * b, dtype=np.int64).reshape(b, 2) + 9,
+                temperatures=np.array([0.7, 0.7, 0.0, 0.7], np.float32),
+                top_ks=np.array([0, 20, 0, 0], np.int64))
+        rec = dict(eager_ms_per_step=[], graph_ms_per_step=[],
+                   float_max_abs_diff=0.0)
+        for c in range(chunks):
+            kw = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = decode_many_batched(
+                engine.params, cfg, tok.clone(), ref, num_steps=steps,
+                done=kw.pop("done"), n_emitted=kw.pop("n_emitted"),
+                limits=kw.pop("limits"), eos_tokens=kw.pop("eos_tokens"),
+                qparams=engine.qparams, live_cap=live_cap, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if c < chunks - 1:
+                got = compiled(state, tok, num_steps=steps,
+                               live_cap=live_cap, **host)
+                torch.cuda.synchronize()
+            else:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    got = compiled(state, tok, num_steps=steps,
+                                   live_cap=live_cap, **host)
+                    torch.cuda.synchronize()
+                    rec["replay_traced_wall_ms"] = (
+                        time.perf_counter() - t1) * 1e3
+            t2 = time.perf_counter()
+            toks, _, info, dn, emitted = want
+            assert torch.equal(got.tokens, toks), \
+                f"graph tokens != eager tokens (sampled={sampled}, chunk {c})"
+            for f in ("critical_masks", "active_masks"):
+                assert torch.equal(getattr(got.info, f), getattr(info, f)), f
+            assert torch.equal(got.done, dn) and \
+                torch.equal(got.n_emitted, emitted)
+            for f in ("gate_mean", "predicted_next"):
+                rec["float_max_abs_diff"] = max(
+                    rec["float_max_abs_diff"], float(
+                        (getattr(got.info, f) - getattr(info, f)).abs().max()))
+            rec["eager_ms_per_step"].append((t1 - t0) * 1e3 / steps)
+            if c == 0:
+                rec["first_call_s"] = t2 - t1     # capture and one replay
+            elif c == 1:
+                rec["graph_ms_per_step"].append((t2 - t1) * 1e3 / steps)
+            tok = got.tokens[-1].clone()
+            host.update(done=got.done.cpu().numpy(),
+                        n_emitted=got.n_emitted.cpu().numpy())
+        assert host["done"][2] and not host["done"][0]
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        k1 = sum(e.count for e in kernels if "grouped_kernel" in e.key)
+        assert k1 == 3 * cfg.num_layers * steps, \
+            f"the replay ran {k1} K1 kernels, not 3 x L x {steps}"
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        rec.update(
+            k1_kernels_per_replay=k1,
+            kernels_per_step=sum(e.count for e in kernels) / steps,
+            replay_device_busy_ms=busy,
+            replay_idle_share=1 - busy / rec["replay_traced_wall_ms"])
+        result["sampled" if sampled else "greedy"] = rec
+        compiled.release(state)
+    return result
 
 
 def main() -> int:

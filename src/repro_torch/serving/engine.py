@@ -14,7 +14,10 @@ co-design:
 
 Both halves are served by the continuous-batching scheduler, which
 replays each admission wave's and each decode chunk's telemetry inline,
-on the dispatch thread, right after the boundary's one host sync.
+on the dispatch thread, right after the boundary's one host sync. Its
+decode chunks run through the engine's compiled chunk
+(``serving/compiled.py``): CUDA graphs captured per key at first use,
+replayed from decode states the engine owns across sessions.
 Requests carry per-request sampling parameters
 (temperature / top-k / seed) with counter-derived PRNG streams, so a
 request's tokens are the same solo and in a batch. Ablation rows of paper
@@ -40,6 +43,7 @@ from repro_torch.models.model import _check_supported, quantize_model
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
 from repro_torch.serving.cost_model import EdgeCostModel, EdgeProfile, \
     expert_bytes
+from repro_torch.serving.compiled import CompiledDecodeChunk
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampler import fold_in
 
@@ -109,9 +113,13 @@ class DyMoEEngine:
         self.qparams = to_device(qparams, self.device) if qparams is not None \
             else quantize_model(self.params, cfg)
         self.cost = EdgeCostModel(cfg, engine_cfg.profile)
+        # the batched decode chunk, compiled (the JAX engine's jax.jit of
+        # decode_many_batched): one CUDA graph per key, replayed from the
+        # engine-owned decode states
+        self._decode_batched = CompiledDecodeChunk(self)
         # the last session's counts (ContinuousBatchingScheduler.stats):
         # chunks, decode steps, batched and solo admission waves, replay
-        # jobs and their host seconds
+        # jobs and their host seconds, compiled-chunk compiles
         self.last_stats: dict = {}
 
     # ------------------------------------------------------------ system

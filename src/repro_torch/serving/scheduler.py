@@ -15,7 +15,9 @@ A session serves requests through a fixed batch of device slots:
                                        #      tokens, then its replay
                                        #   2. one decode chunk of
                                        #      ``decode_chunk`` steps over
-                                       #      every slot
+                                       #      every slot (the engine's
+                                       #      compiled chunk: a CUDA graph
+                                       #      replay on the card)
                                        #   3. ONE host sync: done/emitted
                                        #      masks and the chunk's tokens;
                                        #      finished rows are evicted,
@@ -34,6 +36,14 @@ chunk, through ONE shared orchestrator per session (requests share the
 edge device's expert cache, as they would share its VRAM). A request's
 ``GenerationResult`` is finalized by the replay of its last telemetry;
 its wall clocks stop at the host sync that fetched its last token.
+
+**Decode state.** The slot batch's KV caches belong to the engine, because
+the compiled chunk's graphs bind their addresses: a session holds one of
+the engine's decode states from its start to :meth:`close` (``slots_len``
+rounded up to a power of two, so later sessions find it again), reset at
+the start; admission writes rows into it in place. The chunk's outputs are fixed buffers that the next
+chunk overwrites, so the session copies the last tokens into its own
+``_tok_d`` and queues the telemetry copies before the next dispatch.
 
 Admitted rows are LEFT-ALIGNED into their slots, so an injected row is
 laid out exactly as a solo admission would have been. Rows are
@@ -54,8 +64,8 @@ import torch
 from repro_torch.core.orchestrator import StepTiming
 from repro_torch.models.kv_cache import KVCache
 from repro_torch.models.layers.moe import _capacity
-from repro_torch.models.model import decode_many_batched, \
-    init_decode_state, prefill
+from repro_torch.models.model import prefill
+from repro_torch.serving.compiled import slot_bucket
 from repro_torch.serving.request import Request, RequestHandle
 from repro_torch.serving.sampler import fold_in, raw_key_data, \
     resolve_sampling, sample_token_rows
@@ -83,8 +93,9 @@ def _h2d(a, device: torch.device) -> torch.Tensor:
 def _d2h_async(tensors):
     """Queue copies of device tensors into pinned host memory; they are
     complete once a later blocking fetch on the same stream returns (on
-    the CPU the tensors are returned as they are)."""
-    return tuple(x.to("cpu", non_blocking=True) for x in tensors)
+    the CPU, plain copies: the compiled chunk's outputs are overwritten by
+    the next chunk)."""
+    return tuple(x.to("cpu", non_blocking=True, copy=True) for x in tensors)
 
 
 @dataclasses.dataclass
@@ -114,22 +125,28 @@ class ContinuousBatchingScheduler:
     """Serve a stream of requests through ``num_slots`` device slots on
     top of a :class:`~repro_torch.serving.engine.DyMoEEngine`. One
     instance is one session; its state (slot batch, shared orchestrator)
-    is allocated at the first submit.
+    is allocated at the first submit, and :meth:`close` (which ``run``
+    calls) gives its decode state back to the engine.
 
     ``stats`` counts what the session dispatched: ``chunks``,
     ``decode_steps`` (every step of every chunk), ``waves_batched`` (ragged
     row-local admission prefills of more than one request),
     ``waves_solo`` (solo admission prefills), ``replay_jobs`` (one per
-    wave and per chunk) and ``replay_s`` (their summed host seconds)."""
+    wave and per chunk), ``replay_s`` (their summed host seconds), and
+    ``compiles`` / ``compile_s`` (compiled-chunk keys first met in this
+    session — a CUDA graph capture each on the card — and the seconds
+    their warm-up and capture took)."""
 
     def __init__(self, engine, num_slots: Optional[int] = None):
         self.engine = engine
         self._num_slots = num_slots
         self._started = False
+        self.closed = False
         self._handles: List[RequestHandle] = []
         self._queue: Deque[RequestHandle] = deque()
         self.stats = dict(chunks=0, decode_steps=0, waves_batched=0,
-                          waves_solo=0, replay_jobs=0, replay_s=0.0)
+                          waves_solo=0, replay_jobs=0, replay_s=0.0,
+                          compiles=0, compile_s=0.0)
 
     def _ensure_started(self, *, num_slots: Optional[int] = None,
                         slots_len: Optional[int] = None) -> None:
@@ -137,13 +154,15 @@ class ContinuousBatchingScheduler:
             return
         engine, cfg = self.engine, self.engine.cfg
         self._b = max(1, num_slots or self._num_slots or DEFAULT_SLOTS)
-        self._slots_len = slots_len or cfg.max_seq_len
+        self._slots_len = slot_bucket(slots_len or cfg.max_seq_len,
+                                      cfg.max_seq_len)
         self._chunk = engine.ecfg.decode_chunk
         self._orch = engine._make_orchestrator()  # ONE shared cache+clock
         dev = engine.device
         b = self._b
         self._states: List[Optional[_SlotState]] = [None] * b
-        self._caches = init_decode_state(cfg, b, self._slots_len, dev)
+        self._state = engine._decode_batched.acquire(b, self._slots_len,
+                                                     owner=self)
         self._tok_d = torch.zeros(b, dtype=torch.int32, device=dev)
         self._done = np.ones(b, bool)          # empty slots stay frozen
         self._emitted = np.zeros(b, np.int32)
@@ -162,6 +181,8 @@ class ContinuousBatchingScheduler:
         Its PRNG stream root is ``rng_key`` if given, else
         ``PRNGKey(request.seed)``; ``temperature > 0`` with neither falls
         back to greedy with a warning."""
+        if self.closed:
+            raise RuntimeError("the session is closed")
         self._ensure_started()
         need = request.prompt_len + request.max_new_tokens
         if need > self._slots_len:
@@ -182,7 +203,7 @@ class ContinuousBatchingScheduler:
     def step(self) -> bool:
         """Advance ONE chunk boundary: admit into free slots, then dispatch
         one decode chunk if any row is live. Returns False when idle."""
-        if not self._started:
+        if not self._started or self.closed:
             return False
         progress = self._admit_boundary()
         if self._done.all():
@@ -304,7 +325,7 @@ class ContinuousBatchingScheduler:
         ``S_wave - s_i``; each row is LEFT-ALIGNED here (window rolled to
         offset 0, emptied slots zeroed), making the injected row identical
         to a solo admission of the same request, layout included."""
-        bc = self._caches["layers"]
+        bc = self._state.caches["layers"]
         pos = rc.positions[:, src]                         # (L, n, S)
         off = rc.offset[:, src].to(torch.int64)            # (L, n)
         s = pos.shape[-1]
@@ -333,27 +354,29 @@ class ContinuousBatchingScheduler:
         two. A chunk with no live sampled row runs the greedy argmax (no
         vocabulary sort). The chunk's only host sync is the fetch, at its
         end, of the done/emitted masks together with its tokens."""
-        engine = self.engine
-        dev = engine.device
+        compiled = self.engine._decode_batched
         emitted_before = self._emitted.copy()
         live = ~self._done
         sample_kw = {}
         if (self._temps[live] > 0.0).any():
-            sample_kw = dict(rng_keys=_h2d(self._keys, dev),
-                             temperatures=_h2d(self._temps, dev),
-                             top_ks=_h2d(self._topks, dev))
-        toks_d, self._caches, info, done_d, emitted_d = decode_many_batched(
-            engine.params, engine.cfg, self._tok_d, self._caches,
-            num_steps=self._chunk, done=_h2d(self._done, dev),
-            n_emitted=_h2d(self._emitted, dev),
-            limits=_h2d(self._limits, dev), eos_tokens=_h2d(self._eos, dev),
-            qparams=engine.qparams,
+            sample_kw = dict(rng_keys=self._keys, temperatures=self._temps,
+                             top_ks=self._topks)
+        n_comp, comp_s = compiled.compiles, compiled.compile_s
+        out = compiled(
+            self._state, self._tok_d, num_steps=self._chunk,
+            done=self._done, n_emitted=self._emitted, limits=self._limits,
+            eos_tokens=self._eos,
             live_cap=live_cap_for(int(live.sum()), self._b), **sample_kw)
-        self._tok_d = toks_d[-1]
-        tele = _d2h_async((info.critical_masks, info.active_masks,
-                           info.predicted_next))
-        host = torch.cat([done_d.to(torch.int32)[None], emitted_d[None],
-                          toks_d]).cpu().numpy()          # the boundary sync
+        self.stats["compiles"] += compiled.compiles - n_comp
+        self.stats["compile_s"] += compiled.compile_s - comp_s
+        # the outputs are fixed buffers the next chunk overwrites: copy
+        # what the session keeps, on the stream, before that
+        self._tok_d.copy_(out.tokens[-1])
+        tele = _d2h_async((out.info.critical_masks, out.info.active_masks,
+                           out.info.predicted_next))
+        host = torch.cat([out.done.to(torch.int32)[None],
+                          out.n_emitted[None], out.tokens]
+                         ).cpu().numpy()                  # the boundary sync
         self._done = host[0].astype(bool)
         self._emitted = host[1].astype(np.int32)
         t_sync = time.perf_counter()
@@ -372,6 +395,14 @@ class ContinuousBatchingScheduler:
                 self._states[r] = None  # evict: free to admit; the replay
                 #                         below finalizes st
         self._timed(self._replay_chunk, host[2:], tele, rows)
+
+    def close(self) -> None:
+        """End the session: its decode state goes back to the engine for a
+        later session. Requests not yet finished stay unfinished."""
+        if self._started and not self.closed:
+            self.engine._decode_batched.release(self._state)
+            self._state = None
+        self.closed = True
 
     # ------------------------------------------------------------ replay
     def _timed(self, replay, *args) -> None:
@@ -455,8 +486,11 @@ class ContinuousBatchingScheduler:
                    for i, r in enumerate(requests)]
         max_chunks = sum(-(-max(r.max_new_tokens - 1, 0) // self._chunk)
                          for r in requests) + len(requests) + 1
-        while self.step():
-            assert self.stats["chunks"] <= max_chunks, \
-                f"scheduler made no progress after {max_chunks} chunks"
+        try:
+            while self.step():
+                assert self.stats["chunks"] <= max_chunks, \
+                    f"scheduler made no progress after {max_chunks} chunks"
+        finally:
+            self.close()
         assert all(h.done for h in handles)
         return [h.result() for h in handles]

@@ -7,7 +7,9 @@ from ``src/repro_torch/kernels/attn_scores/csrc``, against their plain PyTorch
 versions on the same CUDA inputs, at ragged shapes (S, M and N not
 multiples of a tile), with f32 and bf16 x, unaligned x, and f32 rows
 spanning 2^-100 to 2^100; and the sampler's threefry bits and per-row
-tokens on the card against the CPU's (``test_cuda_sampler_equals_cpu``).
+tokens on the card against the CPU's (``test_cuda_sampler_equals_cpu``),
+and the engine's compiled decode chunk, a CUDA graph replay, against the
+eager chunk (``test_cuda_compiled_chunk_equals_eager``).
 (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
@@ -490,3 +492,136 @@ def test_cuda_sampler_equals_cpu():
                                     temperature=float(temps[i]),
                                     top_k=int(topks[i]))
         assert int(solo[0]) == int(want[i])
+
+
+def _chunk_equal(got, want):
+    """A compiled chunk's outputs against ``decode_many_batched``'s:
+    tokens, masks, done and emitted bitwise; the float telemetry too (the
+    replay runs the eager chunk's kernels on the same inputs)."""
+    toks, _, info, dn, emitted = want
+    assert torch.equal(got.tokens, toks)
+    for f in ("critical_masks", "active_masks", "gate_mean",
+              "predicted_next"):
+        assert torch.equal(getattr(got.info, f), getattr(info, f)), f
+    assert torch.equal(got.done, dn) and torch.equal(got.n_emitted, emitted)
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_cuda_compiled_chunk_equals_eager(sampled):
+    """The engine's compiled decode chunk (a CUDA graph per key) on the
+    reduced OLMoE against eager ``decode_many_batched`` from a copy of the
+    same state: 4 slots, 2 of them dead, ``live_cap`` 2, one live row
+    hitting its limit mid-chunk. The first call captures and replays; a
+    second replay with the next chunk's inputs (and, sampled, new
+    temperatures) equals eager again, runs clean under
+    ``set_sync_debug_mode("error")`` and adds exactly the captured launch
+    counts to ``LAUNCHES``; the KV caches advance as eager's do."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_many_batched, init_params, \
+        prefill
+    from repro_torch.serving import DyMoEEngine
+
+    dev = _need_cuda()
+    cfg = get_config("olmoe_1b_7b").reduced()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = DyMoEEngine(cfg, params, device=dev)
+    b, s, slots, steps = 4, 9, 40, 6
+    prompts = torch.randint(1, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(1))
+    logits, rc, _ = prefill(eng.params, cfg, prompts, qparams=eng.qparams,
+                            cache_slots=slots)
+    compiled = eng._decode_batched
+    state = compiled.acquire(b, slots)
+    ref_caches = {"layers": dataclasses.replace(
+        rc["layers"], **{f: getattr(rc["layers"], f).clone() for f in
+                         ("k", "v", "positions", "length", "offset")})}
+    for f in ("k", "v", "positions", "length", "offset"):
+        getattr(state.caches["layers"], f).copy_(getattr(rc["layers"], f))
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    host = dict(done=np.array([False, True, False, True]),
+                n_emitted=np.ones(b, np.int32),
+                limits=np.array([20, 20, 4, 20], np.int32),
+                eos_tokens=np.full(b, -1, np.int32))
+    if sampled:
+        host.update(rng_keys=np.arange(2 * b, dtype=np.int64).reshape(b, 2),
+                    temperatures=np.array([0.7, 0.7, 0.0, 0.7], np.float32),
+                    top_ks=np.array([0, 0, 20, 0], np.int64))
+
+    def eager(tok, host):
+        kw = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        return decode_many_batched(
+            eng.params, cfg, tok.clone(), ref_caches, num_steps=steps,
+            done=kw.pop("done"), n_emitted=kw.pop("n_emitted"),
+            limits=kw.pop("limits"), eos_tokens=kw.pop("eos_tokens"),
+            qparams=eng.qparams, live_cap=2, **kw)
+
+    want = eager(tok, host)
+    out = compiled(state, tok, num_steps=steps, live_cap=2, **host)
+    torch.cuda.synchronize()
+    _chunk_equal(out, want)
+    (entry,) = state.entries.values()
+    k1 = "expert_quant_matmul_grouped"
+    assert entry.graph is not None
+    assert entry.launches[k1] == 3 * cfg.num_layers * steps
+    assert bool(out.done[2]) and not bool(out.done[0])   # limit mid-chunk
+    # the next chunk, from this chunk's outputs
+    tok = out.tokens[-1].clone()
+    host.update(done=out.done.cpu().numpy(),
+                n_emitted=out.n_emitted.cpu().numpy())
+    if sampled:
+        host["temperatures"] = np.array([1.3, 0.7, 0.0, 0.2], np.float32)
+    want = eager(tok, host)
+    before = dict(kmod.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = compiled(state, tok, num_steps=steps, live_cap=2, **host)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert {k: kmod.LAUNCHES[k] - before[k] for k in before} == \
+        {k: entry.launches[k] for k in before}
+    assert len(state.entries) == 1                       # replayed
+    _chunk_equal(out, want)
+    for f in ("k", "v", "positions", "length", "offset"):
+        assert torch.equal(getattr(state.caches["layers"], f),
+                           getattr(ref_caches["layers"], f)), f
+    assert compiled.pool_bytes() > 0
+
+
+def test_cuda_evicted_decode_states_free_their_graphs():
+    """Decode states dropped by the engine's bound take their graphs with
+    them, and capture resumes in a fresh pool once no graph is left: on the
+    reduced OLMoE, sessions of three slot buckets with at most one idle
+    state kept, then none, give the tokens of the same engine's eager
+    chunk (``graphs=False``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, Request
+    from repro_torch.serving.compiled import CompiledDecodeChunk
+
+    dev = _need_cuda()
+    cfg = get_config("olmoe_1b_7b").reduced()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = DyMoEEngine(cfg, params, device=dev)
+    rng = np.random.default_rng(3)
+    sets = [[Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, cfg.vocab_size, p)], max_new_tokens=m) for p, m in spec]
+        for spec in ([(9, 6), (20, 9)], [(30, 12), (5, 4)],
+                     [(70, 10), (12, 3)])]
+    graphs = eng._decode_batched
+    eager = CompiledDecodeChunk(eng, graphs=False)
+    for keep in (1, 0):
+        graphs.max_idle_states = keep
+        for reqs in sets:
+            eng._decode_batched = eager
+            want = [r.tokens for r in eng.generate_batch(reqs, num_slots=2)]
+            eng._decode_batched = graphs
+            got = [r.tokens for r in eng.generate_batch(reqs, num_slots=2)]
+            assert got == want
+            assert eng.last_stats["compiles"] > 0       # a new state
+            assert len(graphs.states()) == keep
+        assert (graphs._pool is None) == (keep == 0)

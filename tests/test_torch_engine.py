@@ -2,8 +2,8 @@
 ``generate_batch`` gives the JAX engine's greedy tokens and modeled
 TTFT/TPOT (exact) on ragged requests; the engine refuses to run without
 CUDA unless asked for the CPU; and the port (its serving, replay and
-sampling modules, ``chip_smoke``) imports with ``jax`` and ``repro`` made
-unimportable."""
+sampling modules, the compiled chunk, ``chip_smoke``) imports with
+``jax`` and ``repro`` made unimportable."""
 import os
 import subprocess
 import sys
@@ -73,6 +73,7 @@ def test_port_imports_without_jax_or_repro():
             "sys.modules['repro'] = None\n"
             "import repro_torch.serving.engine\n"
             "import repro_torch.serving.scheduler\n"
+            "import repro_torch.serving.compiled\n"
             "import repro_torch.serving.sampler\n"
             "import repro_torch.serving.cost_model\n"
             "import repro_torch.core.cache\n"

@@ -12,14 +12,17 @@ DyMoE on the inference paths:
     schedule's t_l picks the Critical set (Eq. 4–5); next-layer gate
     predictions (Eq. 6–7) are emitted for the prefetcher. ``row_local``
     picks a Critical set per row (the batched admission wave).
-  * decode — per-row gate-guided importance (Eq. 3) and direct prefetch
-    (Eq. 8), with a live-row mask that freezes finished rows.
+  * decode — gate-guided importance (Eq. 3) and direct prefetch (Eq. 8):
+    per row, with a live-row mask that freezes finished rows, for the
+    continuous-batching chunk (``decode_many_batched``); from the
+    batch-mean gate for the single-sequence reference (``decode_many``).
 
 The KV cache is written in place (see ``kv_cache.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -40,7 +43,8 @@ from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.quant.qtensor import MixedPrecisionWeights
 
 __all__ = ["init_params", "quantize_model", "prefill", "decode_step",
-           "decode_many_batched", "init_decode_state", "DyMoEInfo"]
+           "decode_many", "decode_many_batched", "init_decode_state",
+           "DyMoEInfo"]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -357,18 +361,29 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 caches: Dict[str, KVCache], *, qparams: dict,
+                per_row_moe: bool = False,
                 live_rows: Optional[torch.Tensor] = None,
                 moe_capacity: Optional[int] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, KVCache], DyMoEInfo]:
-    """One continuous-batching decode step (the JAX package's
-    ``per_row_moe=True``): every row picks its own gate-guided Critical
-    set (Eq. 3) and experts run through the fused :func:`moe_apply_rows`.
-    tokens: (B,) int. ``live_rows`` (B,) bool: dead rows take no MoE slot
-    and their KV writes freeze; their logits are garbage by contract.
-    ``moe_capacity`` (requires ``live_rows``) bounds each MoE precision
-    region. Returns (logits (B, V) f32, caches (updated in place),
-    DyMoEInfo with (L, B, E) leaves)."""
+    """One decode step. tokens: (B,) int. Returns (logits (B, V) f32,
+    caches (updated in place), DyMoEInfo).
+
+    ``per_row_moe=False`` (the single-sequence reference path): the
+    gate-guided Critical set (Eq. 3) comes from the batch-mean gate and
+    experts run through :func:`moe_apply` with that one mask — three K2
+    launches a layer through ``quant/mixed.py``; telemetry leaves are
+    (L, E).
+
+    ``per_row_moe=True`` (continuous batching): every row picks its own
+    Critical set and experts run through the fused :func:`moe_apply_rows`
+    (K1); leaves are (L, B, E). ``live_rows`` (B,) bool: dead rows take no
+    MoE slot and their KV writes freeze; their logits are garbage by
+    contract. ``moe_capacity`` (requires ``live_rows``) bounds each MoE
+    precision region."""
     _check_supported(cfg)
+    if not per_row_moe and (live_rows is not None
+                            or moe_capacity is not None):
+        raise ValueError("live_rows / moe_capacity need per_row_moe=True")
     b = tokens.shape[0]
     pol = cfg.dymoe
     t_l = _t_l_array(cfg)
@@ -376,27 +391,37 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     crit_l, act_l, gm_l, pred_l = [], [], [], []
     for l in range(cfg.num_layers):
         lp = _index_tree(params["layers"], l)
+        qm = _index_tree(qparams["layers"]["moe"], l)
         a, _ = attention_decode(lp["attn"], cfg,
                                 rmsnorm(lp["norm1"], x, cfg.norm_eps),
                                 caches["layers"].index(l), live=live_rows)
         x = x + a
         h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
         hflat = h.reshape(b, -1)
-        # Eq. (3) per row: each request's Critical set from ITS OWN gates
         imp = torch.softmax(hflat.to(torch.float32)
                             @ lp["moe"]["wg_router"], dim=-1)    # (B, E)
-        critical = select_critical_rows(imp, t_l[l])
-        y, rstats = moe_apply_rows(
-            lp["moe"], cfg, hflat, critical,
-            _index_tree(qparams["layers"]["moe"], l), live=live_rows,
-            capacity=moe_capacity)
-        x = x + y.reshape(b, 1, -1)
         pg = predict_next_gates(hflat, _next_router(params, cfg, l))
-        _, freq = prefetch_targets(pg[:, None, :], cfg.num_experts_per_tok,
-                                   pol.prefetch_topk)            # (B, E)
+        if per_row_moe:
+            # Eq. (3) per row: each request's Critical set from ITS OWN gates
+            critical = select_critical_rows(imp, t_l[l])
+            y, rstats = moe_apply_rows(lp["moe"], cfg, hflat, critical, qm,
+                                       live=live_rows, capacity=moe_capacity)
+            active, gate_mean = rstats["active"], rstats["gate_mean"]
+            _, freq = prefetch_targets(pg[:, None, :],
+                                       cfg.num_experts_per_tok,
+                                       pol.prefetch_topk)        # (B, E)
+        else:
+            # Eq. (3): gate-guided importance of the batch-mean gate
+            critical = select_critical(imp.mean(dim=0), t_l[l])
+            y, stats = moe_apply(lp["moe"], cfg, hflat,
+                                 critical_mask=critical, qweights=qm)
+            active, gate_mean = stats.expert_load > 0, stats.gate_mean
+            _, freq = prefetch_targets(pg, cfg.num_experts_per_tok,
+                                       pol.prefetch_topk)        # (E,)
+        x = x + y.reshape(b, 1, -1)
         crit_l.append(critical)
-        act_l.append(rstats["active"])
-        gm_l.append(rstats["gate_mean"])
+        act_l.append(active)
+        gm_l.append(gate_mean)
         pred_l.append(freq)
     logits = _lm_head(params, cfg,
                       rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0])
@@ -405,6 +430,55 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, caches, DyMoEInfo(
         critical_masks=torch.stack(crit_l), active_masks=torch.stack(act_l),
         gate_mean=torch.stack(gm_l), predicted_next=pred)
+
+
+_STEP_INFO = ("critical_masks", "active_masks", "gate_mean", "predicted_next")
+
+
+def _stack_infos(infos: List[DyMoEInfo]) -> DyMoEInfo:
+    """Per-step telemetry stacked along a leading step axis."""
+    return DyMoEInfo(**{f: torch.stack([getattr(i, f) for i in infos])
+                        for f in _STEP_INFO})
+
+
+def decode_many(params, cfg: ModelConfig, tokens: torch.Tensor,
+                caches: Dict[str, KVCache], *, num_steps: int,
+                start_step: int = 0, qparams: dict, rng_key=None,
+                temperature: float = 0.0, top_k: int = 0,
+                ) -> Tuple[torch.Tensor, Dict[str, KVCache], DyMoEInfo]:
+    """``num_steps`` decode steps of one batch with one shared Critical
+    set a layer (``decode_step(per_row_moe=False)``), run eagerly — the
+    single-sequence reference path of ``generate_reference``.
+
+    tokens: (B,) — the last sampled token per sequence. Greedy unless
+    ``rng_key`` is given and ``temperature > 0``; step ``i`` then draws
+    with ``fold_in(rng_key, start_step + i)`` through
+    :func:`repro_torch.serving.sampler.sample_token`, a counter-derived
+    stream, so any chunking of the same request samples the same tokens.
+    ``temperature > 0`` without a key falls back to greedy with a warning.
+
+    Returns (tokens (num_steps, B) int32, caches (updated in place),
+    DyMoEInfo with leaves (num_steps, L, E))."""
+    # local import: serving depends on models, not the reverse
+    from repro_torch.serving.sampler import fold_in, sample_token
+
+    if temperature > 0.0 and rng_key is None:
+        warnings.warn("decode_many: temperature > 0 but no PRNG key was "
+                      "provided; falling back to greedy decoding")
+    greedy = rng_key is None or temperature <= 0.0
+    tok = tokens.to(torch.int32)
+    toks, infos = [], []
+    for i in range(num_steps):
+        logits, caches, info = decode_step(params, cfg, tok, caches,
+                                           qparams=qparams)
+        if greedy:
+            tok = sample_token(logits)
+        else:
+            tok = sample_token(logits, fold_in(rng_key, start_step + i),
+                               temperature=temperature, top_k=top_k)
+        toks.append(tok)
+        infos.append(info)
+    return torch.stack(toks), caches, _stack_infos(infos)
 
 
 def _mask_info_rows(info: DyMoEInfo, live: torch.Tensor) -> DyMoEInfo:
@@ -458,8 +532,8 @@ def decode_many_batched(params, cfg: ModelConfig, tokens: torch.Tensor,
     for _ in range(num_steps):
         live = ~dn
         logits, caches, info = decode_step(
-            params, cfg, tok, caches, qparams=qparams, live_rows=live,
-            moe_capacity=live_cap)
+            params, cfg, tok, caches, qparams=qparams, per_row_moe=True,
+            live_rows=live, moe_capacity=live_cap)
         if rng_keys is None:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # first max
         else:
@@ -472,8 +546,4 @@ def decode_many_batched(params, cfg: ModelConfig, tokens: torch.Tensor,
         toks.append(nxt)
         infos.append(_mask_info_rows(info, live))
         tok = nxt
-    stacked = DyMoEInfo(**{
-        f: torch.stack([getattr(i, f) for i in infos])
-        for f in ("critical_masks", "active_masks", "gate_mean",
-                  "predicted_next")})
-    return torch.stack(toks), caches, stacked, dn, emitted
+    return torch.stack(toks), caches, _stack_infos(infos), dn, emitted

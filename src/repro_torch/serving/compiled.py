@@ -42,6 +42,12 @@ CUDA graph and then replayed with one launch:
   protocol runs an eager call of the chunk and writes its results into the
   same fixed outputs. ``graphs=False`` runs that eager protocol on the
   card too, which only a measurement asks for.
+* **Which failures leave the state clean.** A warm-up (all rows frozen)
+  and a capture write no cache, so an out-of-memory error from either
+  reaches the caller as ``torch.OutOfMemoryError`` — the scheduler's
+  dispatch ladder retries it with a shorter chunk (a new key). One raised
+  by an eager chunk, which may have written the caches, is re-raised as a
+  ``RuntimeError``, which the ladder lets through.
 
 Before capture, one step of the key's shapes runs eagerly on a side stream
 with every row frozen (a frozen row writes back the KV values it reads, so
@@ -269,7 +275,13 @@ class CompiledDecodeChunk:
         key = (num_steps, live_cap, sampled)
         entry = state.entries.get(key)
         if not self.graphs:
-            out = self._chunk(state, key)
+            try:
+                out = self._chunk(state, key)
+            except torch.OutOfMemoryError as e:
+                # the eager chunk may have written the caches already: not
+                # an error a retry on this state could recover from
+                raise RuntimeError("decode chunk ran out of memory after "
+                                   "it began writing the decode state") from e
             if entry is None:
                 state.entries[key] = _Entry(
                     out=out, graph=None, launches=dict.fromkeys(_counts(), 0))
@@ -330,8 +342,8 @@ class CompiledDecodeChunk:
         finally:
             if collecting:
                 gc.enable()
-        after = _counts()
-        _set_counts(before)       # recorded, not launched
+            after = _counts()
+            _set_counts(before)   # recorded, not launched (even if failed)
         entry = _Entry(out=out, graph=graph,
                        launches={k: after[k] - before[k] for k in after},
                        warmup_s=t1 - t0,

@@ -9,7 +9,11 @@ multiples of a tile), with f32 and bf16 x, unaligned x, and f32 rows
 spanning 2^-100 to 2^100; and the sampler's threefry bits and per-row
 tokens on the card against the CPU's (``test_cuda_sampler_equals_cpu``),
 and the engine's compiled decode chunk, a CUDA graph replay, against the
-eager chunk (``test_cuda_compiled_chunk_equals_eager``).
+eager chunk (``test_cuda_compiled_chunk_equals_eager``); the open session
+with a ``device.dispatch`` fault against the CPU, ``close()`` after an
+unretried fault giving its decode state back, and ``generate_reference``
+running K2 on decode (``test_cuda_session_*``, ``test_cuda_close_*``,
+``test_cuda_generate_reference_*``).
 (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
@@ -625,3 +629,134 @@ def test_cuda_evicted_decode_states_free_their_graphs():
             assert eng.last_stats["compiles"] > 0       # a new state
             assert len(graphs.states()) == keep
         assert (graphs._pool is None) == (keep == 0)
+
+
+def _reduced_engines(dev, faults_cpu=None, faults_dev=None):
+    """The reduced f32 OLMoE from one CPU generator, as an engine on the
+    CPU (the plain path) and one on the card, each with its injector."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine
+
+    cfg = get_config("olmoe_1b_7b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return (cfg, DyMoEEngine(cfg, params, faults=faults_cpu, device="cpu"),
+            DyMoEEngine(cfg, params, faults=faults_dev, device=dev))
+
+
+def _session_outcomes(eng, cfg, specs):
+    """Six ragged requests through a 2-slot session (slots 64), driven to
+    idle: every handle's tokens or typed-error class and modeled numbers,
+    and the health counters (``last_fault`` aside)."""
+    import dataclasses
+
+    session = eng.serve(num_slots=2, slots_len=64)
+    rng = np.random.default_rng(3)
+    handles = [session.submit(r) for r in specs(rng)]
+    session.drain(cancel_queued=False)
+    health = dataclasses.asdict(session.health())
+    health.pop("last_fault")
+    session.close()
+    out = []
+    for h in handles:
+        if h.error is not None:
+            out.append((h.request_id, type(h.error).__name__))
+        else:
+            r = h.result(drive=False)
+            out.append((h.request_id, r.tokens, r.ttft_s, r.tpot_s,
+                         r.cache_stats, r.decode_weight_bytes_per_tok))
+    return out, health
+
+
+def _six(rng):
+    from repro_torch.serving import Request
+    return [Request(prompt_tokens=[int(v) for v in rng.integers(1, 500, n)],
+                    max_new_tokens=m, request_id=f"req-{i}")
+            for i, (n, m) in enumerate(
+                [(8, 6), (5, 4), (9, 8), (6, 3), (7, 5), (4, 7)])]
+
+
+@pytest.mark.parametrize("times", [1, 6], ids=["retry", "burst"])
+def test_cuda_session_with_dispatch_fault_equals_cpu(times):
+    """An open session on the reduced f32 OLMoE with ``device.dispatch``
+    failing ``times`` attempts from the second on: one retry on a halved
+    chunk (a new graph key), or a burst down the whole ladder (16, 8, 4, 2,
+    1 steps, then a deferred row) to a ``DispatchError``. The card's
+    outcomes — tokens, typed errors, modeled TTFT/TPOT, cache stats — and
+    health counters equal the CPU's; the decode state goes back to the
+    engine at ``close()``."""
+    from repro_torch.serving import FaultInjector, FaultSpec
+
+    dev = _need_cuda()
+
+    def inj():
+        return FaultInjector([FaultSpec(site="device.dispatch", at=1,
+                                        times=times)])
+
+    cfg, cpu, gpu = _reduced_engines(dev, inj(), inj())
+    want = _session_outcomes(cpu, cfg, _six)
+    got = _session_outcomes(gpu, cfg, _six)
+    assert got == want
+    assert got[1]["dispatch_retries"] == times
+    assert (got[1]["dispatch_failures"] > 0) == (times > 1)
+    assert not any(st.held for st in gpu._decode_batched.states())
+    assert gpu._decode_batched.compiles >= 2     # the halved chunk's key
+
+
+def test_cuda_close_after_fault_gives_state_back():
+    """A session whose step raised an error the ladder does not take (a
+    plain RuntimeError from the chunk) still gives its decode state back
+    at ``close()``, resolving its handles with ``SessionClosed``; the next
+    session acquires that state and serves the CPU's tokens."""
+    from repro_torch.serving import SessionClosed
+    from repro_torch.serving.compiled import CompiledDecodeChunk
+
+    dev = _need_cuda()
+    cfg, cpu, gpu = _reduced_engines(dev)
+    s = gpu.serve(num_slots=2, slots_len=64)
+    hs = [s.submit(r) for r in _six(np.random.default_rng(3))]
+    s.step()
+    def fail(self, *a, **kw):
+        raise RuntimeError("device error")
+
+    inner = CompiledDecodeChunk.__call__
+    CompiledDecodeChunk.__call__ = fail
+    try:
+        with pytest.raises(RuntimeError, match="device error"):
+            s.step()
+    finally:
+        CompiledDecodeChunk.__call__ = inner
+    assert s.health().dispatch_retries == 0
+    (state,) = gpu._decode_batched.states()
+    s.close()
+    assert not state.held
+    assert any(isinstance(h.error, SessionClosed) for h in hs)
+    assert _session_outcomes(gpu, cfg, _six) == \
+        _session_outcomes(cpu, cfg, _six)
+    assert gpu._decode_batched.states() == [state]
+
+
+def test_cuda_generate_reference_launches_k2_on_decode():
+    """``generate_reference`` on the card: the solo prefill and every
+    decode step (``decode_step(per_row_moe=False)``, experts at M 1 per
+    expert) run K2, three launches a layer, and no K1; tokens and modeled
+    numbers equal the CPU's, greedy and sampled."""
+    from repro_torch.serving import Request
+
+    dev = _need_cuda()
+    cfg, cpu, gpu = _reduced_engines(dev)
+    rng = np.random.default_rng(5)
+    for temp, seed in ((0.0, None), (0.8, 11)):
+        req = Request(prompt_tokens=[int(v) for v in rng.integers(
+            1, cfg.vocab_size, 13)], max_new_tokens=7, temperature=temp,
+            top_k=20, seed=seed)
+        want = cpu.generate_reference(req)
+        kmod.reset_launch_counts()
+        got = gpu.generate_reference(req)
+        torch.cuda.synchronize()
+        assert kmod.LAUNCHES["expert_quant_matmul"] == \
+            3 * cfg.num_layers * 7          # prefill + 6 decode steps
+        assert kmod.LAUNCHES["expert_quant_matmul_grouped"] == 0
+        assert got.tokens == want.tokens
+        assert (got.ttft_s, got.tpot_s, got.cache_stats) == \
+            (want.ttft_s, want.tpot_s, want.cache_stats)

@@ -73,6 +73,9 @@ def test_port_imports_without_jax_or_repro():
             "sys.modules['repro'] = None\n"
             "import repro_torch.serving.engine\n"
             "import repro_torch.serving.scheduler\n"
+            "import repro_torch.serving.faults\n"
+            "import repro_torch.serving.policy\n"
+            "import repro_torch.serving.request\n"
             "import repro_torch.serving.compiled\n"
             "import repro_torch.serving.sampler\n"
             "import repro_torch.serving.cost_model\n"

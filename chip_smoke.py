@@ -12,7 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      activations), held against their plain PyTorch versions on the same
      CUDA inputs; times (CUDA events, median; and the device time of the
      kernels alone under torch.profiler), bounds, plain and library
-     times;
+     times; then K2 at one expert (the 1-expert lift of the dense and SSM
+     projections) at full-width qwen3_0p6b, zamba2_1p2b and
+     falcon_mamba_7b shapes, decode M 4 and prefill M 512, both tiers
+     held against the plain version, the high tier timed beside bf16
+     ``torch.matmul``;
   2. kernel API — K3 (``quant_matmul``) at OLMoE-1B-7B's dense projection
      shape (also with f32 activations at M 512) and K4 + K5
      (``flash_fwd``, ``key_mass``) at its full attention width, f32 and
@@ -27,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      edge numbers (TTFT, TPOT, cache stats, weight bytes) equal exactly in
      "4/2" and "4/0"; seeded sampled tokens equal, and a sampled request's
      solo ``generate`` equals its batch row (on the card the decode chunks
-     run as CUDA graph replays);
+     run as CUDA graph replays); then reduced f32 qwen3_0p6b (dense),
+     zamba2_1p2b (Mamba2 + shared attention) and falcon_mamba_7b (Mamba1):
+     ``generate_batch`` and ``generate_reference`` tokens and modeled
+     numbers, card == CPU;
   4. serve — full-width OLMoE-1B-7B ("4/2", random weights from a seeded
      CUDA generator, quantized on the card): a warm run of
      ``generate_batch`` over 8 ragged requests on 4 slots and one
@@ -47,7 +54,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      replayed once under torch.profiler with its rows frozen (right after
      the counted runs for their keys, at the end for the rest): the port's
      kernels the replay ran must equal the counts each replay adds to the
-     launch counters, in the ``graph:`` line.
+     launch counters, in the ``graph:`` line. On the same engine, the
+     open session (``session:``) and ``generate_reference``
+     (``reference_full:``);
+  5. archs — full-width qwen3_0p6b (28 layers), zamba2_1p2b (38 layers,
+     7 shared-attention sites) and falcon_mamba_7b (64 layers), "4/2":
+     6 ragged requests through ``generate_batch`` on 4 slots, warm then
+     counted (K2 launches exact: 3 dense or 2 SSM a layer per decode step
+     and prefill; no K1), and the graph gate on each decode state (KV,
+     SSM, SSM + shared KV: eager chunk == replay, every cache leaf
+     bitwise); one ``arch:`` line a model (wall, decode ms/step, peak
+     memory, K2 launches).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -298,6 +315,66 @@ def _kernel_cases(cfg, dev):
                     lambda: plain(*args, **kw),
                     lambda: torch.bmm(x, w_sel), err, nbytes, flops))
                 del w_sel
+    return records
+
+
+# K2 at E = 1 (quant/mixed.py's lift of a dense weight): the FFN and SSM
+# projections of the non-MoE paths, (arch, matmul, K, N)
+K2_E1_SHAPES = (("qwen3_0p6b", "gate_up", 1024, 3072),
+                ("qwen3_0p6b", "down", 3072, 1024),
+                ("zamba2_1p2b", "in_proj", 2048, 8384),   # N % 128 == 64
+                ("zamba2_1p2b", "out_proj", 4096, 2048),
+                ("falcon_mamba_7b", "in_proj", 4096, 16384),
+                ("falcon_mamba_7b", "out_proj", 8192, 4096))
+
+
+def _k2_e1_cases(dev):
+    """K2 with one expert at the dense and SSM paths' shapes, "4/2", bf16
+    x: decode M 4 (four slots) and prefill M 512. Both tiers are held
+    against the plain version; the high tier (4-bit, the heavier) is
+    timed, with bf16 ``torch.matmul`` on the dequantized weight as the
+    library call."""
+    import torch
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.quant.qtensor import MixedPrecisionWeights
+    from repro_torch.quant.quantize import dequantize_tensor
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    plain = km.PLAIN["expert_quant_matmul"]
+    records = []
+    for arch, name, k, n in K2_E1_SHAPES:
+        w = torch.randn((1, k, n), generator=gen, device=dev) * k ** -0.5
+        mp = MixedPrecisionWeights.build(w.to(torch.bfloat16), 4, 2, 64)
+        del w
+        w_hi = dequantize_tensor(mp.high.packed[0], mp.high.scales[0], 4, 64,
+                                 torch.bfloat16)
+        hi_bytes = mp.high.packed.numel() + mp.high.scales.numel() * 4
+        for m in (4, 512):
+            x = torch.randn((1, m, k), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            kw = dict(hi_bits=4, lo_bits=2, group_size=64)
+            err = 0.0
+            for tier in (1, 0):
+                args = (x, mp.high.packed, mp.high.scales, mp.low.packed,
+                        mp.low.scales,
+                        torch.full((1,), tier, dtype=torch.int32, device=dev))
+                got32 = km.expert_quant_matmul_cuda(
+                    *args, out_dtype=torch.float32, **kw)
+                ref32 = plain(*args, out_dtype=torch.float32, **kw)
+                got = km.expert_quant_matmul_cuda(*args, **kw)
+                ref = plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = max(err, _check(got32, ref32, got, ref))
+            args = args[:5] + (torch.ones(1, dtype=torch.int32, device=dev),)
+            x2 = x[0]
+            records.append(_time_case(
+                f"E=1 {arch} {name} 4/2 hi "
+                f"{'decode' if m == 4 else 'prefill'} M={m} K={k} N={n}",
+                lambda: km.expert_quant_matmul_cuda(*args, **kw),
+                lambda: plain(*args, **kw),
+                lambda: torch.matmul(x2, w_hi), err,
+                hi_bytes + m * k * 2 + m * n * 2, 2.0 * m * k * n))
+        del mp, w_hi
     return records
 
 
@@ -643,6 +720,52 @@ def _reference_session(cfg, params, dev):
           f"({dict(errors)} typed), tokens, modeled numbers and health "
           f"{ {k: v for k, v in gpu[1].items() if v and k != 'last_fault'} }",
           flush=True)
+
+
+# the non-MoE families of the arch phases: dense, hybrid (Mamba2 + shared
+# attention), Mamba1
+ARCHS = ("qwen3_0p6b", "zamba2_1p2b", "falcon_mamba_7b")
+
+
+def _reference_archs(dev):
+    """The dense, hybrid and Mamba1 families on the card against the plain
+    path on the CPU, reduced and f32: ``generate_batch`` (4 ragged
+    requests, 2 slots) and ``generate_reference`` tokens, and every
+    modeled number (without experts: the cost model alone), equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, Request
+
+    modeled = ("ttft_s", "tpot_s", "cache_stats", "prefill_weight_bytes",
+               "decode_weight_bytes_per_tok")
+    for arch in ARCHS:
+        cfg = get_config(arch).reduced()
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(2)
+        reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+            1, cfg.vocab_size, int(s))], max_new_tokens=int(m))
+            for s, m in ((9, 6), (17, 11), (5, 8), (12, 20))]
+        cpu_eng = DyMoEEngine(cfg, params, device="cpu")
+        gpu_eng = DyMoEEngine(cfg, params, device=dev)
+        for name, run in (
+                ("generate_batch", lambda e: e.generate_batch(reqs,
+                                                              num_slots=2)),
+                ("generate_reference",
+                 lambda e: [e.generate_reference(reqs[1])])):
+            cpu, gpu = run(cpu_eng), run(gpu_eng)
+            ct, gt = [r.tokens for r in cpu], [r.tokens for r in gpu]
+            assert gt == ct, f"{arch} {name}: card {gt} != CPU {ct}"
+            for i, (c, g) in enumerate(zip(cpu, gpu)):
+                for f in modeled:
+                    assert getattr(g, f) == getattr(c, f), \
+                        f"{arch} {name} request {i} {f}: card " \
+                        f"{getattr(g, f)} != CPU {getattr(c, f)}"
+        print(f"reference: reduced {arch} f32 4/2, generate_batch "
+              f"({len(reqs)} requests, 2 slots) and generate_reference: "
+              f"card tokens and modeled ttft/tpot == CPU "
+              f"({sum(map(len, ct))} tokens)", flush=True)
 
 
 # ------------------------------------------------------------------ serve
@@ -1324,6 +1447,225 @@ def _graph_gate(engine) -> dict:
     return result
 
 
+def _serve_archs(dev) -> dict:
+    """Full-width ``qwen3_0p6b`` (28 layers), ``zamba2_1p2b`` (38 layers,
+    7 shared-attention sites) and ``falcon_mamba_7b`` (64 layers, d_inner
+    8192), "4/2", random weights from a seeded CUDA generator, quantized
+    on the card: 6 ragged requests through ``generate_batch`` on 4 slots
+    (a warm run captures the chunk keys), then the same again, counted:
+    K2 launches must be (3 dense, 2 SSM) x L x (decode steps + prefills),
+    K1 none. Then the graph gate on each model's decode state
+    (``_arch_gate``). Prints one ``arch:`` line a model (wall, decode
+    ms/step, peak memory, K2 launches) and returns K2's launches by path:
+    ``dense`` and ``ssm`` (hybrid and Mamba1 together)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, EngineConfig, Request
+
+    by_path = {"dense": Counter(), "ssm": Counter()}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        kind = cfg.block_kinds()[0]
+        L = cfg.num_layers
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        engine = DyMoEEngine(cfg, params, EngineConfig(decode_chunk=16),
+                             device=dev)
+        del params
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(3)
+        reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+            1, cfg.vocab_size, int(rng.integers(64, 513)))],
+            max_new_tokens=int(rng.integers(16, 41))) for _ in range(6)]
+        t0 = time.perf_counter()
+        warm = engine.generate_batch(reqs, num_slots=4)
+        torch.cuda.synchronize()
+        cold_wall = time.perf_counter() - t0
+        cold = dict(engine.last_stats)
+        km.reset_launch_counts()               # this path starts here
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            out = engine.generate_batch(reqs, num_slots=4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode("default")
+        launches = dict(km.LAUNCHES)           # this path ends here
+        stats = dict(engine.last_stats)
+        assert [r.tokens for r in out] == [r.tokens for r in warm]
+        assert stats["compiles"] == 0, stats
+        q = engine.qparams["layers"]     # K2 per layer: one a packed matrix
+        per_layer = len(q["mlp"] if "mlp" in q else q["ssm"])
+        prefills = stats["waves_batched"] + stats["waves_solo"]
+        expect = per_layer * L * (stats["decode_steps"] + prefills)
+        k2 = launches["expert_quant_matmul"]
+        assert k2 == expect > 0, (arch, launches, stats)
+        assert launches["expert_quant_matmul_grouped"] == 0, launches
+        if kind == "ssm":          # one exact-shape solo prefill a request
+            assert stats["waves_batched"] == 0, stats
+        for r, q in zip(out, reqs):
+            assert len(r.tokens) == q.max_new_tokens
+            assert all(0 <= v < cfg.vocab_size for v in r.tokens)
+            assert np.isfinite(r.ttft_s) and r.ttft_s > 0
+            assert np.isfinite(r.tpot_s) and r.tpot_s > 0
+            assert r.cache_stats is None and r.decode_timings is None
+        n_tok = sum(len(r.tokens) for r in out)
+        gate = _arch_gate(engine)
+        summary = dict(
+            arch=arch, layers=L, d_model=cfg.d_model,
+            d_ff=cfg.d_ff or None, d_inner=cfg.d_inner or None,
+            init_quantize_s=init_s, prompt_tokens=[q.prompt_len
+                                                   for q in reqs],
+            new_tokens=[len(r.tokens) for r in out],
+            serve_wall_cold_s=cold_wall, cold=dict(
+                compiles=cold["compiles"], compile_s=cold["compile_s"]),
+            serve_wall_s=wall, decode_tok_per_s=(n_tok - len(reqs)) / wall,
+            batch=stats, host_syncs=_sync_sites(syncs),
+            k2_launches=k2, k2_per_decode_step=per_layer * L,
+            modeled_edge_ttft_s=[r.ttft_s for r in out],
+            modeled_edge_tpot_s=[r.tpot_s for r in out], gate=gate,
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+            / 2**30)
+        print("arch: " + json.dumps(summary), flush=True)
+        by_path["dense" if kind == "attn_dense" else "ssm"].update(launches)
+        del engine, warm, out
+    return {p: dict(c) for p, c in by_path.items()}
+
+
+def _arch_gate(engine) -> dict:
+    """The compiled chunk against the eager one on a full-width non-MoE
+    decode state (KV caches; SSM state; the hybrid's SSM state and shared
+    KV stack): 4 rows prefilled with 64-token prompts (one dead, one
+    reaching its limit in the second chunk); three 16-step greedy chunks
+    run by eager ``decode_many_batched`` on a copy of the state and by the
+    engine's compiled chunk on the state itself (the first captures, the
+    third replays under torch.profiler). Tokens, done, emitted and every
+    cache leaf must be bitwise equal. Returns the eager and replay ms per
+    step of the second chunk; the third's device busy time, K2 kernels and
+    their device time, and the idle share of a replay; and one 512-token
+    solo prefill's ms and the memory it took above what was allocated
+    before it (the scan's blocks among it)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.model import decode_many_batched, prefill
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, dev = engine.cfg, engine.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    long_prompt = torch.randint(1, cfg.vocab_size, (1, 512), device=dev,
+                                generator=gen)
+    rec = {}
+    for _ in range(2):                  # the second run is the one kept
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prefill(engine.params, cfg, long_prompt, qparams=engine.qparams,
+                cache_slots=512)
+        torch.cuda.synchronize()
+        rec.update(prefill512_ms=(time.perf_counter() - t0) * 1e3,
+                   prefill512_extra_gib=(torch.cuda.max_memory_allocated()
+                                         - base) / 2**30)
+    b, s, steps, chunks = 4, 64, 16, 3
+    prompts = torch.randint(1, cfg.vocab_size, (b, s), device=dev,
+                            generator=gen)
+    slots = s + chunks * steps
+    logits, rc, _ = prefill(engine.params, cfg, prompts,
+                            qparams=engine.qparams, cache_slots=slots)
+    compiled = engine._decode_batched
+    state = compiled.acquire(b, slots)
+    ref = {}
+    for part, c in rc.items():
+        fields = [f.name for f in dataclasses.fields(c)]
+        ref[part] = dataclasses.replace(
+            c, **{f: getattr(c, f).clone() for f in fields})
+        for f in fields:
+            getattr(state.caches[part], f).copy_(getattr(c, f))
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    host = dict(done=np.array([False, False, False, True]),
+                n_emitted=np.ones(b, np.int32),
+                limits=np.array([64, 64, 24, 64], np.int32),
+                eos_tokens=np.full(b, -1, np.int32))
+    for c in range(chunks):
+        kw = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = decode_many_batched(
+            engine.params, cfg, tok.clone(), ref, num_steps=steps,
+            done=kw["done"], n_emitted=kw["n_emitted"], limits=kw["limits"],
+            eos_tokens=kw["eos_tokens"], qparams=engine.qparams, live_cap=4)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if c < chunks - 1:
+            got = compiled(state, tok, num_steps=steps, live_cap=4, **host)
+            torch.cuda.synchronize()
+        else:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                got = compiled(state, tok, num_steps=steps, live_cap=4,
+                               **host)
+                torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        toks, _, info, dn, emitted = want
+        assert info.critical_masks is None and got.info.critical_masks is None
+        assert torch.equal(got.tokens, toks), \
+            f"{cfg.name}: graph tokens != eager tokens (chunk {c})"
+        assert torch.equal(got.done, dn) and \
+            torch.equal(got.n_emitted, emitted)
+        for part, cache in ref.items():
+            for f in dataclasses.fields(cache):
+                assert torch.equal(getattr(state.caches[part], f.name),
+                                   getattr(cache, f.name)), (part, f.name)
+        if c == 0:
+            rec["first_call_s"] = t2 - t1        # capture and one replay
+        elif c == 1:
+            rec.update(eager_ms_per_step=(t1 - t0) * 1e3 / steps,
+                       graph_ms_per_step=(t2 - t1) * 1e3 / steps)
+        else:
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            k2 = [e for e in kernels if SYMBOLS["expert_quant_matmul"]
+                  in e.key]
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            # idle share against the second chunk's untraced replay (the
+            # same kernels): tracing a replay of ~50k kernels slows its
+            # wall several times over
+            rec.update(
+                replay_traced_ms=(t2 - t1) * 1e3, replay_device_busy_ms=busy,
+                replay_idle_share=1 - busy / (rec["graph_ms_per_step"]
+                                              * steps),
+                kernels_per_step=sum(e.count for e in kernels) / steps,
+                k2_kernels=sum(e.count for e in k2),
+                k2_device_ms=sum(e.self_device_time_total for e in k2) / 1e3,
+                top_kernels=[dict(name=e.key[:60], count=e.count,
+                                  ms=e.self_device_time_total / 1e3)
+                             for e in top[:6]])
+        tok = got.tokens[-1].clone()
+        host.update(done=got.done.cpu().numpy(),
+                    n_emitted=got.n_emitted.cpu().numpy())
+    assert host["done"][2] and not host["done"][0]
+    compiled.release(state)
+    rec.update(caches=sorted(ref), state_bytes=sum(
+                   getattr(c, f.name).numel()
+                   * getattr(c, f.name).element_size()
+                   for c in ref.values() for f in dataclasses.fields(c)))
+    return rec
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py  (takes no arguments; runs "
@@ -1374,15 +1716,19 @@ def main() -> int:
 
     cfg = get_config("olmoe_1b_7b")
     records = _kernel_cases(cfg, dev)
+    records["expert_quant_matmul"] += _k2_e1_cases(dev)
     t0 = time.perf_counter()
     records.update(_api_cases(cfg, dev))
     launches = _api_phase(cfg, dev)
     print(f"api: phase {time.perf_counter() - t0:.1f}s", flush=True)
     _reference_phase(dev)
+    _reference_archs(dev)
     serve_launches, engine = _serve_phase(dev)
     launches.update(serve_launches)
     by_path = {"serve": serve_launches, "session": _session_phase(engine),
                "generate_reference": _reference_full(engine)}
+    del engine
+    by_path.update(_serve_archs(dev))
 
     kernels = []
     for name, (source, replaces, library) in KERNELS.items():

@@ -1,9 +1,12 @@
-"""Decode-time KV cache (torch twin of ``repro/models/kv_cache.py``,
-full caches; the ring/sliding-window variant is not ported yet).
+"""Decode-time state (torch twin of ``repro/models/kv_cache.py``): the
+full KV cache and the SSM recurrent state (the ring/sliding-window KV
+variant is not ported yet).
 
 Unlike the JAX package, whose arrays are immutable, the port writes a
 decode step into the cache IN PLACE (one slot per row) instead of copying
-the whole cache every step; ``update_kv_cache`` returns the same object.
+the whole cache every step; ``update_kv_cache`` returns the same object,
+and the Mamba blocks (``layers/ssm.py``) write their ``SSMCache`` in place
+too.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["KVCache", "init_kv_cache", "update_kv_cache", "fill_kv_cache"]
+__all__ = ["KVCache", "SSMCache", "init_kv_cache", "update_kv_cache",
+           "fill_kv_cache"]
 
 
 @dataclasses.dataclass
@@ -34,6 +38,23 @@ class KVCache:
     def index(self, i) -> "KVCache":
         return KVCache(k=self.k[i], v=self.v[i], positions=self.positions[i],
                        length=self.length[i], offset=self.offset[i])
+
+
+@dataclasses.dataclass
+class SSMCache:
+    """conv_state: (B, C_conv, conv - 1) the last conv - 1 inputs of the
+    causal conv, oldest first, in the model's dtype; ssm_state: f32, mamba1
+    (B, d_inner, N) or mamba2 (B, heads, head_dim, N); length: (B,)
+    tokens seen. Stacked caches carry a leading layer dim on every field;
+    :meth:`index` views layer l."""
+
+    conv_state: torch.Tensor
+    ssm_state: torch.Tensor
+    length: torch.Tensor
+
+    def index(self, i) -> "SSMCache":
+        return SSMCache(conv_state=self.conv_state[i],
+                        ssm_state=self.ssm_state[i], length=self.length[i])
 
 
 def init_kv_cache(batch: int, num_kv_heads: int, slots: int, head_dim: int,

@@ -1,9 +1,11 @@
-"""Rotary position embedding (RoPE), half-split layout."""
+"""Positional embeddings: rotary (RoPE, half-split layout) and sinusoidal."""
 from __future__ import annotations
+
+import math
 
 import torch
 
-__all__ = ["rope_freqs", "apply_rope"]
+__all__ = ["rope_freqs", "apply_rope", "sinusoidal_embedding"]
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,
@@ -23,3 +25,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, dim: int,
+                         max_period: float = 10000.0) -> torch.Tensor:
+    """positions: (...,) -> (..., dim) f32 sinusoidal embedding."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

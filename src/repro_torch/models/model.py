@@ -1,23 +1,36 @@
-"""Top-level MoE model of the port: init, quantization, prefill and the
-continuous-batching decode (torch twin of ``repro/models/model.py`` for
-the ``attn_moe`` block kind under DyMoE mixed precision).
+"""Top-level model of the port: init, quantization, prefill and the
+continuous-batching decode for every block kind of the JAX package (torch
+twin of ``repro/models/model.py``), under DyMoE mixed precision.
 
 Per-layer parameters are STACKED with a leading L dim, as in the JAX
 package; a Python loop over the layers takes the place of ``lax.scan``.
-Layer pattern (pre-norm residual): x += Attn(n1(x)); x += MoE(n2(x)).
+Layer pattern per family (pre-norm residual blocks):
+  dense/vlm/audio:  x += Attn(n1(x));  x += MLP(n2(x))
+  moe:              x += Attn(n1(x));  x += MoE(n2(x))      [+ shared experts]
+  ssm:              x += Mamba(n1(x))
+  hybrid (zamba2):  the Mamba backbone, with a weight-SHARED attention
+                    block run BEFORE layer l's Mamba block wherever
+                    ``l % shared_attn_every == 0`` (one KV cache per site).
 
 DyMoE on the inference paths:
-  * prefill — attention yields the per-token received mass (Eq. 1);
+  * MoE prefill — attention yields the per-token received mass (Eq. 1);
     heavy-hitter routing stats give expert importance (Eq. 2); the depth
     schedule's t_l picks the Critical set (Eq. 4–5); next-layer gate
     predictions (Eq. 6–7) are emitted for the prefetcher. ``row_local``
     picks a Critical set per row (the batched admission wave).
-  * decode — gate-guided importance (Eq. 3) and direct prefetch (Eq. 8):
-    per row, with a live-row mask that freezes finished rows, for the
+  * MoE decode — gate-guided importance (Eq. 3) and direct prefetch (Eq.
+    8): per row, with a live-row mask that freezes finished rows, for the
     continuous-batching chunk (``decode_many_batched``); from the
     batch-mean gate for the single-sequence reference (``decode_many``).
+  * dense / SSM / hybrid — only the depth-aware layer tiering applies: a
+    layer is Critical when its retention ratio reaches the schedule mean
+    (``_layer_tier_flags``), and its FFN (or the Mamba in/out
+    projections) runs from the packed codes of that tier's precision. No
+    telemetry leaves: the replay prices them by the cost model alone.
 
-The KV cache is written in place (see ``kv_cache.py``).
+Caches are written in place (see ``kv_cache.py`` and ``layers/ssm.py``):
+{"layers": KVCache or SSMCache with a leading L, "shared": KVCache with a
+leading n_sites (hybrid only)}.
 """
 from __future__ import annotations
 
@@ -31,15 +44,19 @@ from repro_torch.core.importance import heavy_hitter_mask, \
     prefill_expert_importance, prefill_expert_importance_rows, \
     select_critical, select_critical_rows, stable_topk
 from repro_torch.core.prefetch import predict_next_gates, prefetch_targets
-from repro_torch.core.schedule import critical_counts
+from repro_torch.core.schedule import critical_counts, retention_ratio
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kv_cache import KVCache, fill_kv_cache, init_kv_cache
 from repro_torch.models.layers.attention import attention_decode, \
     attention_train
+from repro_torch.models.layers.mlp import init_mlp, mlp, mlp_quantized
 from repro_torch.models.layers.moe import moe_apply, \
-    moe_apply_prefill_rows, moe_apply_rows, quantize_moe
+    moe_apply_prefill_rows, moe_apply_rows
 from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.models.layers.rotary import sinusoidal_embedding
+from repro_torch.models.layers.ssm import init_mamba, init_ssm_cache, \
+    mamba_decode, mamba_prefill
 from repro_torch.quant.qtensor import MixedPrecisionWeights
 
 __all__ = ["init_params", "quantize_model", "prefill", "decode_step",
@@ -52,14 +69,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.block_kinds()[0] != "attn_moe":
+    if cfg.sliding_window or cfg.moe_dispatch_shards > 1:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs MoE architectures only so far")
-    if cfg.sliding_window or cfg.pos_emb != "rope" or \
-            cfg.moe_dispatch_shards > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding windows, non-RoPE positions and sharded "
-            "MoE dispatch are not ported yet")
+            f"{cfg.name}: sliding-window ring caches and sharded MoE "
+            "dispatch are not ported yet")
 
 
 def _index_tree(tree, i):
@@ -74,80 +87,133 @@ def _index_tree(tree, i):
 # --------------------------------------------------------------------- init
 
 
+class _Draw:
+    """Seeded draws of ``init_params`` on one device: a stacked tensor is
+    drawn layer by layer, so no full-depth f32 temporary is built."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.gen, self.device, self.dtype = generator, device, dtype
+
+    def _fill(self, shape, dtype, sample):
+        out = torch.empty(shape, dtype=dtype or self.dtype,
+                          device=self.device)
+        for dst in (out if len(shape) > 2 else [out]):
+            dst.copy_(sample(dst.shape))
+        return out
+
+    def normal(self, shape, scale, dtype=None):
+        """N(0, scale²) draws; tensors of more than 2 dims are stacked."""
+        return self._fill(shape, dtype, lambda sh: torch.randn(
+            sh, generator=self.gen, device=self.device) * scale)
+
+    def uniform(self, shape, lo, hi):
+        """f32 draws uniform in [lo, hi)."""
+        return self._fill(shape, torch.float32, lambda sh: torch.rand(
+            sh, generator=self.gen, device=self.device) * (hi - lo) + lo)
+
+    def full(self, shape, value, dtype=None):
+        return torch.full(shape, value, dtype=dtype or self.dtype,
+                          device=self.device)
+
+
+def _init_attention(cfg: ModelConfig, draw: _Draw, lead=()) -> dict:
+    dm, h, hk, d = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    attn = {"wq": draw.normal(lead + (dm, h * d), dm ** -0.5),
+            "wk": draw.normal(lead + (dm, hk * d), dm ** -0.5),
+            "wv": draw.normal(lead + (dm, hk * d), dm ** -0.5),
+            "wo": draw.normal(lead + (h * d, dm), (h * d) ** -0.5)}
+    if cfg.qkv_bias:
+        for n, w in (("bq", h * d), ("bk", hk * d), ("bv", hk * d)):
+            attn[n] = draw.full(lead + (w,), 0.0)
+    if cfg.qk_norm:
+        attn["q_norm"] = {"scale": draw.full(lead + (d,), 1.0)}
+        attn["k_norm"] = {"scale": draw.full(lead + (d,), 1.0)}
+    return attn
+
+
+def _init_moe(cfg: ModelConfig, draw: _Draw, lead) -> dict:
+    dm, e, dff = cfg.d_model, cfg.num_experts, cfg.expert_d_ff
+    moe = {"wg_router": draw.normal(lead + (dm, e), dm ** -0.5,
+                                    torch.float32),
+           "w_gate": draw.normal(lead + (e, dm, dff), dm ** -0.5),
+           "w_up": draw.normal(lead + (e, dm, dff), dm ** -0.5),
+           "w_down": draw.normal(lead + (e, dff, dm), dff ** -0.5)}
+    if cfg.num_shared_experts:
+        se = cfg.num_shared_experts
+        moe["shared_w_gate"] = draw.normal(lead + (se, dm, dff), dm ** -0.5)
+        moe["shared_w_up"] = draw.normal(lead + (se, dm, dff), dm ** -0.5)
+        moe["shared_w_down"] = draw.normal(lead + (se, dff, dm),
+                                           dff ** -0.5)
+    return moe
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random parameters from ``generator`` (on ``device``; ``None`` takes
     the generator's device), stacked along a leading L dim with the JAX
-    package's tree layout and init scales.
-    Stacked weights are drawn layer by layer, so no full-depth f32
-    temporary is built. (Torch RNG cannot reproduce ``jax.random``: tests
-    bring JAX-made parameters across with ``repro_torch.params``.)"""
+    package's tree layout and init scales. (Torch RNG cannot reproduce
+    ``jax.random``: tests bring JAX-made parameters across with
+    ``repro_torch.params``.)"""
     cfg.validate()
     _check_supported(cfg)
     device = resolve_device(generator.device if device is None else device)
     dt = _dtype(cfg)
+    draw = _Draw(generator, device, dt)
     L, dm, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
-    h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    e, dff = cfg.num_experts, cfg.expert_d_ff
-
-    def normal(shape, scale, dtype=dt, stacked=True):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(shape[0] if stacked else 1):
-            dst = out[i] if stacked else out
-            dst.copy_(torch.randn(dst.shape, generator=generator,
-                                  device=device) * scale)
-        return out
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=device)
-
-    attn = {"wq": normal((L, dm, h * d), dm ** -0.5),
-            "wk": normal((L, dm, hk * d), dm ** -0.5),
-            "wv": normal((L, dm, hk * d), dm ** -0.5),
-            "wo": normal((L, h * d, dm), (h * d) ** -0.5)}
-    if cfg.qkv_bias:
-        for n, w in (("bq", h * d), ("bk", hk * d), ("bv", hk * d)):
-            attn[n] = torch.zeros((L, w), dtype=dt, device=device)
-    if cfg.qk_norm:
-        attn["q_norm"] = {"scale": ones(L, d)}
-        attn["k_norm"] = {"scale": ones(L, d)}
-    moe = {"wg_router": normal((L, dm, e), dm ** -0.5, torch.float32),
-           "w_gate": normal((L, e, dm, dff), dm ** -0.5),
-           "w_up": normal((L, e, dm, dff), dm ** -0.5),
-           "w_down": normal((L, e, dff, dm), dff ** -0.5)}
-    if cfg.num_shared_experts:
-        se = cfg.num_shared_experts
-        moe["shared_w_gate"] = normal((L, se, dm, dff), dm ** -0.5)
-        moe["shared_w_up"] = normal((L, se, dm, dff), dm ** -0.5)
-        moe["shared_w_down"] = normal((L, se, dff, dm), dff ** -0.5)
-    params = {"embed": normal((V, dm), dm ** -0.5, stacked=False),
-              "final_norm": {"scale": ones(dm)},
-              "layers": {"norm1": {"scale": ones(L, dm)},
-                         "norm2": {"scale": ones(L, dm)},
-                         "attn": attn, "moe": moe}}
+    kind = cfg.block_kinds()[0]
+    lead = (L,)
+    layers: Dict[str, Any] = {"norm1": {"scale": draw.full((L, dm), 1.0)}}
+    if kind == "ssm":
+        layers["ssm"] = init_mamba(cfg, draw, lead)
+    else:
+        layers["norm2"] = {"scale": draw.full((L, dm), 1.0)}
+        layers["attn"] = _init_attention(cfg, draw, lead)
+        if kind == "attn_moe":
+            layers["moe"] = _init_moe(cfg, draw, lead)
+        else:
+            layers["mlp"] = init_mlp(cfg, draw, lead)
+    params = {"embed": draw.normal((V, dm), dm ** -0.5),
+              "final_norm": {"scale": draw.full((dm,), 1.0)},
+              "layers": layers}
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((dm, V), dm ** -0.5, stacked=False)
+        params["lm_head"] = draw.normal((dm, V), dm ** -0.5)
+    if cfg.shared_attn_every:
+        params["shared_attn"] = {
+            "norm1": {"scale": draw.full((dm,), 1.0)},
+            "norm2": {"scale": draw.full((dm,), 1.0)},
+            "attn": _init_attention(cfg, draw),
+            "mlp": init_mlp(cfg, draw)}
     return params
 
 
 def quantize_model(params, cfg: ModelConfig) -> Dict[str, Any]:
-    """DyMoE mixed-precision store of the routed experts (paper §5), with
-    the leading L dim kept. Quantized LAYER BY LAYER on the weights'
-    device: the full-depth f32 temporary of an OLMoE expert matrix would
-    be 8.6 GB."""
+    """DyMoE mixed-precision store (paper §5: the routed experts; on
+    non-MoE archs the FFN or the SSM in/out projections, the closest
+    analogue), with the leading L dim kept. Quantized LAYER BY LAYER on the
+    weights' device: the full-depth f32 temporary of an OLMoE expert matrix
+    would be 8.6 GB."""
     _check_supported(cfg)
-    moe = params["layers"]["moe"]
+    kind, pol = cfg.block_kinds()[0], cfg.dymoe
+    if kind == "attn_moe":
+        group, names = "moe", ("w_gate", "w_up", "w_down")
+    elif kind == "attn_dense":
+        group, names = "mlp", tuple(params["layers"]["mlp"])
+    else:
+        group, names = "ssm", ("in_proj", "out_proj")
     out = {}
-    for name in ("w_gate", "w_up", "w_down"):
-        w = moe[name]
+    for name in names:
+        w = params["layers"][group][name]
         stacked: Optional[MixedPrecisionWeights] = None
         for l in range(w.shape[0]):
-            mp = quantize_moe({name: w[l]}, cfg, names=(name,))[name]
+            mp = MixedPrecisionWeights.build(w[l], pol.high_bits,
+                                             pol.low_bits or None,
+                                             pol.group_size)
             if stacked is None:
                 stacked = _alloc_stacked(mp, w.shape[0])
             _copy_layer(stacked, mp, l)
         out[name] = stacked
-    return {"layers": {"moe": out}}
+    return {"layers": {group: out}}
 
 
 def _alloc_stacked(mp: MixedPrecisionWeights,
@@ -172,8 +238,21 @@ def _copy_layer(dst: MixedPrecisionWeights, src: MixedPrecisionWeights,
 # ------------------------------------------------------------------ helpers
 
 
-def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def _embed(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+           embeds: Optional[torch.Tensor] = None,
+           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, or ``embeds`` (B, S, dm) from a VLM / audio
+    frontend; sinusoidal positions added where the config uses them, from
+    ``positions`` (B, S) (each row's own offsets in a ragged batch)."""
+    x = (embeds.to(_dtype(cfg)) if embeds is not None
+         else params["embed"][tokens])
+    if cfg.pos_emb == "sinusoidal":
+        b, s, dm = x.shape
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device)[None].expand(b, s)
+        x = x + sinusoidal_embedding(positions, dm).to(x.dtype)
+    return x
 
 
 def _lm_head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -184,6 +263,66 @@ def _lm_head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def _t_l_array(cfg: ModelConfig) -> List[int]:
     return list(critical_counts(cfg.num_layers, max(cfg.num_experts, 1),
                                 cfg.dymoe.lam, cfg.dymoe.depth_schedule))
+
+
+def _layer_tier_flags(cfg: ModelConfig) -> List[bool]:
+    """Depth-aware layer criticality for non-MoE archs, on the host: a
+    layer is Critical (high precision) when its retention ratio is >= the
+    schedule mean (Python floats, as the JAX package compares them)."""
+    lam = cfg.dymoe.lam
+    mean_r = (1.0 + lam) / 2.0
+    return [retention_ratio(l, cfg.num_layers, lam,
+                            cfg.dymoe.depth_schedule) >= mean_r
+            for l in range(cfg.num_layers)]
+
+
+def _shared_flags(cfg: ModelConfig) -> List[bool]:
+    """Whether the hybrid's shared attention block runs before layer l."""
+    return [bool(cfg.shared_attn_every) and l % cfg.shared_attn_every == 0
+            for l in range(cfg.num_layers)]
+
+
+def _site_index(cfg: ModelConfig) -> List[int]:
+    """Per-layer index into the shared-site cache stack (valid where the
+    shared flag is set)."""
+    idx, cur = [], 0
+    for l, shared in enumerate(_shared_flags(cfg)):
+        idx.append(cur)
+        cur += shared
+    return idx
+
+
+def _n_sites(cfg: ModelConfig) -> int:
+    return sum(_shared_flags(cfg))
+
+
+def _q_ssm(sp: dict, qs: dict, tier: bool) -> dict:
+    """Swap the SSM projections for ``(MixedPrecisionWeights, tier)`` pairs:
+    ssm.py's ``_proj`` runs them from the packed codes of the tier's
+    precision."""
+    return dict(sp, in_proj=(qs["in_proj"], tier),
+                out_proj=(qs["out_proj"], tier))
+
+
+def _shared_block_train(params, cfg: ModelConfig, x: torch.Tensor):
+    """The hybrid's weight-shared attention + (unquantized) MLP block over
+    a whole prompt; returns (x, (k, v))."""
+    sp = params["shared_attn"]
+    a, _, kv = attention_train(sp["attn"], cfg,
+                               rmsnorm(sp["norm1"], x, cfg.norm_eps))
+    x = x + a
+    x = x + mlp(sp["mlp"], cfg, rmsnorm(sp["norm2"], x, cfg.norm_eps))
+    return x, kv
+
+
+def _shared_block_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                         cache: KVCache, live: Optional[torch.Tensor]):
+    sp = params["shared_attn"]
+    a, _ = attention_decode(sp["attn"], cfg,
+                            rmsnorm(sp["norm1"], x, cfg.norm_eps), cache,
+                            live=live)
+    x = x + a
+    return x + mlp(sp["mlp"], cfg, rmsnorm(sp["norm2"], x, cfg.norm_eps))
 
 
 @dataclasses.dataclass
@@ -224,44 +363,106 @@ def _next_router(params, cfg: ModelConfig, l: int) -> torch.Tensor:
 # ------------------------------------------------------------------ prefill
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            qparams: dict, cache_slots: Optional[int] = None,
+def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            *, embeds: Optional[torch.Tensor] = None, qparams: dict,
+            cache_slots: Optional[int] = None,
             lengths: Optional[torch.Tensor] = None,
             row_local: bool = False,
             row_capacities: Optional[torch.Tensor] = None,
-            ) -> Tuple[torch.Tensor, Dict[str, KVCache], DyMoEInfo]:
-    """Prefill under DyMoE mixed precision. tokens: (B, S) int.
+            ) -> Tuple[torch.Tensor, Dict[str, Any], DyMoEInfo]:
+    """Prefill under DyMoE mixed precision. tokens: (B, S) int, or
+    ``embeds`` (B, S, dm) from a VLM / audio frontend.
 
-    ``lengths`` (B,) enables RAGGED batches: ``tokens`` is right-aligned
-    (row i left-padded with ``S - lengths[i]`` pads), per-row position
-    offsets drive RoPE, attention masks pad keys, routing statistics
-    exclude pads, and the KV cache records each row's slot offset.
+    ``lengths`` (B,) enables RAGGED batches (attention archs without a
+    shared-attention site): ``tokens`` is right-aligned (row i left-padded
+    with ``S - lengths[i]`` pads), per-row position offsets drive RoPE and
+    sinusoidal embeddings, attention masks pad keys, routing statistics
+    exclude pads, and the KV cache records each row's slot offset. An SSM
+    scan would thread pads through its state, so SSM archs prefill solo.
 
-    ``row_local`` (the batched admission wave): each row's Critical set is
-    picked from its own Eq. 1–2 importance and experts run through the
-    dual-buffer :func:`moe_apply_prefill_rows`, so a row never depends on
-    its neighbours; MoE telemetry comes back (L, B, E). ``row_capacities``
-    (B,) pins each row's capacity to the host ``_capacity`` value.
+    ``row_local`` (MoE; the batched admission wave): each row's Critical
+    set is picked from its own Eq. 1–2 importance and experts run through
+    the dual-buffer :func:`moe_apply_prefill_rows`, so a row never depends
+    on its neighbours; MoE telemetry comes back (L, B, E).
+    ``row_capacities`` (B,) pins each row's capacity to the host
+    ``_capacity`` value. A no-op for non-MoE archs, whose rows are
+    independent already.
 
-    Returns (last-token logits (B, V) f32, {"layers": stacked KVCache},
-    DyMoEInfo)."""
+    Returns (last-token logits (B, V) f32, caches {"layers": stacked
+    KVCache or SSMCache, "shared": the hybrid's per-site KVCache stack},
+    DyMoEInfo — its leaves None for non-MoE archs)."""
     _check_supported(cfg)
-    b, s = tokens.shape
-    dev = tokens.device
+    kind = cfg.block_kinds()[0]
+    hybrid = bool(cfg.shared_attn_every)
+    src = tokens if tokens is not None else embeds
+    b, s = src.shape[:2]
+    dev = src.device
     offsets = valid = positions = None
     if lengths is not None:
+        assert kind in ("attn_dense", "attn_moe") and not hybrid, \
+            "ragged prefill requires attention archs without shared sites"
         lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
         offsets = torch.full((b,), s, dtype=torch.int32, device=dev) - lengths
         idx = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
         valid = idx >= offsets[:, None]                          # (B, S)
         positions = torch.clamp(idx - offsets[:, None], min=0)   # (B, S)
-    x = _embed(params, tokens)
+    x = _embed(params, cfg, tokens, embeds, positions)
     dt = _dtype(cfg)
+    slots = cache_slots or max(s, cfg.max_seq_len)
+    if kind == "ssm":
+        caches = {"layers": init_ssm_cache(cfg, b, dt, dev,
+                                           layers=cfg.num_layers)}
+    else:
+        caches = {"layers": init_kv_cache(b, cfg.num_kv_heads, slots,
+                                          cfg.head_dim, dt, dev,
+                                          layers=cfg.num_layers)}
+    if hybrid:
+        caches["shared"] = init_kv_cache(b, cfg.num_kv_heads, slots,
+                                         cfg.head_dim, dt, dev,
+                                         layers=_n_sites(cfg))
+    if kind == "attn_moe":
+        x, info = _prefill_moe(params, cfg, x, caches["layers"], qparams,
+                               lengths=lengths, offsets=offsets, valid=valid,
+                               positions=positions, row_local=row_local,
+                               row_capacities=row_capacities)
+    else:
+        tier, shared = _layer_tier_flags(cfg), _shared_flags(cfg)
+        site = _site_index(cfg)
+        q = qparams["layers"]
+        for l in range(cfg.num_layers):
+            lp = _index_tree(params["layers"], l)
+            if shared[l]:
+                x, (k_s, v_s) = _shared_block_train(params, cfg, x)
+                fill_kv_cache(caches["shared"].index(site[l]), k_s, v_s)
+            if kind == "attn_dense":
+                a, _, (k, v) = attention_train(
+                    lp["attn"], cfg, rmsnorm(lp["norm1"], x, cfg.norm_eps),
+                    positions=positions, kv_valid=valid)
+                fill_kv_cache(caches["layers"].index(l), k, v,
+                              lengths=lengths, offsets=offsets)
+                x = x + a
+                x = x + mlp_quantized(
+                    _index_tree(q["mlp"], l), cfg,
+                    rmsnorm(lp["norm2"], x, cfg.norm_eps), tier[l])
+            else:
+                sp = _q_ssm(lp["ssm"], _index_tree(q["ssm"], l), tier[l])
+                y, _ = mamba_prefill(sp, cfg,
+                                     rmsnorm(lp["norm1"], x, cfg.norm_eps),
+                                     caches["layers"].index(l))
+                x = x + y
+        info = DyMoEInfo()
+    logits = _lm_head(params, cfg, rmsnorm(params["final_norm"], x[:, -1],
+                                           cfg.norm_eps))
+    return logits, caches, info
+
+
+def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
+                 qparams: dict, *, lengths, offsets, valid, positions,
+                 row_local: bool, row_capacities):
+    """The MoE layer stack of :func:`prefill`; returns (x, DyMoEInfo)."""
+    b, s = x.shape[:2]
     pol = cfg.dymoe
     e, k_tok = cfg.num_experts, cfg.num_experts_per_tok
-    slots = cache_slots or max(s, cfg.max_seq_len)
-    caches = init_kv_cache(b, cfg.num_kv_heads, slots, cfg.head_dim, dt,
-                           dev, layers=cfg.num_layers)
     t_l = _t_l_array(cfg)
     vflat = valid.reshape(b * s) if valid is not None else None
     telem: Dict[str, list] = {}
@@ -331,40 +532,48 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                gate_mean=gate_mean, pred=freq, aux=aux, dropped=dropped,
                tok_imp=tok_imp)
 
-    logits = _lm_head(params, cfg, rmsnorm(params["final_norm"], x[:, -1],
-                                           cfg.norm_eps))
     st = {key: torch.stack(vals) for key, vals in telem.items()}
     st["pred"][-1] = 0.0     # layer 0's router fed the last layer: mask
-    info = DyMoEInfo(critical_masks=st["critical"],
-                     active_masks=st["active"], expert_load=st["load"],
-                     expert_hh_load=st["hh_load"],
-                     gate_mean=st["gate_mean"], predicted_next=st["pred"],
-                     aux_loss=st["aux"].sum(),
-                     dropped_frac=st["dropped"].to(torch.float32).mean(),
-                     token_importance=st["tok_imp"][-1])
-    return logits, {"layers": caches}, info
+    return x, DyMoEInfo(critical_masks=st["critical"],
+                        active_masks=st["active"], expert_load=st["load"],
+                        expert_hh_load=st["hh_load"],
+                        gate_mean=st["gate_mean"], predicted_next=st["pred"],
+                        aux_loss=st["aux"].sum(),
+                        dropped_frac=st["dropped"].to(torch.float32).mean(),
+                        token_importance=st["tok_imp"][-1])
 
 
 # ------------------------------------------------------------------- decode
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
-                      device=None) -> Dict[str, KVCache]:
+                      device=None) -> Dict[str, Any]:
     """Fresh stacked caches sized for ``seq_len`` context (``device``
-    None means CUDA)."""
+    None means CUDA); an SSM state does not depend on ``seq_len``, the
+    hybrid's shared-site KV caches do."""
     _check_supported(cfg)
     device = resolve_device(device)
-    return {"layers": init_kv_cache(batch, cfg.num_kv_heads, seq_len,
-                                    cfg.head_dim, _dtype(cfg), device,
-                                    layers=cfg.num_layers)}
+    dt = _dtype(cfg)
+    if cfg.block_kinds()[0] == "ssm":
+        caches = {"layers": init_ssm_cache(cfg, batch, dt, device,
+                                           layers=cfg.num_layers)}
+    else:
+        caches = {"layers": init_kv_cache(batch, cfg.num_kv_heads, seq_len,
+                                          cfg.head_dim, dt, device,
+                                          layers=cfg.num_layers)}
+    if cfg.shared_attn_every:
+        caches["shared"] = init_kv_cache(batch, cfg.num_kv_heads, seq_len,
+                                         cfg.head_dim, dt, device,
+                                         layers=_n_sites(cfg))
+    return caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                caches: Dict[str, KVCache], *, qparams: dict,
+                caches: Dict[str, Any], *, qparams: dict,
                 per_row_moe: bool = False,
                 live_rows: Optional[torch.Tensor] = None,
                 moe_capacity: Optional[int] = None,
-                ) -> Tuple[torch.Tensor, Dict[str, KVCache], DyMoEInfo]:
+                ) -> Tuple[torch.Tensor, Dict[str, Any], DyMoEInfo]:
     """One decode step. tokens: (B,) int. Returns (logits (B, V) f32,
     caches (updated in place), DyMoEInfo).
 
@@ -377,17 +586,56 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     ``per_row_moe=True`` (continuous batching): every row picks its own
     Critical set and experts run through the fused :func:`moe_apply_rows`
     (K1); leaves are (L, B, E). ``live_rows`` (B,) bool: dead rows take no
-    MoE slot and their KV writes freeze; their logits are garbage by
-    contract. ``moe_capacity`` (requires ``live_rows``) bounds each MoE
-    precision region."""
+    MoE slot and their KV writes and SSM state freeze; their logits are
+    garbage by contract. ``moe_capacity`` (requires ``live_rows``) bounds
+    each MoE precision region. Non-MoE archs are row-independent either
+    way: their FFN / SSM projections run K2 from the tier's packed codes,
+    and their telemetry leaves are None."""
     _check_supported(cfg)
     if not per_row_moe and (live_rows is not None
                             or moe_capacity is not None):
         raise ValueError("live_rows / moe_capacity need per_row_moe=True")
-    b = tokens.shape[0]
+    kind = cfg.block_kinds()[0]
+    positions = caches["layers"].length[0][:, None]  # (B, 1) new token
+    x = _embed(params, cfg, tokens[:, None], None, positions)  # (B, 1, dm)
+    if kind == "attn_moe":
+        return _decode_moe(params, cfg, x, caches, qparams, per_row_moe,
+                           live_rows, moe_capacity)
+    tier, shared = _layer_tier_flags(cfg), _shared_flags(cfg)
+    site = _site_index(cfg)
+    q = qparams["layers"]
+    for l in range(cfg.num_layers):
+        lp = _index_tree(params["layers"], l)
+        cache = caches["layers"].index(l)
+        if shared[l]:
+            x = _shared_block_decode(params, cfg, x,
+                                     caches["shared"].index(site[l]),
+                                     live_rows)
+        if kind == "attn_dense":
+            a, _ = attention_decode(lp["attn"], cfg,
+                                    rmsnorm(lp["norm1"], x, cfg.norm_eps),
+                                    cache, live=live_rows)
+            x = x + a
+            x = x + mlp_quantized(_index_tree(q["mlp"], l), cfg,
+                                  rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                                  tier[l])
+        else:
+            sp = _q_ssm(lp["ssm"], _index_tree(q["ssm"], l), tier[l])
+            y, _ = mamba_decode(sp, cfg,
+                                rmsnorm(lp["norm1"], x, cfg.norm_eps),
+                                cache, live=live_rows)
+            x = x + y
+    logits = _lm_head(params, cfg,
+                      rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0])
+    return logits, caches, DyMoEInfo()
+
+
+def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
+                qparams: dict, per_row_moe: bool, live_rows, moe_capacity):
+    """The MoE layer stack of :func:`decode_step`."""
+    b = x.shape[0]
     pol = cfg.dymoe
     t_l = _t_l_array(cfg)
-    x = _embed(params, tokens[:, None])                         # (B, 1, dm)
     crit_l, act_l, gm_l, pred_l = [], [], [], []
     for l in range(cfg.num_layers):
         lp = _index_tree(params["layers"], l)
@@ -436,16 +684,19 @@ _STEP_INFO = ("critical_masks", "active_masks", "gate_mean", "predicted_next")
 
 
 def _stack_infos(infos: List[DyMoEInfo]) -> DyMoEInfo:
-    """Per-step telemetry stacked along a leading step axis."""
-    return DyMoEInfo(**{f: torch.stack([getattr(i, f) for i in infos])
-                        for f in _STEP_INFO})
+    """Per-step telemetry stacked along a leading step axis (None leaves,
+    those of non-MoE archs, stay None)."""
+    return DyMoEInfo(**{
+        f: None if getattr(infos[0], f) is None
+        else torch.stack([getattr(i, f) for i in infos])
+        for f in _STEP_INFO})
 
 
 def decode_many(params, cfg: ModelConfig, tokens: torch.Tensor,
-                caches: Dict[str, KVCache], *, num_steps: int,
+                caches: Dict[str, Any], *, num_steps: int,
                 start_step: int = 0, qparams: dict, rng_key=None,
                 temperature: float = 0.0, top_k: int = 0,
-                ) -> Tuple[torch.Tensor, Dict[str, KVCache], DyMoEInfo]:
+                ) -> Tuple[torch.Tensor, Dict[str, Any], DyMoEInfo]:
     """``num_steps`` decode steps of one batch with one shared Critical
     set a layer (``decode_step(per_row_moe=False)``), run eagerly — the
     single-sequence reference path of ``generate_reference``.
@@ -482,7 +733,10 @@ def decode_many(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _mask_info_rows(info: DyMoEInfo, live: torch.Tensor) -> DyMoEInfo:
-    """Zero finished rows' telemetry (leaves (L, B, E), live (B,))."""
+    """Zero finished rows' telemetry (leaves (L, B, E) or None, live
+    (B,))."""
+    if info.critical_masks is None:
+        return info
     m = live[None, :, None]
     return DyMoEInfo(critical_masks=info.critical_masks & m,
                      active_masks=info.active_masks & m,
@@ -491,22 +745,22 @@ def _mask_info_rows(info: DyMoEInfo, live: torch.Tensor) -> DyMoEInfo:
 
 
 def decode_many_batched(params, cfg: ModelConfig, tokens: torch.Tensor,
-                        caches: Dict[str, KVCache], *, num_steps: int,
+                        caches: Dict[str, Any], *, num_steps: int,
                         done: torch.Tensor, n_emitted: torch.Tensor,
                         limits: torch.Tensor, eos_tokens: torch.Tensor,
                         qparams: dict, live_cap: Optional[int] = None,
                         rng_keys: Optional[torch.Tensor] = None,
                         temperatures: Optional[torch.Tensor] = None,
                         top_ks: Optional[torch.Tensor] = None,
-                        ) -> Tuple[torch.Tensor, Dict[str, KVCache],
+                        ) -> Tuple[torch.Tensor, Dict[str, Any],
                                    DyMoEInfo, torch.Tensor, torch.Tensor]:
     """Multi-step decode over a slot batch with a per-row done-mask — the
     device half of the continuous-batching scheduler.
 
     A row freezes once it emits its ``eos_tokens`` entry (-1 = none) or
     its ``n_emitted`` count reaches ``limits``: its token re-feeds
-    unchanged, its KV writes freeze at the write site (so the JAX
-    package's whole-cache freeze has nothing left to do), and its
+    unchanged, its KV writes and SSM state freeze at the write site (so
+    the JAX package's whole-cache freeze has nothing left to do), and its
     telemetry is zeroed. Nothing here reads a device value on the host:
     the caller syncs once, at the chunk boundary. ``live_cap`` caps each
     MoE precision region at that many rows (a power of two >= the live

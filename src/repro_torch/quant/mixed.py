@@ -20,7 +20,8 @@ def mixed_precision_matmul(x: torch.Tensor, mp: MixedPrecisionWeights,
       * expert-batched — ``mp.high.packed`` is (E, N, K/vpb), ``x`` is
         (E, M, K), ``critical`` is (E,): the MoE expert FFN;
       * dense — ``mp.high.packed`` is (N, K/vpb), ``x`` is (..., K),
-        ``critical`` a scalar: lifted to a 1-expert group.
+        ``critical`` a scalar (a host bool, or a tensor): lifted to a
+        1-expert group, so K2 runs it with E = 1 and M the rows of x.
 
     ``skip_to_zero`` is the "x/0" policy when ``mp.low is None``: True
     zeroes sub-critical experts (MoE), False runs high always (dense)."""
@@ -36,7 +37,11 @@ def mixed_precision_matmul(x: torch.Tensor, mp: MixedPrecisionWeights,
         return expert_quant_matmul(x, mp, critical, out_dtype=out_dtype)
     lead = x.shape[:-1]
     x3 = x.reshape(1, -1, x.shape[-1])
-    crit = torch.as_tensor(critical, device=x.device).reshape(1)
+    if isinstance(critical, torch.Tensor):
+        crit = critical.to(x.device).reshape(1)
+    else:   # a host flag: a fill kernel, no host-to-device copy (capturable)
+        crit = torch.full((1,), int(critical), dtype=torch.int32,
+                          device=x.device)
     mp1 = MixedPrecisionWeights(
         high=_lift(mp.high),
         low=_lift(mp.low) if mp.low is not None else None)

@@ -14,9 +14,11 @@ CUDA graph and then replayed with one launch:
   compiles at its first call. The scheduler's live-cap ladder bounds the
   keys to (ceil(log2 B) + 1) × 2 per ``num_steps``. All graphs share one
   memory pool.
-* **Static buffers.** Each decode state owns its KV caches and the
-  chunk's inputs (tokens, done, emitted counts, limits, EOS ids and, for
-  sampled chunks, row keys, temperatures and top-k); a call copies its
+* **Static buffers.** Each decode state owns its caches (KV, or the
+  SSM state, which does not depend on ``slots_len``, and the hybrid's
+  shared-site KV stack) and the chunk's inputs (tokens, done, emitted
+  counts, limits, EOS ids and, for sampled chunks, row keys,
+  temperatures and top-k); a call copies its
   values in (host arrays through pinned memory, non-blocking). A graph's
   outputs (tokens, the four telemetry leaves, done, emitted) are fixed
   tensors: they hold a chunk's results until the next call of this object
@@ -50,13 +52,13 @@ CUDA graph and then replayed with one launch:
   ``RuntimeError``, which the ladder lets through.
 
 Before capture, one step of the key's shapes runs eagerly on a side stream
-with every row frozen (a frozen row writes back the KV values it reads, so
-the caches do not change): it builds the kernels, runs their one-time
-attribute calls and torch's lazy initialization, none of which a capture
-allows. Those launches are real and counted. Python's cyclic garbage
-collector is off during a capture: a graph it destroyed then (say, of an
-engine dropped earlier) would free that graph's pool, and a capture
-forbids a ``cudaFree``.
+with every row frozen (a frozen row writes back the KV values and SSM
+state it reads, so the caches do not change): it builds the kernels,
+runs their one-time attribute calls and torch's lazy initialization,
+none of which a capture allows. Those launches are real and counted.
+Python's cyclic garbage collector is off during a capture: a graph it
+destroyed then (say, of an engine dropped earlier) would free that
+graph's pool, and a capture forbids a ``cudaFree``.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ import dataclasses
 import gc
 import time
 import weakref
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,7 +74,7 @@ import torch
 from repro_torch.kernels.attn_scores import attn_scores as _attn
 from repro_torch.kernels.quant_matmul import expert_quant_matmul as _eqm
 from repro_torch.kernels.quant_matmul import quant_matmul as _qm
-from repro_torch.models.kv_cache import KVCache
+from repro_torch.models.kv_cache import KVCache, SSMCache
 from repro_torch.models.model import DyMoEInfo, decode_many_batched, \
     init_decode_state
 
@@ -91,7 +93,8 @@ _NP = {torch.bool: np.bool_, torch.int32: np.int32, torch.int64: np.int64,
 @dataclasses.dataclass
 class ChunkOut:
     """A chunk's fixed outputs: tokens (T, B) int32, telemetry leaves
-    (T, L, B, E), done (B,) bool, n_emitted (B,) int32."""
+    (T, L, B, E) (None for a non-MoE config), done (B,) bool, n_emitted
+    (B,) int32."""
 
     tokens: torch.Tensor
     info: DyMoEInfo
@@ -99,8 +102,10 @@ class ChunkOut:
     n_emitted: torch.Tensor
 
     def tensors(self) -> List[torch.Tensor]:
-        return [self.tokens, *(getattr(self.info, f) for f in _INFO),
-                self.done, self.n_emitted]
+        """Every output tensor (a non-MoE config's None leaves left out)."""
+        return [t for t in (self.tokens, *(getattr(self.info, f)
+                                           for f in _INFO),
+                            self.done, self.n_emitted) if t is not None]
 
 
 @dataclasses.dataclass
@@ -119,16 +124,18 @@ def slot_bucket(need: int, max_seq_len: int) -> int:
 
 
 class DecodeState:
-    """The decode state of one slot batch: stacked KV caches
-    (``caches["layers"]``), the chunk's static inputs and the compiled
-    entries bound to them, keyed by (num_steps, live_cap, sampled)."""
+    """The decode state of one slot batch: the stacked caches of
+    :func:`init_decode_state` (``caches["layers"]``, a KVCache or an
+    SSMCache, and the hybrid's ``caches["shared"]`` KV stack), the chunk's
+    static inputs and the compiled entries bound to them, keyed by
+    (num_steps, live_cap, sampled)."""
 
     def __init__(self, cfg, num_slots: int, slots_len: int,
                  device: torch.device):
         b = self.num_slots = num_slots
         self.slots_len = slots_len
-        self.caches: Dict[str, KVCache] = init_decode_state(
-            cfg, b, slots_len, device)
+        self.caches: Dict[str, Union[KVCache, SSMCache]] = \
+            init_decode_state(cfg, b, slots_len, device)
 
         def z(dtype, *shape):
             return torch.zeros(shape or (b,), dtype=dtype, device=device)
@@ -147,14 +154,18 @@ class DecodeState:
         return self._holder is not None and self._holder() is not None
 
     def reset(self) -> None:
-        """Back to :func:`init_decode_state`'s values: k and v zero,
-        positions -1, length and offset 0."""
-        c = self.caches["layers"]
-        c.k.zero_()
-        c.v.zero_()
-        c.positions.fill_(-1)
-        c.length.zero_()
-        c.offset.zero_()
+        """Back to :func:`init_decode_state`'s values: KV caches with k and
+        v zero, positions -1, length and offset 0; SSM states zero."""
+        for c in self.caches.values():
+            if isinstance(c, SSMCache):
+                for t in (c.conv_state, c.ssm_state, c.length):
+                    t.zero_()
+                continue
+            c.k.zero_()
+            c.v.zero_()
+            c.positions.fill_(-1)
+            c.length.zero_()
+            c.offset.zero_()
 
 
 def _stage(dst: torch.Tensor, host) -> None:

@@ -10,7 +10,9 @@ co-design:
     model (:class:`EdgeProfile`, an RTX 3090-class card behind PCIe by
     default) to give each request its MODELED edge TTFT / TPOT. These are
     outputs of the cost model, not times of the card that ran the model;
-    wall times are measured separately.
+    wall times are measured separately. A non-MoE config (dense or SSM)
+    has no experts to cache: its modeled numbers come from the cost model
+    alone, as in the JAX engine.
 
 Both halves are served by the step-driven continuous-batching scheduler,
 an OPEN session (``serve`` / ``submit`` / ``step`` / ``health``, with
@@ -149,8 +151,12 @@ class DyMoEEngine:
         self._session = None   # the engine-owned open serving session
 
     # ------------------------------------------------------------ system
-    def _make_orchestrator(self) -> DynamicExpertOrchestrator:
+    def _make_orchestrator(self) -> Optional[DynamicExpertOrchestrator]:
+        """The expert cache and clock of one session; None for a non-MoE
+        config (no experts to cache: its replay is the cost model alone)."""
         cfg, e = self.cfg, self.ecfg
+        if not cfg.is_moe:
+            return None
         pol = cfg.dymoe
         budget = int(e.profile.vram_bytes * e.max_cache_fraction)
         return DynamicExpertOrchestrator(OrchestratorConfig(
@@ -180,7 +186,7 @@ class DyMoEEngine:
         return n_hi, n_lo
 
     def _replay(self, crit, active, pred, *, phase: str, s_ctx, s_q: int,
-                orch: DynamicExpertOrchestrator
+                orch: Optional[DynamicExpertOrchestrator]
                 ) -> Tuple[List[StepTiming], List[float], int]:
         """Replay a block of host-side telemetry through the orchestrator.
 
@@ -192,10 +198,19 @@ class DyMoEEngine:
         per layer and step, each active Critical expert moves its high-bit
         blob, each active Sub-critical one its low-bit blob (zero in the
         "x/0" skip deployment). The cost model broadcasts over (T, L) and
-        the orchestrator consumes the block via ``step_batch``."""
+        the orchestrator consumes the block via ``step_batch``. Without an
+        orchestrator or telemetry (a non-MoE config) the block is priced by
+        the cost model alone: no timings, no weight bytes."""
         cfg = self.cfg
         s_ctx = np.asarray(s_ctx)
         t = s_ctx.shape[0]
+        if orch is None or crit is None:
+            per_layer = self.cost.layer_compute_s(
+                phase=phase, s_ctx=s_ctx[:, None], s_q=s_q,
+                tokens_routed=s_q)                        # (T, 1)
+            totals = np.broadcast_to(
+                per_layer, (t, cfg.num_layers)).sum(axis=1)
+            return [], [float(x) for x in totals], 0
         crit = np.asarray(crit, bool).reshape(t, cfg.num_layers, -1)
         active = np.asarray(active, bool).reshape(crit.shape)
         pred = np.asarray(pred).reshape(crit.shape)
@@ -282,7 +297,7 @@ class DyMoEEngine:
         replay. Token i's PRNG key is ``fold_in(rng_key, i)``, so outputs
         are chunking-invariant. The oracle :meth:`generate` must equal,
         tokens and modeled numbers."""
-        from repro_torch.serving.scheduler import _d2h_async
+        from repro_torch.serving.scheduler import _d2h_async, _numpy
 
         cfg, dev = self.cfg, self.device
         temperature, top_k, rng_key = resolve_sampling(
@@ -304,9 +319,10 @@ class DyMoEEngine:
         tok = sample_token(logits, fold_in(rng_key, 0) if sampling else None,
                            temperature=temperature, top_k=top_k)
         tokens: List[int] = [int(tok[0])]   # host sync: prefill complete
-        pre_timings, _, pre_wbytes = self._replay(
-            *(x.numpy() for x in tele), phase="prefill",
-            s_ctx=np.asarray([s]), s_q=s, orch=orch)
+        pre_timings, pre_totals, pre_wbytes = self._replay(
+            *_numpy(tele), phase="prefill", s_ctx=np.asarray([s]), s_q=s,
+            orch=orch)
+        pre_t = pre_timings[0] if pre_timings else None
         t_dec = time.perf_counter()   # decode wall: after prefill's replay
         decode_timings: List[StepTiming] = []
         tpot_total = 0.0
@@ -324,7 +340,7 @@ class DyMoEEngine:
             tok = toks_d[-1]
             # the chunk's ONE host sync: the telemetry copies are queued
             # first, so the tokens' fetch completes them
-            crit, act, pred = (x.numpy() for x in _d2h_async(
+            crit, act, pred = _numpy(_d2h_async(
                 (infos.critical_masks, infos.active_masks,
                  infos.predicted_next)))
             new = [int(t) for t in toks_d[:, 0].cpu()]
@@ -332,8 +348,10 @@ class DyMoEEngine:
             if eos is not None and eos in new:
                 keep = new.index(eos) + 1
                 done = True
+            if crit is not None:
+                crit, act, pred = crit[:keep], act[:keep], pred[:keep]
             timings, totals, wbytes = self._replay(
-                crit[:keep], act[:keep], pred[:keep], phase="decode",
+                crit, act, pred, phase="decode",
                 s_ctx=s + n_done + 1 + np.arange(keep), s_q=1, orch=orch)
             decode_timings.extend(timings)
             for x in totals:   # per-step adds: equal to decode_chunk=1
@@ -344,12 +362,15 @@ class DyMoEEngine:
         t_end = time.perf_counter()
         n_dec = max(len(tokens) - 1, 1)
         return GenerationResult(
-            tokens=tokens, ttft_s=float(pre_timings[0].total_s),
+            tokens=tokens,
+            ttft_s=float(pre_t.total_s if pre_t is not None
+                         else pre_totals[0]),
             tpot_s=float(tpot_total / n_dec), wall_s=t_end - t0,
-            decode_wall_s=t_end - t_dec, prefill_timing=pre_timings[0],
+            decode_wall_s=t_end - t_dec, prefill_timing=pre_t,
             decode_timings=decode_timings or None,
-            cache_stats=dataclasses.asdict(orch.cache.stats),
-            prefill_weight_bytes=pre_wbytes,
+            cache_stats=(dataclasses.asdict(orch.cache.stats)
+                         if orch else None),
+            prefill_weight_bytes=pre_wbytes if pre_t is not None else None,
             decode_weight_bytes_per_tok=(
                 dec_wbytes / n_dec if decode_timings else None))
 

@@ -57,9 +57,11 @@ are fixed buffers that the next chunk overwrites, so the session copies
 the last tokens into its own ``_tok_d`` and queues the telemetry copies
 before the next dispatch.
 
-Admitted rows are LEFT-ALIGNED into their slots, so an injected row is
-laid out exactly as a solo admission would have been. Rows are
-independent programs (row-local Critical sets, per-row PRNG streams
+Admitted KV rows are LEFT-ALIGNED into their slots, so an injected row
+is laid out exactly as a solo admission would have been; an SSM state is
+copied as it is. SSM and hybrid configs admit one exact-shape solo
+prefill per request (a ragged wave would thread pads through the scan).
+Rows are independent programs (row-local Critical sets, per-row PRNG streams
 indexed by the request's own token position), so a request's tokens do
 not depend on its neighbours, the chunk length or its slot — which is
 what makes every recovery rung below token-exact.
@@ -77,7 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.orchestrator import StepTiming
-from repro_torch.models.kv_cache import KVCache
+from repro_torch.models.kv_cache import SSMCache
 from repro_torch.models.layers.moe import _capacity
 from repro_torch.models.model import prefill
 from repro_torch.serving.compiled import slot_bucket
@@ -125,8 +127,15 @@ def _d2h_async(tensors):
     """Queue copies of device tensors into pinned host memory; they are
     complete once a later blocking fetch on the same stream returns (on
     the CPU, plain copies: the compiled chunk's outputs are overwritten by
-    the next chunk)."""
-    return tuple(x.to("cpu", non_blocking=True, copy=True) for x in tensors)
+    the next chunk). None leaves (a non-MoE config's telemetry) stay
+    None."""
+    return tuple(None if x is None else x.to("cpu", non_blocking=True,
+                                             copy=True) for x in tensors)
+
+
+def _numpy(tensors):
+    """Host tensors as numpy arrays (None stays None)."""
+    return tuple(None if x is None else x.numpy() for x in tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,6 +287,7 @@ class ContinuousBatchingScheduler:
             cfg.max_seq_len)
         self._chunk = engine.ecfg.decode_chunk
         self._orch = engine._make_orchestrator()  # ONE shared cache+clock
+        self._can_batch = self._can_batch_admissions()
         dev = engine.device
         b = self._b
         self._states: List[Optional[_SlotState]] = [None] * b
@@ -487,7 +497,7 @@ class ContinuousBatchingScheduler:
         boundary, ordered with the replays (site ``degrade.shift``: a
         fault skips the shift)."""
         pol = self._policy
-        if pol.ladder is None:
+        if pol.ladder is None or self._orch is None:
             return
         now = time.perf_counter()
         with self._lock:
@@ -625,6 +635,8 @@ class ContinuousBatchingScheduler:
             room = len(free) - n_survivors
             if cap is not None:
                 room = min(room, cap)
+            if not self._can_batch:
+                room = 1     # one exact-shape solo prefill per request
             cands: List[RequestHandle] = []
             with self._lock:
                 while self._queue and len(cands) < room:
@@ -694,7 +706,7 @@ class ContinuousBatchingScheduler:
             self._timed(self._replay_prefill, [h for h in cands],
                         wave_states, tele, batched)
             if src:
-                waves.append((rcaches["layers"], src, toks, surv))
+                waves.append((rcaches, src, toks, surv))
                 n_survivors += len(src)
         # survivors claim free slots in pop order
         fi = 0
@@ -718,6 +730,16 @@ class ContinuousBatchingScheduler:
             self._tok_d[dst_d] = _h2d(np.asarray(toks, np.int32), dev)
         return True
 
+    def _can_batch_admissions(self) -> bool:
+        """A ragged batched admission prefill needs the right-aligned
+        ragged machinery: attention archs without a shared-attention site
+        (an SSM scan would thread pads through its state). Everything else
+        admits one request per prefill, the exact solo program."""
+        cfg = self.engine.cfg
+        return (cfg.block_kinds()[0] in ("attn_dense", "attn_moe")
+                and not cfg.shared_attn_every
+                and cfg.sliding_window is None)
+
     def _prefill_wave(self, cands: List[RequestHandle], lens: List[int]):
         """One admission wave's prefill: a ragged right-aligned row-local
         prefill for more than one candidate, the exact solo prefill for
@@ -736,40 +758,48 @@ class ContinuousBatchingScheduler:
                 row_local=True,
                 # parity trap — capacities: exact host-side solo values
                 row_capacities=_h2d(np.asarray(
-                    [_capacity(cfg, s) for s in lens], np.int64), dev))
+                    [_capacity(cfg, s) for s in lens], np.int64), dev)
+                if cfg.is_moe else None)
         prompt = np.asarray(cands[0].request.prompt_tokens,
                             np.int64)[None, :]
         return prefill(engine.params, cfg, _h2d(prompt, dev),
                        qparams=engine.qparams, cache_slots=self._slots_len)
 
-    def _inject_rows(self, rc: KVCache, src: torch.Tensor,
+    def _inject_rows(self, rc: dict, src: torch.Tensor,
                      dst: torch.Tensor) -> None:
-        """Overwrite slots ``dst`` of the batch cache with rows ``src`` of
-        a freshly prefilled wave cache (leaves (L, B, ...)). A ragged wave
-        prefills right-aligned, so row i's KV window sits at slot offset
-        ``S_wave - s_i``; each row is LEFT-ALIGNED here (window rolled to
-        offset 0, emptied slots zeroed), making the injected row identical
-        to a solo admission of the same request, layout included."""
-        bc = self._state.caches["layers"]
-        pos = rc.positions[:, src]                         # (L, n, S)
-        off = rc.offset[:, src].to(torch.int64)            # (L, n)
-        s = pos.shape[-1]
-        # jnp.roll(x, -off): new[j] = old[(j + off) % S]
-        gidx = (torch.arange(s, device=pos.device)[None, None, :]
-                + off[..., None]) % s                      # (L, n, S)
-        p2 = torch.gather(pos, 2, gidx)
-        live = (p2 >= 0)[:, :, None, :, None]              # (L, n, 1, S, 1)
-        for name in ("k", "v"):
-            t = getattr(rc, name)[:, src]                  # (L, n, H, S, D)
-            g = gidx[:, :, None, :, None].expand(t.shape)
-            rolled = torch.gather(t, 3, g)
-            getattr(bc, name)[:, dst] = torch.where(
-                live, rolled, torch.zeros((), dtype=t.dtype,
-                                          device=t.device))
-        bc.positions[:, dst] = p2
-        bc.length[:, dst] = rc.length[:, src]
-        bc.offset[:, dst] = torch.zeros((), dtype=bc.offset.dtype,
-                                        device=bc.offset.device)
+        """Overwrite slots ``dst`` of the batch caches with rows ``src`` of
+        a freshly prefilled wave's caches (``"layers"`` and, for the
+        hybrid, ``"shared"``; leaves (L or sites, B, ...)). An SSM state
+        is copied as it is. A ragged wave prefills right-aligned, so row
+        i's KV window sits at slot offset ``S_wave - s_i``; each KV row is
+        LEFT-ALIGNED here (window rolled to offset 0, emptied slots
+        zeroed), making the injected row identical to a solo admission of
+        the same request, layout included."""
+        for part, c in rc.items():
+            bc = self._state.caches[part]
+            if isinstance(c, SSMCache):
+                for f in ("conv_state", "ssm_state", "length"):
+                    getattr(bc, f)[:, dst] = getattr(c, f)[:, src]
+                continue
+            pos = c.positions[:, src]                      # (L, n, S)
+            off = c.offset[:, src].to(torch.int64)         # (L, n)
+            s = pos.shape[-1]
+            # jnp.roll(x, -off): new[j] = old[(j + off) % S]
+            gidx = (torch.arange(s, device=pos.device)[None, None, :]
+                    + off[..., None]) % s                  # (L, n, S)
+            p2 = torch.gather(pos, 2, gidx)
+            live = (p2 >= 0)[:, :, None, :, None]          # (L, n, 1, S, 1)
+            for name in ("k", "v"):
+                t = getattr(c, name)[:, src]               # (L, n, H, S, D)
+                g = gidx[:, :, None, :, None].expand(t.shape)
+                rolled = torch.gather(t, 3, g)
+                getattr(bc, name)[:, dst] = torch.where(
+                    live, rolled, torch.zeros((), dtype=t.dtype,
+                                              device=t.device))
+            bc.positions[:, dst] = p2
+            bc.length[:, dst] = c.length[:, src]
+            bc.offset[:, dst] = torch.zeros((), dtype=bc.offset.dtype,
+                                            device=bc.offset.device)
 
     # ---------------------------------------------------------- dispatch
     def _dispatch_chunk(self) -> None:
@@ -923,7 +953,7 @@ class ContinuousBatchingScheduler:
                 self._done[r] = True
                 progress = True
         self._orch = self.engine._make_orchestrator()  # fresh clock+cache
-        if self._policy.ladder is not None:
+        if self._orch is not None and self._policy.ladder is not None:
             self._orch.set_degrade(
                 self._policy.ladder.override_for(self._pressure_rung))
         self._replay_broken = False
@@ -952,6 +982,7 @@ class ContinuousBatchingScheduler:
         # cancel() racing a natural completion must not mislabel it
         from repro_torch.serving.engine import GenerationResult
 
+        orch = self._orch
         n_dec = max(len(st.tokens) - 1, 1)
         st.handle._finish(GenerationResult(
             tokens=st.tokens,
@@ -962,8 +993,9 @@ class ContinuousBatchingScheduler:
             decode_wall_s=st.end_t - st.decode_t0,
             prefill_timing=st.prefill_timing,
             decode_timings=st.decode_timings or None,
-            cache_stats=dataclasses.asdict(self._orch.cache.stats),
-            prefill_weight_bytes=st.prefill_weight_bytes,
+            cache_stats=(dataclasses.asdict(orch.cache.stats)
+                         if orch else None),
+            prefill_weight_bytes=st.prefill_weight_bytes if orch else None,
             decode_weight_bytes_per_tok=(
                 st.decode_weight_bytes / n_dec
                 if st.decode_timings else None),
@@ -985,18 +1017,20 @@ class ContinuousBatchingScheduler:
         candidate in pop order (the serial admission order), emit each
         candidate's prefill event, and finalize the one-token requests."""
         self._faults.fire("replay.prefill", n=len(wave))
-        crit, act, pred = (x.numpy() for x in tele)
+        crit, act, pred = _numpy(tele)
         for i, st in enumerate(wave):
-            if per_row:     # (L, B, E) row-local leaves -> this row
+            if crit is None:    # a non-MoE config: no telemetry
+                c = a = p = None
+            elif per_row:       # (L, B, E) row-local leaves -> this row
                 c, a, p = crit[:, i], act[:, i], pred[:, i]
-            else:           # solo admission: (L, E) leaves, B == 1
+            else:               # solo admission: (L, E) leaves, B == 1
                 c, a, p = crit, act, pred
-            timings, _, wbytes = self.engine._replay(
+            timings, totals, wbytes = self.engine._replay(
                 c, a, p, phase="prefill",
                 s_ctx=np.asarray([st.prompt_len]), s_q=st.prompt_len,
                 orch=self._orch)
-            st.ttft_s = timings[0].total_s
-            st.prefill_timing = timings[0]
+            st.ttft_s = timings[0].total_s if timings else totals[0]
+            st.prefill_timing = timings[0] if timings else None
             st.prefill_weight_bytes = wbytes
             self._emit(st, "prefill", [st.tokens[0]], float(st.ttft_s), 0)
             if st.finish_now:
@@ -1006,14 +1040,15 @@ class ContinuousBatchingScheduler:
         """Replay one decode chunk's telemetry row by row, emit each row's
         decode event, and finalize the rows it finished."""
         self._faults.fire("replay.chunk", rows=len(rows))
-        crit, act, pred = (x.numpy() for x in tele)
+        leaves = _numpy(tele)
         for r, st, keep, ctx0, is_done in rows:
             if keep:   # this row's live steps are the chunk's first
                 new = [int(t) for t in toks[:keep, r]]
                 st.tokens.extend(new)
                 # telemetry leaves are (T, L, B, E): this row's block
                 timings, totals, wbytes = self.engine._replay(
-                    crit[:keep, :, r], act[:keep, :, r], pred[:keep, :, r],
+                    *(None if x is None else x[:keep, :, r]
+                      for x in leaves),
                     phase="decode", s_ctx=ctx0 + np.arange(keep), s_q=1,
                     orch=self._orch)
                 st.step_totals.extend(totals)

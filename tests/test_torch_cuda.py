@@ -13,7 +13,11 @@ eager chunk (``test_cuda_compiled_chunk_equals_eager``); the open session
 with a ``device.dispatch`` fault against the CPU, ``close()`` after an
 unretried fault giving its decode state back, and ``generate_reference``
 running K2 on decode (``test_cuda_session_*``, ``test_cuda_close_*``,
-``test_cuda_generate_reference_*``).
+``test_cuda_generate_reference_*``); K2 at one expert, the dense and SSM
+projections' shapes (``test_cuda_expert_one_expert_*``), and the non-MoE
+architectures: the compiled chunk on KV, SSM and hybrid decode states
+against the eager chunk, and serving on the card against the CPU
+(``test_cuda_compiled_chunk_non_moe_*``, ``test_cuda_non_moe_*``).
 (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
@@ -260,6 +264,32 @@ def test_cuda_expert_unaligned_x(x_dtype):
     dev = _need_cuda()
     _expert_case(dev, np.random.default_rng(6), 4, None, 80, 256, 64,
                  x_dtype, x_offset=1)
+
+
+@pytest.mark.parametrize("k,n", [(256, 1064), (1024, 3072), (2048, 8384),
+                                 (3072, 1024)])
+@pytest.mark.parametrize("m", [1, 4, 37, 512])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+@pytest.mark.parametrize("tier", [1, 0], ids=["hi", "lo"])
+def test_cuda_expert_one_expert_matches_plain(tier, x_dtype, m, k, n):
+    """K2 at E = 1, as ``quant/mixed.py``'s lift runs every dense FFN and
+    SSM projection, "4/2" at either tier: the reduced zamba2's in_proj
+    (N 1064) and full-width qwen3_0p6b's and zamba2_1p2b's shapes, whose N
+    is not a multiple of the 128-column tile (the last tile's codes and
+    scales are staged with zero fill past N), at decode (M 1, 4), a ragged
+    64-row tile (37) and prefill (512)."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(k + n + m + tier)
+    w = torch.from_numpy(rng.standard_normal((1, k, n)).astype(
+        np.float32)).to(dev) * k ** -0.5
+    mp = MixedPrecisionWeights.build(w, 4, 2, 64)
+    x = torch.from_numpy(rng.standard_normal((1, m, k)).astype(
+        np.float32)).to(dev, x_dtype)
+    args = (mp.high.packed, mp.high.scales, mp.low.packed, mp.low.scales,
+            torch.full((1,), tier, dtype=torch.int32, device=dev))
+    _held_to_plain(kmod, "expert_quant_matmul", x, x, args,
+                   dict(hi_bits=4, lo_bits=2, group_size=64))
 
 
 def test_cuda_expert_f32_split_wide_range():
@@ -760,3 +790,135 @@ def test_cuda_generate_reference_launches_k2_on_decode():
         assert got.tokens == want.tokens
         assert (got.ttft_s, got.tpot_s, got.cache_stats) == \
             (want.ttft_s, want.tpot_s, want.cache_stats)
+
+
+def _arch_engines(dev, arch, **over):
+    """A reduced f32 non-MoE config from one CPU generator, as an engine on
+    the CPU (the plain path) and one on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine
+
+    cfg = get_config(arch).reduced(**over)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return (cfg, DyMoEEngine(cfg, params, device="cpu"),
+            DyMoEEngine(cfg, params, device=dev))
+
+
+def _k2_per_layer(eng):
+    """K2 launches a layer makes per prefill or decode step: one per
+    packed FFN matrix (SwiGLU 3, GELU 2) or SSM projection (2)."""
+    q = eng.qparams["layers"]
+    return len(q["mlp"] if "mlp" in q else q["ssm"])
+
+
+_ARCHS = {"qwen3_0p6b": {}, "musicgen_medium": {},
+          "zamba2_1p2b": dict(num_layers=4), "falcon_mamba_7b": {}}
+
+
+@pytest.mark.parametrize("arch", list(_ARCHS))
+def test_cuda_compiled_chunk_non_moe_equals_eager(arch):
+    """The compiled decode chunk on a non-MoE decode state — KV caches
+    (dense), an SSM state (Mamba1), an SSM state and a two-site shared KV
+    stack (the hybrid) — against eager ``decode_many_batched`` from a copy
+    of the same state: 4 slots, one dead, one row reaching its limit
+    mid-chunk. Two chunks (capture, then a replay under
+    ``set_sync_debug_mode("error")``): tokens, done, emitted and every
+    cache leaf bitwise equal; each replay adds the K2 launches of its
+    capture, (3 SwiGLU, 2 GELU or SSM) x L a step, and no K1."""
+    import dataclasses
+
+    from repro_torch.models.model import decode_many_batched, prefill
+
+    dev = _need_cuda()
+    cfg, _, eng = _arch_engines(dev, arch, **_ARCHS[arch])
+    b, s, slots, steps = 4, 9, 40, 6
+    prompts = torch.randint(1, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(1))
+    logits, rc, _ = prefill(eng.params, cfg, prompts, qparams=eng.qparams,
+                            cache_slots=slots)
+    compiled = eng._decode_batched
+    state = compiled.acquire(b, slots)
+    ref = {}
+    for part, c in rc.items():
+        names = [f.name for f in dataclasses.fields(c)]
+        ref[part] = dataclasses.replace(
+            c, **{f: getattr(c, f).clone() for f in names})
+        for f in names:
+            getattr(state.caches[part], f).copy_(getattr(c, f))
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    host = dict(done=np.array([False, True, False, False]),
+                n_emitted=np.ones(b, np.int32),
+                limits=np.array([20, 20, 4, 20], np.int32),
+                eos_tokens=np.full(b, -1, np.int32))
+    per_step = _k2_per_layer(eng) * cfg.num_layers
+    for c in range(2):
+        kw = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        want = decode_many_batched(
+            eng.params, cfg, tok.clone(), ref, num_steps=steps,
+            done=kw["done"], n_emitted=kw["n_emitted"], limits=kw["limits"],
+            eos_tokens=kw["eos_tokens"], qparams=eng.qparams, live_cap=4)
+        torch.cuda.synchronize()
+        before = dict(kmod.LAUNCHES)
+        if c:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = compiled(state, tok, num_steps=steps, live_cap=4, **host)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        (entry,) = state.entries.values()
+        assert entry.launches["expert_quant_matmul"] == per_step * steps
+        assert entry.launches["expert_quant_matmul_grouped"] == 0
+        if c:
+            assert {k: kmod.LAUNCHES[k] - before[k] for k in before} == \
+                {k: entry.launches[k] for k in before}
+        toks, _, info, dn, emitted = want
+        assert info.critical_masks is None and out.info.critical_masks is None
+        assert torch.equal(out.tokens, toks)
+        assert torch.equal(out.done, dn) and \
+            torch.equal(out.n_emitted, emitted)
+        for part, cache in ref.items():
+            for f in dataclasses.fields(cache):
+                assert torch.equal(getattr(state.caches[part], f.name),
+                                   getattr(cache, f.name)), (part, f.name)
+        tok = out.tokens[-1].clone()
+        host.update(done=out.done.cpu().numpy(),
+                    n_emitted=out.n_emitted.cpu().numpy())
+    assert host["done"][2] and not host["done"][0]
+    compiled.release(state)
+
+
+@pytest.mark.parametrize("arch", list(_ARCHS))
+def test_cuda_non_moe_serving_equals_cpu(arch):
+    """``generate_batch`` (ragged requests, 2 slots: batched waves for the
+    dense kinds, one solo prefill a request for the SSM kinds) and
+    ``generate_reference`` of a reduced f32 non-MoE config on the card
+    against the CPU: tokens and modeled TTFT/TPOT equal; K2 launches
+    (3 SwiGLU, 2 GELU or SSM) x L per prefill, decode step and capture
+    warm-up step, no K1."""
+    from repro_torch.serving import Request
+
+    dev = _need_cuda()
+    cfg, cpu, gpu = _arch_engines(dev, arch, **_ARCHS[arch])
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, cfg.vocab_size, n)], max_new_tokens=m)
+        for n, m in ((8, 6), (15, 9), (5, 1), (11, 12))]
+    want = cpu.generate_batch(reqs, num_slots=2)
+    kmod.reset_launch_counts()
+    got = gpu.generate_batch(reqs, num_slots=2)
+    torch.cuda.synchronize()
+    st = gpu.last_stats
+    assert kmod.LAUNCHES["expert_quant_matmul"] == _k2_per_layer(gpu) * \
+        cfg.num_layers * (st["decode_steps"] + st["waves_batched"]
+                          + st["waves_solo"] + st["compiles"])
+    assert kmod.LAUNCHES["expert_quant_matmul_grouped"] == 0
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert [(r.ttft_s, r.tpot_s) for r in got] == \
+        [(r.ttft_s, r.tpot_s) for r in want]
+    ref_c, ref_g = cpu.generate_reference(reqs[3]), \
+        gpu.generate_reference(reqs[3])
+    assert ref_g.tokens == ref_c.tokens == got[3].tokens
+    assert (ref_g.ttft_s, ref_g.tpot_s) == (ref_c.ttft_s, ref_c.tpot_s)

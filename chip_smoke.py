@@ -30,17 +30,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the plain path on the CPU: greedy tokens and every request's modeled
      edge numbers (TTFT, TPOT, cache stats, weight bytes) equal exactly in
      "4/2" and "4/0"; seeded sampled tokens equal, and a sampled request's
-     solo ``generate`` equals its batch row (on the card the decode chunks
-     run as CUDA graph replays); then reduced f32 qwen3_0p6b (dense),
-     zamba2_1p2b (Mamba2 + shared attention) and falcon_mamba_7b (Mamba1):
-     ``generate_batch`` and ``generate_reference`` tokens and modeled
-     numbers, card == CPU;
+     solo ``generate`` equals its batch row (on the card the prefills and
+     the decode chunks run as CUDA graph replays); then reduced f32
+     qwen3_0p6b (dense), zamba2_1p2b (Mamba2 + shared attention) and
+     falcon_mamba_7b (Mamba1): ``generate_batch`` and
+     ``generate_reference`` tokens and modeled numbers, card == CPU;
   4. serve — full-width OLMoE-1B-7B ("4/2", random weights from a seeded
      CUDA generator, quantized on the card): a warm run of
      ``generate_batch`` over 8 ragged requests on 4 slots and one
-     ``generate`` captures the compiled decode chunk's keys (its host
-     syncs are reported apart); then the same calls again, counted: the
-     launch counts of K1 and K2 are read around them and checked. Printed:
+     ``generate`` captures the decode chunk's keys and meets the compiled
+     prefill's (its host syncs are reported apart), a second captures the
+     prefill's keys (a key is captured at its second call); then the same
+     calls again, counted, replaying every prefill and chunk: the launch
+     counts of K1 and K2 are read around them and checked. Printed:
      each request's modeled TTFT/TPOT under ``modeled_edge_<profile>`` (the
      cost model's edge device, not the card), the modeled cache hit rate,
      the replay's host seconds and the host syncs of the batch; then four
@@ -55,16 +57,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the counted runs for their keys, at the end for the rest): the port's
      kernels the replay ran must equal the counts each replay adds to the
      launch counters, in the ``graph:`` line. On the same engine, the
-     open session (``session:``) and ``generate_reference``
-     (``reference_full:``);
+     open session (``session:``), ``generate_reference``
+     (``reference_full:``), then the prefill graph gate
+     (``_prefill_gate``) on a 4-row ragged wave (prompts 512, 400, 256,
+     96) and 512-token solo admissions in "4/2" and "4/0" (a second
+     engine on the same weights, its experts' 4-bit codes only), and every
+     prefill key the engine captured and kept replayed once under
+     torch.profiler: its
+     K1/K2 kernels by symbol must equal its counted launches;
   5. archs — full-width qwen3_0p6b (28 layers), zamba2_1p2b (38 layers,
      7 shared-attention sites) and falcon_mamba_7b (64 layers), "4/2":
-     6 ragged requests through ``generate_batch`` on 4 slots, warm then
+     a 512-token eager prefill on the new engine, then 6 ragged
+     requests through ``generate_batch`` on 4 slots, warm (twice) then
      counted (K2 launches exact: 3 dense or 2 SSM a layer per decode step
      and prefill; no K1), and the graph gate on each decode state (KV,
      SSM, SSM + shared KV: eager chunk == replay, every cache leaf
-     bitwise); one ``arch:`` line a model (wall, decode ms/step, peak
-     memory, K2 launches).
+     bitwise), and the prefill graph gate on a 4-row qwen3_0p6b wave
+     (prompts 512, 384, 233, 64) and 512-token zamba2_1p2b and
+     falcon_mamba_7b solo prefills; one ``arch:`` line a model (wall,
+     decode ms/step, peak memory, K2 launches).
+
+The ``prefill_graph:`` line holds the six full-width prefill gates: the
+compiled prefill's eager protocol (``graphs=False``) against the
+compiled prefill's three calls of one key — an eager first call, then
+the capture and its replay, both under ``set_sync_debug_mode("error")``,
+then a replay: logits, every ``DyMoEInfo`` leaf and every cache leaf
+(the hybrid's shared KV included) bitwise equal; eager and replay ms
+(CUDA-synchronized host clock) and device busy ms (torch.profiler), the
+memory the eager prefill takes above its baseline and the allocator's
+device calls during it, and the K1/K2 kernels a traced replay ran
+against the key's counted launches; then each engine's prefill keys,
+compile seconds and pool bytes. No phase is cut in depth.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -799,7 +822,8 @@ def _serve_phase(dev):
 
     torch.cuda.reset_peak_memory_stats()
     # the warm (cold-start) run: the compiled chunk captures the keys the
-    # counted runs below meet; its host syncs (the captures') apart
+    # counted runs below meet, the compiled prefill meets its keys; its
+    # host syncs (the captures') apart
     with warnings.catch_warnings(record=True) as warm_syncs:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -812,6 +836,17 @@ def _serve_phase(dev):
         torch.cuda.synchronize()
         cold_solo_stats = dict(engine.last_stats)
         torch.cuda.set_sync_debug_mode("default")
+    # the second warm run: the compiled prefill captures its keys (at a
+    # key's second call)
+    t0 = time.perf_counter()
+    warm2 = engine.generate_batch(reqs, num_slots=4)
+    torch.cuda.synchronize()
+    warm2_wall = time.perf_counter() - t0
+    warm2_stats = dict(engine.last_stats)
+    engine.generate(solo_req)
+    torch.cuda.synchronize()
+    warm2_solo_stats = dict(engine.last_stats)
+    assert [r.tokens for r in warm2] == [r.tokens for r in warm]
 
     km.reset_launch_counts()                       # main path starts here
     with warnings.catch_warnings(record=True) as syncs:
@@ -835,7 +870,8 @@ def _serve_phase(dev):
     replay_counts = _replay_counts(engine._decode_batched, checked)
     peak = torch.cuda.max_memory_allocated()
     assert [r.tokens for r in out] == [r.tokens for r in warm]
-    assert batch_stats["compiles"] == 0 and solo_stats["compiles"] == 0, \
+    assert all(st[k] == 0 for st in (batch_stats, solo_stats)
+               for k in ("compiles", "prefill_compiles")), \
         "the counted runs met a key the warm run did not capture"
     sampling = _sampled_batch(engine, reqs[:4])
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -843,11 +879,17 @@ def _serve_phase(dev):
     profiled = _profile_decode(engine, activities)
     graph = _graph_phase(engine, activities, profiled)
     replay_counts += _replay_counts(engine._decode_batched, checked)
-    graph.update(serve_wall_cold_s=cold_wall, serve_wall_warm_s=batch_wall,
+    graph.update(serve_wall_cold_s=cold_wall,
+                 serve_wall_second_s=warm2_wall, serve_wall_warm_s=batch_wall,
                  cold_batch=dict(compiles=cold_stats["compiles"],
                                  compile_s=cold_stats["compile_s"]),
                  cold_solo=dict(compiles=cold_solo_stats["compiles"],
                                 compile_s=cold_solo_stats["compile_s"]),
+                 prefill_captures=[dict(compiles=st["prefill_compiles"],
+                                        compile_s=st["prefill_compile_s"])
+                                   for st in (cold_stats, cold_solo_stats,
+                                              warm2_stats,
+                                              warm2_solo_stats)],
                  host_syncs_in_warm_run=_sync_sites(warm_syncs),
                  replay_counts=replay_counts)
 
@@ -943,6 +985,7 @@ def _session_phase(engine) -> dict:
         n0, s0 = compiled.compiles, compiled.compile_s
         before = {(st.num_slots, st.slots_len, k)
                   for st in compiled.states() for k in st.entries}
+        pbefore = set(engine._prefill.entries())
         engine.faults = faults
         s = engine.serve(num_slots=4, slots_len=1024, policy=EDFPolicy())
         walls = []
@@ -970,7 +1013,9 @@ def _session_phase(engine) -> dict:
         stats = dict(s.stats)
         s.close()
         engine.faults = None
+        pnew = [k for k in engine._prefill.entries() if k not in pbefore]
         return dict(handles=hs, wall=wall, walls=walls, health=health,
+                    prefill_keys=pnew,
                     stats=stats, streamed=streamed,
                     compiles=compiled.compiles - n0,
                     compile_s=compiled.compile_s - s0,
@@ -1015,6 +1060,9 @@ def _session_phase(engine) -> dict:
             waves_batched=st["waves_batched"], waves_solo=st["waves_solo"],
             replay_s=st["replay_s"], compiles=r["compiles"],
             compile_s=r["compile_s"], keys_captured=r["keys"],
+            prefill_keys_new=[list(k[:3]) for k in r["prefill_keys"]],
+            prefill_captures=st["prefill_compiles"],
+            prefill_compile_s=st["prefill_compile_s"],
             preempted=[h.request_id for h in bulk_h
                        if res[h.request_id].preempted],
             cancelled_tokens=len(rc.tokens),
@@ -1039,7 +1087,9 @@ def _session_phase(engine) -> dict:
 def _reference_full(engine) -> dict:
     """``generate_reference`` at full width on the serve phase's engine: a
     64-token prompt, 33 new tokens (two 16-step ``decode_many`` chunks,
-    eager), after one warm call. Its K2 launches must be 3 x L a prefill
+    eager), after one warm call (its prefill key's first, eager call; the
+    counted call captures the key and replays it, with the same counts).
+    Its K2 launches must be 3 x L a prefill
     and a decode step (M 1 per expert at decode), with no K1; printed with
     ms per token and whether its tokens equal ``generate``'s."""
     import torch
@@ -1115,7 +1165,6 @@ def _replay_counts(compiled, checked: set) -> list:
     returns one row a key, with the traces it took."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     rows = []
     for st in compiled.states():
@@ -1133,31 +1182,232 @@ def _replay_counts(compiled, checked: set) -> list:
                             temperatures=np.zeros(b, np.float32),
                             top_ks=np.zeros(b, np.int64))
             tok = torch.zeros(b, dtype=torch.int32, device=dev)
-            assert set(entry.launches) == set(SYMBOLS), entry.launches
-            traces = []
-            while len(traces) < 3:
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    compiled(st, tok, num_steps=steps, live_cap=cap, **host)
-                    torch.cuda.synchronize()
-                kernels = [e for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CUDA]
-                ran = {name: sum(e.count for e in kernels if sym in e.key)
-                       for name, sym in SYMBOLS.items()}
-                traces.append(ran)
-                assert all(ran[k] <= entry.launches[k] for k in ran), \
-                    f"key {ident}: the replay ran {ran}, counted " \
-                    f"{entry.launches}"
-                if ran == entry.launches:
-                    break
-            assert ran == entry.launches, \
-                f"key {ident}: the replays ran {traces}, counted " \
-                f"{entry.launches}"
+            ran, traces, _ = _traced_counts(
+                lambda: compiled(st, tok, num_steps=steps, live_cap=cap,
+                                 **host), entry.launches, ident)
             checked.add(ident)
             rows.append(dict(slots=b, slots_len=st.slots_len, num_steps=steps,
                              live_cap=cap, sampled=sampled, kernels=ran,
-                             traces=len(traces)))
+                             traces=traces))
     return rows
+
+
+def _traced_counts(replay, launches: dict, ident):
+    """``replay()`` under torch.profiler: the port's kernels it ran, by
+    symbol (``SYMBOLS``), must equal ``launches`` (a key's counted
+    launches a replay). A trace that shows fewer is taken again, up to
+    three times; one that shows more fails at once. Returns the counts,
+    the traces taken and the last trace's CUDA kernel events."""
+    assert set(launches) == set(SYMBOLS), launches
+    traces = []
+    while len(traces) < 3:
+        kernels = _trace(replay)
+        ran = {name: sum(e.count for e in kernels if sym in e.key)
+               for name, sym in SYMBOLS.items()}
+        traces.append(ran)
+        assert all(ran[k] <= launches[k] for k in ran), \
+            f"key {ident}: the replay ran {ran}, counted {launches}"
+        if ran == launches:
+            break
+    assert ran == launches, \
+        f"key {ident}: the replays ran {traces}, counted {launches}"
+    return ran, len(traces), kernels
+
+
+# tiny f64 kernels launched around a traced call (the model runs no f64
+# op, so their events are told apart by the "double" in their names)
+TRACE_PADS = 1024
+
+
+def _trace(fn) -> list:
+    """``fn()`` under torch.profiler: its CUDA kernel events. ``TRACE_PADS``
+    tiny kernels run before and after it inside the trace and are left
+    out of the result: late in this long process the profiler lost the
+    same records of every trace of a large call (31 of a falcon_mamba_7b
+    512-token prefill's 21,071 kernels, one of them a K2 launch, where a
+    fresh process lost none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(1, dtype=torch.float64, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PADS):
+            pad.add_(1.0)
+        fn()
+        for _ in range(TRACE_PADS):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "double" not in e.key]
+
+
+def _prefill_engine(model, compiled, **extra) -> dict:
+    """A compiled prefill's bookkeeping: keys captured, their seconds, the
+    pool's bytes, and the kept keys, least recently used first (shape,
+    cache slots, row-local, whether captured, capture seconds, K1/K2 a
+    replay)."""
+    return dict(model=model, compiles=compiled.compiles,
+                compile_s=compiled.compile_s,
+                pool_bytes=compiled.pool_bytes(), keys=[
+                    dict(batch=k[0], seq=k[1], cache_slots=k[2],
+                         row_local=k[3], captured=e.graph is not None,
+                         capture_s=e.capture_s,
+                         launches={n: c for n, c in e.launches.items()
+                                   if c})
+                    for k, e in compiled.entries().items()], **extra)
+
+
+def _prefill_replay_counts(compiled) -> list:
+    """Every key the compiled prefill captured and kept, its graph
+    replayed once under torch.profiler on its static inputs
+    (``_traced_counts``)."""
+    return [dict(key=list(k[:4]), kernels=_traced_counts(
+        e.graph.replay, e.launches, k)[0])
+        for k, e in compiled.entries().items() if e.graph is not None]
+
+
+def _prefill_gate(engine, label, prompt, kw, cache_slots) -> dict:
+    """One full-width prefill (``prompt`` a host (B, S) array, ``kw`` its
+    host ``lengths`` / ``row_capacities`` and ``row_local``), the compiled
+    prefill's eager protocol (``CompiledPrefill(engine, graphs=False)``)
+    against the engine's compiled prefill on the same inputs, three calls
+    each. The eager protocol's first call warms up; its second is a plain
+    eager prefill (timed, with the memory it takes above its baseline and
+    the allocator's device allocations and frees during it); its third
+    runs into its fixed outputs (timed). The compiled prefill's first call
+    (eager) and second (capture and replay) run under
+    ``set_sync_debug_mode("error")``, its third is a timed replay: logits,
+    every ``DyMoEInfo`` leaf and every cache leaf bitwise equal to the
+    eager protocol's after each. Then one eager call and one replay under
+    torch.profiler: their device busy ms (an eager trace of ~10^5 kernels
+    may drop a record, so only the replay's kernels are counted); the
+    replay's K1/K2 kernels must equal the key's counted launches
+    (``_traced_counts``): a mismatch is kept as ``launch_error`` and fails
+    the run once the ``prefill_graph:`` line is printed."""
+    import torch
+    from repro_torch.serving.compiled import CompiledPrefill
+
+    cp, plain = engine._prefill, CompiledPrefill(engine, graphs=False)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def eager():
+        return plain(prompt, cache_slots=cache_slots, **kw)
+
+    def graph():
+        return cp(prompt, cache_slots=cache_slots, **kw)
+
+    def same(got, want, when):
+        assert len(got) == len(want), (label, when)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), \
+                f"{label}: graph != eager ({when}, output {i})"
+
+    def allocator():
+        st = torch.cuda.memory_stats()
+        return [st.get(k, 0) for k in ("num_device_alloc", "num_device_free",
+                                       "num_alloc_retries")]
+
+    eager()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a0 = allocator()
+    _, eager_ms = timed(eager)
+    device_calls = [b - a for a, b in zip(a0, allocator())]
+    extra = (torch.cuda.max_memory_allocated() - base) / 2**30
+    want, fixed_ms = timed(eager)
+    want = want.tensors()
+    n0 = cp.compiles
+    call_ms = []
+    for call in ("first call", "second call"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, ms = timed(graph)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        same(out.tensors(), want, call)
+        call_ms.append(ms)
+    out, graph_ms = timed(graph)
+    same(out.tensors(), want, "replay")
+    key = next(reversed(cp.entries()))
+    entry = cp.entries()[key]
+    eager_kernels = _trace(eager)
+    try:
+        ran, traces, kernels = _traced_counts(graph, entry.launches,
+                                              (label, "replay"))
+        launch_error = None
+    except AssertionError as err:
+        kernels, traces, launch_error = _trace(graph), 3, str(err)
+        ran = {name: sum(k.count for k in kernels if sym in k.key)
+               for name, sym in SYMBOLS.items()}
+
+    def busy(ks):
+        return sum(e.self_device_time_total for e in ks) / 1e3
+
+    return dict(
+        case=label, batch=prompt.shape[0], seq=prompt.shape[1],
+        lengths=[int(x) for x in kw.get("lengths", [prompt.shape[1]])],
+        cache_slots=cache_slots, captures=cp.compiles - n0,
+        outputs_bitwise_equal=len(want), eager_ms=eager_ms,
+        eager_fixed_outputs_ms=fixed_ms,
+        eager_device_alloc_free_retries=device_calls,
+        first_call_ms=call_ms[0], capture_call_ms=call_ms[1],
+        graph_ms=graph_ms,
+        eager_device_busy_ms=busy(eager_kernels),
+        graph_device_busy_ms=busy(kernels),
+        graph_idle_share=1 - busy(kernels) / graph_ms,
+        eager_kernels=sum(e.count for e in eager_kernels),
+        graph_kernels=sum(e.count for e in kernels),
+        launches_per_replay={k: v for k, v in ran.items() if v},
+        traces=traces, launch_error=launch_error,
+        capture_s=entry.capture_s, eager_extra_gib=extra)
+
+
+def _prefill_olmoe(engine) -> dict:
+    """The prefill graph gate on the serve phase's full-width OLMoE-1B-7B:
+    a 4-row ragged row-local wave (K1) and a 512-token solo admission (K2)
+    in "4/2", and the solo admission again in "4/0" on a second engine
+    over the same weights and the same 4-bit expert codes; then every
+    prefill key the serve engine kept replayed under torch.profiler."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.models.layers.moe import _capacity
+    from repro_torch.quant.qtensor import MixedPrecisionWeights
+    from repro_torch.serving import DyMoEEngine, EngineConfig
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(11)
+    lens = np.array([512, 400, 256, 96], np.int32)
+    wave = np.zeros((4, 512), np.int64)
+    for i, s in enumerate(lens):
+        wave[i, 512 - s:] = rng.integers(1, cfg.vocab_size, s)
+    solo = rng.integers(1, cfg.vocab_size, (1, 512))
+    gates = [_prefill_gate(engine, "olmoe_1b_7b wave 4/2", wave, dict(
+        lengths=lens, row_local=True, row_capacities=np.array(
+            [_capacity(cfg, int(s)) for s in lens], np.int64)), 1024),
+        _prefill_gate(engine, "olmoe_1b_7b solo 4/2", solo, {}, 1024)]
+    q40 = {"layers": {"moe": {
+        name: MixedPrecisionWeights(high=mp.high, low=None)
+        for name, mp in engine.qparams["layers"]["moe"].items()}}}
+    cfg40 = dataclasses.replace(cfg, dymoe=dataclasses.replace(
+        cfg.dymoe, low_bits=0))
+    eng40 = DyMoEEngine(cfg40, engine.params, EngineConfig(decode_chunk=16),
+                        device=engine.device, qparams=q40)
+    gates.append(_prefill_gate(eng40, "olmoe_1b_7b solo 4/0", solo, {}, 1024))
+    cp = engine._prefill
+    return dict(gates=gates, engine=_prefill_engine(
+        "olmoe_1b_7b", cp, replay_counts=_prefill_replay_counts(cp),
+        pool_bytes_4_0=eng40._prefill.pool_bytes()))
 
 
 def _sync_sites(caught) -> dict:
@@ -1223,7 +1473,7 @@ def _sampled_batch(engine, reqs) -> dict:
     import torch
     sampled = [dataclasses.replace(r, temperature=0.7, top_k=(0, 20)[i % 2],
                                    seed=100 + i) for i, r in enumerate(reqs)]
-    warm = []                   # capture both modes' keys first
+    warm = []      # capture both modes' keys first (one prefill key)
     for batch in (reqs, sampled):
         t0 = time.perf_counter()
         engine.generate_batch(batch, num_slots=4)
@@ -1246,6 +1496,7 @@ def _sampled_batch(engine, reqs) -> dict:
             syncs_sampled = _sync_sites(caught)
         steps = engine.last_stats["decode_steps"]
         assert engine.last_stats["compiles"] == 0, engine.last_stats
+        assert engine.last_stats["prefill_compiles"] == 0, engine.last_stats
         runs.append(dict(kind=kind, wall_s=wall, decode_steps=steps,
                          decode_ms_per_step=1e3 * max(
                              r.decode_wall_s for r in out) / steps,
@@ -1451,13 +1702,19 @@ def _serve_archs(dev) -> dict:
     """Full-width ``qwen3_0p6b`` (28 layers), ``zamba2_1p2b`` (38 layers,
     7 shared-attention sites) and ``falcon_mamba_7b`` (64 layers, d_inner
     8192), "4/2", random weights from a seeded CUDA generator, quantized
-    on the card: 6 ragged requests through ``generate_batch`` on 4 slots
-    (a warm run captures the chunk keys), then the same again, counted:
+    on the card: a 512-token eager prefill timed on the new engine
+    (``_fresh_prefill_ms``), then 6 ragged requests through
+    ``generate_batch`` on 4 slots (a warm run captures the chunk keys and
+    meets the prefill keys, a second captures the prefill keys), then the
+    same again, counted:
     K2 launches must be (3 dense, 2 SSM) x L x (decode steps + prefills),
     K1 none. Then the graph gate on each model's decode state
-    (``_arch_gate``). Prints one ``arch:`` line a model (wall, decode
-    ms/step, peak memory, K2 launches) and returns K2's launches by path:
-    ``dense`` and ``ssm`` (hybrid and Mamba1 together)."""
+    (``_arch_gate``) and the prefill graph gate (``_prefill_gate``: a
+    4-row wave on the dense model, a 512-token solo prefill on the SSM
+    ones). Prints one ``arch:`` line a model (wall, decode ms/step, peak
+    memory, K2 launches) and returns K2's launches by path, ``dense`` and
+    ``ssm`` (hybrid and Mamba1 together), and the prefill gates with each
+    engine's prefill keys."""
     import gc
 
     import numpy as np
@@ -1468,6 +1725,7 @@ def _serve_archs(dev) -> dict:
     from repro_torch.serving import DyMoEEngine, EngineConfig, Request
 
     by_path = {"dense": Counter(), "ssm": Counter()}
+    gates = dict(gates=[], engines=[])
     for arch in ARCHS:
         cfg = get_config(arch)
         kind = cfg.block_kinds()[0]
@@ -1483,6 +1741,7 @@ def _serve_archs(dev) -> dict:
         del params
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        fresh = _fresh_prefill_ms(engine)
         rng = np.random.default_rng(3)
         reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
             1, cfg.vocab_size, int(rng.integers(64, 513)))],
@@ -1492,6 +1751,12 @@ def _serve_archs(dev) -> dict:
         torch.cuda.synchronize()
         cold_wall = time.perf_counter() - t0
         cold = dict(engine.last_stats)
+        t0 = time.perf_counter()               # captures the prefill keys
+        second = engine.generate_batch(reqs, num_slots=4)
+        torch.cuda.synchronize()
+        second_wall = time.perf_counter() - t0
+        second_stats = dict(engine.last_stats)
+        assert [r.tokens for r in second] == [r.tokens for r in warm]
         km.reset_launch_counts()               # this path starts here
         with warnings.catch_warnings(record=True) as syncs:
             warnings.simplefilter("always")
@@ -1504,7 +1769,7 @@ def _serve_archs(dev) -> dict:
         launches = dict(km.LAUNCHES)           # this path ends here
         stats = dict(engine.last_stats)
         assert [r.tokens for r in out] == [r.tokens for r in warm]
-        assert stats["compiles"] == 0, stats
+        assert stats["compiles"] == 0 == stats["prefill_compiles"], stats
         q = engine.qparams["layers"]     # K2 per layer: one a packed matrix
         per_layer = len(q["mlp"] if "mlp" in q else q["ssm"])
         prefills = stats["waves_batched"] + stats["waves_solo"]
@@ -1522,14 +1787,19 @@ def _serve_archs(dev) -> dict:
             assert r.cache_stats is None and r.decode_timings is None
         n_tok = sum(len(r.tokens) for r in out)
         gate = _arch_gate(engine)
+        gates["gates"].append(_arch_prefill_gate(engine))
+        gates["engines"].append(_prefill_engine(arch, engine._prefill))
         summary = dict(
             arch=arch, layers=L, d_model=cfg.d_model,
             d_ff=cfg.d_ff or None, d_inner=cfg.d_inner or None,
             init_quantize_s=init_s, prompt_tokens=[q.prompt_len
                                                    for q in reqs],
             new_tokens=[len(r.tokens) for r in out],
-            serve_wall_cold_s=cold_wall, cold=dict(
-                compiles=cold["compiles"], compile_s=cold["compile_s"]),
+            prefill512_fresh_ms=fresh, serve_wall_cold_s=cold_wall,
+            cold=dict(compiles=cold["compiles"], compile_s=cold["compile_s"]),
+            serve_wall_second_s=second_wall, second=dict(
+                prefill_compiles=second_stats["prefill_compiles"],
+                prefill_compile_s=second_stats["prefill_compile_s"]),
             serve_wall_s=wall, decode_tok_per_s=(n_tok - len(reqs)) / wall,
             batch=stats, host_syncs=_sync_sites(syncs),
             k2_launches=k2, k2_per_decode_step=per_layer * L,
@@ -1540,7 +1810,51 @@ def _serve_archs(dev) -> dict:
         print("arch: " + json.dumps(summary), flush=True)
         by_path["dense" if kind == "attn_dense" else "ssm"].update(launches)
         del engine, warm, out
-    return {p: dict(c) for p, c in by_path.items()}
+    return {p: dict(c) for p, c in by_path.items()}, gates
+
+
+def _fresh_prefill_ms(engine) -> list:
+    """A 512-token solo ``prefill`` (cache slots 512) on a model's new
+    engine, before it serves anything: two calls, each one's ms
+    (CUDA-synchronized host clock). The same call as the prefill gate's
+    eager one, made here so that one run holds both readings: early in
+    the model's phase, and late, after its serve runs, captures and
+    traces."""
+    import torch
+    from repro_torch.models.model import prefill
+
+    cfg = engine.cfg
+    gen = torch.Generator(device=engine.device).manual_seed(7)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 512),
+                           device=engine.device, generator=gen)
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(engine.params, cfg, prompt, qparams=engine.qparams,
+                cache_slots=512)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _arch_prefill_gate(engine) -> dict:
+    """``_prefill_gate`` on a non-MoE model: a 4-row ragged wave (prompts
+    512, 384, 233, 64) on a dense model, a 512-token solo prefill on an
+    SSM or hybrid one (they admit solo)."""
+    import numpy as np
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(12)
+    if cfg.block_kinds()[0] == "ssm":
+        return _prefill_gate(engine, f"{cfg.name} solo", rng.integers(
+            1, cfg.vocab_size, (1, 512)), {}, 512)
+    lens = np.array([512, 384, 233, 64], np.int32)
+    wave = np.zeros((4, 512), np.int64)
+    for i, s in enumerate(lens):
+        wave[i, 512 - s:] = rng.integers(1, cfg.vocab_size, s)
+    return _prefill_gate(engine, f"{cfg.name} wave", wave,
+                         dict(lengths=lens, row_local=True), 512)
 
 
 def _arch_gate(engine) -> dict:
@@ -1553,9 +1867,7 @@ def _arch_gate(engine) -> dict:
     third replays under torch.profiler). Tokens, done, emitted and every
     cache leaf must be bitwise equal. Returns the eager and replay ms per
     step of the second chunk; the third's device busy time, K2 kernels and
-    their device time, and the idle share of a replay; and one 512-token
-    solo prefill's ms and the memory it took above what was allocated
-    before it (the scan's blocks among it)."""
+    their device time, and the idle share of a replay."""
     import dataclasses
 
     import numpy as np
@@ -1565,20 +1877,7 @@ def _arch_gate(engine) -> dict:
 
     cfg, dev = engine.cfg, engine.device
     gen = torch.Generator(device=dev).manual_seed(7)
-    long_prompt = torch.randint(1, cfg.vocab_size, (1, 512), device=dev,
-                                generator=gen)
     rec = {}
-    for _ in range(2):                  # the second run is the one kept
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        prefill(engine.params, cfg, long_prompt, qparams=engine.qparams,
-                cache_slots=512)
-        torch.cuda.synchronize()
-        rec.update(prefill512_ms=(time.perf_counter() - t0) * 1e3,
-                   prefill512_extra_gib=(torch.cuda.max_memory_allocated()
-                                         - base) / 2**30)
     b, s, steps, chunks = 4, 64, 16, 3
     prompts = torch.randint(1, cfg.vocab_size, (b, s), device=dev,
                             generator=gen)
@@ -1727,8 +2026,16 @@ def main() -> int:
     launches.update(serve_launches)
     by_path = {"serve": serve_launches, "session": _session_phase(engine),
                "generate_reference": _reference_full(engine)}
+    olmoe = _prefill_olmoe(engine)
     del engine
-    by_path.update(_serve_archs(dev))
+    arch_paths, archs = _serve_archs(dev)
+    by_path.update(arch_paths)
+    gates = olmoe["gates"] + archs["gates"]
+    print("prefill_graph: " + json.dumps(dict(
+        gates=gates, engines=[olmoe["engine"]] + archs["engines"])),
+        flush=True)
+    errors = [g["launch_error"] for g in gates if g["launch_error"]]
+    assert not errors, errors
 
     kernels = []
     for name, (source, replaces, library) in KERNELS.items():

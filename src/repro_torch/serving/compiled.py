@@ -1,6 +1,8 @@
-"""The compiled decode chunk: the port's counterpart of the JAX engine's
-``jax.jit(decode_many_batched, static_argnames=("num_steps",
-"live_cap"))`` (``repro/serving/engine.py``).
+"""The engine's compiled programs: the port's counterparts of the JAX
+engine's ``jax.jit(decode_many_batched, static_argnames=("num_steps",
+"live_cap"))`` (:class:`CompiledDecodeChunk`) and ``jax.jit(prefill,
+static_argnames=("cache_slots", "row_local"))`` (:class:`CompiledPrefill`)
+(``repro/serving/engine.py``).
 
 Eager PyTorch dispatches every op of a decode step from the host (about
 4,300 launches a step at full-width OLMoE-1B-7B), so the card waits on the
@@ -59,6 +61,29 @@ none of which a capture allows. Those launches are real and counted.
 Python's cyclic garbage collector is off during a capture: a graph it
 destroyed then (say, of an engine dropped earlier) would free that
 graph's pool, and a capture forbids a ``cudaFree``.
+
+The prefill (:class:`CompiledPrefill`) follows the same rules, with four
+differences. Its key is the reference's jit key — the prompt shape (B, S),
+``cache_slots`` and ``row_local`` — and what else fixes the program
+(whether ``lengths`` and ``row_capacities`` are given, tokens or
+``embeds``), so a ragged wave pads only to its own longest prompt. A
+key's first call runs the prefill eagerly, and that call is the
+capture's warm-up; the capture comes at the key's second call. A prompt
+shape met once therefore costs no capture, and keeps no outputs: a
+capture takes about an eager prefill's host time and holds its outputs'
+memory, which varied traffic would pay for shapes it never meets again.
+A prefill writes only tensors it allocates itself, so an out-of-memory
+error from an eager prefill leaves nothing the caller keeps, and the
+admission ladder retries it at half the wave (a new key, so an eager
+call again). One raised inside a capture is re-raised as a
+``RuntimeError``, which the ladder lets through: a failed capture is
+not a sound state to retry from. The outputs of a captured key — the
+logits, the ``DyMoEInfo`` leaves and the fresh caches, which the capture
+allocates — live in a pool of the prefill graphs' own, apart from the
+decode chunk's, so neither kind of replay overwrites the other's unread
+outputs; the key's next call overwrites them. Each key owns its static
+inputs; at most ``max_entries`` keys are kept, the least recently used
+dropped with its graph.
 """
 from __future__ import annotations
 
@@ -66,7 +91,8 @@ import dataclasses
 import gc
 import time
 import weakref
-from typing import Dict, List, Optional, Tuple, Union
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,9 +102,10 @@ from repro_torch.kernels.quant_matmul import expert_quant_matmul as _eqm
 from repro_torch.kernels.quant_matmul import quant_matmul as _qm
 from repro_torch.models.kv_cache import KVCache, SSMCache
 from repro_torch.models.model import DyMoEInfo, decode_many_batched, \
-    init_decode_state
+    init_decode_state, prefill
 
-__all__ = ["CompiledDecodeChunk", "DecodeState", "ChunkOut", "slot_bucket"]
+__all__ = ["CompiledDecodeChunk", "DecodeState", "ChunkOut",
+           "CompiledPrefill", "PrefillOut", "slot_bucket"]
 
 # every kernel wrapper's launch counter (name -> count)
 _COUNTERS = (_eqm.LAUNCHES, _qm.LAUNCHES, _attn.LAUNCHES)
@@ -109,12 +136,35 @@ class ChunkOut:
 
 
 @dataclasses.dataclass
+class PrefillOut:
+    """A prefill's fixed outputs: last-token logits (B, V) f32, the fresh
+    caches ({"layers": KVCache or SSMCache, "shared": the hybrid's site KV
+    stack}) and the ``DyMoEInfo`` (its leaves None for a non-MoE
+    config)."""
+
+    logits: torch.Tensor
+    caches: Dict[str, Union[KVCache, SSMCache]]
+    info: DyMoEInfo
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every output tensor (None leaves left out)."""
+        leaves = [self.logits]
+        for part in sorted(self.caches):
+            c = self.caches[part]
+            leaves += [getattr(c, f.name) for f in dataclasses.fields(c)]
+        return leaves + [t for t in (getattr(self.info, f.name) for f in
+                                     dataclasses.fields(self.info))
+                         if t is not None]
+
+
+@dataclasses.dataclass
 class _Entry:
-    out: ChunkOut
+    out: Optional[Union[ChunkOut, PrefillOut]]   # None: no call yet fixed
     graph: Optional[torch.cuda.CUDAGraph]
     launches: Dict[str, int]      # kernel launches one replay makes
-    warmup_s: float = 0.0         # the eager one-step warm-up
+    warmup_s: float = 0.0         # the eager warm-up
     capture_s: float = 0.0        # capture and instantiation
+    inputs: Optional[Dict[str, torch.Tensor]] = None  # a prefill key's
 
 
 def slot_bucket(need: int, max_seq_len: int) -> int:
@@ -187,6 +237,53 @@ def _set_counts(values: Dict[str, int]) -> None:
             c[k] = values[k]
 
 
+def _add_counts(launches: Dict[str, int]) -> None:
+    """A replay: add the launches its capture recorded."""
+    for c in _COUNTERS:
+        for k in c:
+            c[k] += launches[k]
+
+
+def _capture(pool, warmup: Optional[Callable[[], Any]],
+             body: Callable[[], Any]) -> _Entry:
+    """Run ``warmup()`` (if any) eagerly on a side stream, then capture
+    ``body()`` into ``pool``. The capture's launch counts become the
+    entry's per-replay counts and are taken back."""
+    t0 = time.perf_counter()
+    if warmup is not None:
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream(device=main.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            warmup()
+        main.wait_stream(side)
+    t1 = time.perf_counter()
+    before = _counts()
+    graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = body()
+    finally:
+        if collecting:
+            gc.enable()
+        after = _counts()
+        _set_counts(before)   # recorded, not launched (even if failed)
+    return _Entry(out=out, graph=graph,
+                  launches={k: after[k] - before[k] for k in after},
+                  warmup_s=t1 - t0, capture_s=time.perf_counter() - t1)
+
+
+def _pool_bytes(pool) -> int:
+    """Device bytes reserved by a graph memory pool (0 without one)."""
+    if pool is None:
+        return 0
+    pid = tuple(pool)
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == pid)
+
+
 class CompiledDecodeChunk:
     """``engine._decode_batched``: the scheduler's decode chunk, captured
     as one CUDA graph per key and replayed from engine-owned decode states
@@ -256,11 +353,7 @@ class CompiledDecodeChunk:
 
     def pool_bytes(self) -> int:
         """Device bytes reserved by the graphs' shared memory pool."""
-        if self._pool is None:
-            return 0
-        pid = tuple(self._pool)
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s["segment_pool_id"]) == pid)
+        return _pool_bytes(self._pool)
 
     # ------------------------------------------------------------- call
     def __call__(self, state: DecodeState, tokens: torch.Tensor, *,
@@ -304,9 +397,7 @@ class CompiledDecodeChunk:
         if entry is None:
             entry = state.entries[key] = self._capture(state, key)
         entry.graph.replay()
-        for c in _COUNTERS:
-            for k in c:
-                c[k] += entry.launches[k]
+        _add_counts(entry.launches)
         return entry.out
 
     def _chunk(self, state: DecodeState, key, done=None) -> ChunkOut:
@@ -329,36 +420,163 @@ class CompiledDecodeChunk:
 
     def _capture(self, state: DecodeState, key) -> _Entry:
         """Warm up one step of ``key``'s shapes with every row frozen, then
-        capture the chunk into the shared pool. The capture's launch
-        counts become the entry's per-replay counts and are taken back."""
+        capture the chunk into the shared pool."""
         _, live_cap, sampled = key
-        t0 = time.perf_counter()
-        main = torch.cuda.current_stream()
-        side = torch.cuda.Stream(device=main.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._chunk(state, (1, live_cap, sampled),
-                        done=torch.ones_like(state.inputs["done"]))
-        main.wait_stream(side)
-        t1 = time.perf_counter()
-        before = _counts()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                out = self._chunk(state, key)
-        finally:
-            if collecting:
-                gc.enable()
-            after = _counts()
-            _set_counts(before)   # recorded, not launched (even if failed)
-        entry = _Entry(out=out, graph=graph,
-                       launches={k: after[k] - before[k] for k in after},
-                       warmup_s=t1 - t0,
-                       capture_s=time.perf_counter() - t1)
+        entry = _capture(
+            self._pool,
+            lambda: self._chunk(state, (1, live_cap, sampled),
+                                done=torch.ones_like(state.inputs["done"])),
+            lambda: self._chunk(state, key))
         self.compiles += 1
         self.compile_s += entry.warmup_s + entry.capture_s
         return entry
+
+
+class CompiledPrefill:
+    """``engine._prefill``: every prefill the engine and its sessions run
+    (the batched row-local wave, the solo admission, the reference path's
+    prefill). A key's first call runs eagerly; its second captures one
+    CUDA graph, and every later call replays it from the key's static
+    inputs into its fixed outputs (see the module docstring). ``graphs``
+    defaults to True on CUDA and must be False on the CPU; with False the
+    same protocol runs eager prefills, which on the card only a
+    measurement asks for.
+
+    A call's outputs stay valid until the next call of this object: a
+    caller copies or injects what it keeps first, on the same stream.
+    ``compiles`` counts the keys whose fixed outputs were set up at their
+    second call (a capture on the card) and ``compile_s`` the captures'
+    seconds."""
+
+    # keys kept (their static inputs and, once met twice, fixed outputs
+    # and graphs); the least recently used beyond it is dropped
+    max_entries = 8
+
+    def __init__(self, engine, *, graphs: Optional[bool] = None):
+        # the engine's model, not the engine (no reference cycle)
+        self._params, self._qparams = engine.params, engine.qparams
+        self._cfg, self._device = engine.cfg, engine.device
+        on_card = self._device.type == "cuda"
+        self.graphs = on_card if graphs is None else graphs
+        if self.graphs and not on_card:
+            raise ValueError("CUDA graphs need the engine on a CUDA device")
+        self._entries: "OrderedDict[tuple, _Entry]" = OrderedDict()
+        self._pool = None
+        self.compiles = 0
+        self.compile_s = 0.0
+
+    def entries(self) -> Dict[tuple, _Entry]:
+        """The keys kept, least recently used first: (B, S, cache_slots,
+        row_local, lengths given, row_capacities given, the embeds' dtype
+        or None for tokens). A key met once has no outputs or graph."""
+        return dict(self._entries)
+
+    def pool_bytes(self) -> int:
+        """Device bytes reserved by the prefill graphs' memory pool."""
+        return _pool_bytes(self._pool)
+
+    def _evict(self) -> None:
+        while len(self._entries) > self.max_entries:
+            self._entries.popitem(last=False)   # its outputs and graph go
+        if not any(e.graph is not None for e in self._entries.values()):
+            self._pool = None          # a pool no graph uses is not reused
+
+    # ------------------------------------------------------------- call
+    def __call__(self, tokens=None, *, embeds=None,
+                 cache_slots: Optional[int] = None, lengths=None,
+                 row_local: bool = False,
+                 row_capacities=None) -> PrefillOut:
+        """:func:`~repro_torch.models.model.prefill` of ``tokens`` (B, S),
+        a host int array, or ``embeds`` (B, S, dm), a tensor; ``lengths``
+        and ``row_capacities`` (B,) are host arrays. Returns the outputs
+        of an eager prefill at a key's first call, else the key's fixed
+        outputs; either is overwritten by the next call."""
+        if tokens is not None:
+            tokens = np.asarray(tokens)
+        b, s = (tokens if tokens is not None else embeds).shape[:2]
+        key = (b, s, cache_slots or max(s, self._cfg.max_seq_len),
+               row_local, lengths is not None, row_capacities is not None,
+               None if embeds is None else embeds.dtype)
+        entry = self._entries.get(key)
+        ins = entry.inputs if entry is not None else self._inputs(key)
+        if tokens is not None:
+            _stage(ins["tokens"], tokens)
+        else:
+            ins["embeds"].copy_(embeds, non_blocking=True)
+        for name, values in (("lengths", lengths),
+                             ("row_capacities", row_capacities)):
+            if values is not None:
+                _stage(ins[name], values)
+        if entry is None:
+            # the key's warm-up: one eager prefill, its outputs the call's
+            out = self._prefill(key, ins)
+            self._entries[key] = _Entry(out=None, graph=None, launches={},
+                                        inputs=ins)
+            self._evict()
+            return out
+        self._entries.move_to_end(key)
+        try:
+            if entry.out is None:
+                self._compile(key, entry)
+            elif self.graphs:
+                entry.graph.replay()
+                _add_counts(entry.launches)
+            else:
+                for dst, src in zip(entry.out.tensors(),
+                                    self._prefill(key, ins).tensors()):
+                    dst.copy_(src)
+        finally:
+            self._evict()
+        return entry.out
+
+    def _inputs(self, key) -> Dict[str, torch.Tensor]:
+        """A key's static inputs, allocated outside any graph pool."""
+        b, s, _, _, has_lengths, has_caps, embeds_dtype = key
+        dev = self._device
+        if embeds_dtype is None:
+            ins = dict(tokens=torch.zeros((b, s), dtype=torch.int64,
+                                          device=dev))
+        else:
+            ins = dict(embeds=torch.zeros((b, s, self._cfg.d_model),
+                                          dtype=embeds_dtype, device=dev))
+        if has_lengths:
+            ins["lengths"] = torch.zeros(b, dtype=torch.int32, device=dev)
+        if has_caps:
+            ins["row_capacities"] = torch.zeros(b, dtype=torch.int64,
+                                                device=dev)
+        return ins
+
+    def _prefill(self, key, ins) -> PrefillOut:
+        """The prefill run eagerly on the key's static inputs."""
+        logits, caches, info = prefill(
+            self._params, self._cfg, ins.get("tokens"),
+            embeds=ins.get("embeds"), qparams=self._qparams,
+            cache_slots=key[2], lengths=ins.get("lengths"),
+            row_local=key[3], row_capacities=ins.get("row_capacities"))
+        return PrefillOut(logits, caches, info)
+
+    def _compile(self, key, entry: _Entry) -> None:
+        """A key's second call sets up its fixed outputs: on the card the
+        capture (the first call was its warm-up) and a replay; else one
+        eager prefill whose outputs become them."""
+        ins = entry.inputs
+        if not self.graphs:
+            entry.out = self._prefill(key, ins)
+        else:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            try:
+                cap = _capture(self._pool, None,
+                               lambda: self._prefill(key, ins))
+            except torch.OutOfMemoryError as e:
+                raise RuntimeError(
+                    f"the capture of prefill key {key} ran out of device "
+                    "memory") from e
+            entry.out, entry.graph = cap.out, cap.graph
+            entry.launches, entry.capture_s = cap.launches, cap.capture_s
+            entry.graph.replay()
+            _add_counts(entry.launches)
+        self.compiles += 1
+        self.compile_s += entry.capture_s

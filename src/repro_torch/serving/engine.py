@@ -19,13 +19,16 @@ an OPEN session (``serve`` / ``submit`` / ``step`` / ``health``, with
 ``handle.stream()`` / ``cancel()`` / ``result()``, typed faults and their
 recovery ladders, and the SLO policy layer), which replays each admission
 wave's and each decode chunk's telemetry inline, on the dispatch thread,
-right after the boundary's one host sync. Its decode chunks run through
-the engine's compiled chunk (``serving/compiled.py``): CUDA graphs
-captured per key at first use, replayed from decode states the engine
-owns across sessions. ``generate`` and ``generate_batch`` are thin
-wrappers over one session; :meth:`DyMoEEngine.generate_reference`
-(prefill, then eager ``decode_many`` chunks with one shared Critical set
-a layer, replayed inline) is the oracle ``generate`` must equal.
+right after the boundary's one host sync. Its prefills and decode chunks
+run through the engine's compiled programs (``serving/compiled.py``):
+CUDA graphs, one per key — a prefill per prompt shape, ``cache_slots``
+and ``row_local``, as the reference jits it, captured when the key
+recurs; a decode chunk per key of decode states the engine owns across
+sessions, captured at first use.
+``generate`` and ``generate_batch`` are thin wrappers over one session;
+:meth:`DyMoEEngine.generate_reference` (prefill, then eager
+``decode_many`` chunks with one shared Critical set a layer, replayed
+inline) is the oracle ``generate`` must equal.
 Requests carry per-request sampling parameters
 (temperature / top-k / seed) with counter-derived PRNG streams, so a
 request's tokens are the same solo and in a batch. Ablation rows of paper
@@ -49,11 +52,12 @@ from repro_torch.core.orchestrator import DynamicExpertOrchestrator, \
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import _check_supported, decode_many, \
-    prefill, quantize_model
+    quantize_model
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
 from repro_torch.serving.cost_model import EdgeCostModel, EdgeProfile, \
     expert_bytes
-from repro_torch.serving.compiled import CompiledDecodeChunk
+from repro_torch.serving.compiled import CompiledDecodeChunk, \
+    CompiledPrefill
 from repro_torch.serving.request import Request, RequestHandle
 from repro_torch.serving.sampler import fold_in, resolve_sampling, \
     sample_token
@@ -140,13 +144,18 @@ class DyMoEEngine:
         self.qparams = to_device(qparams, self.device) if qparams is not None \
             else quantize_model(self.params, cfg)
         self.cost = EdgeCostModel(cfg, engine_cfg.profile)
+        # every prefill, compiled (the JAX engine's jax.jit of prefill):
+        # one CUDA graph per prompt shape, cache_slots and row_local,
+        # captured at the key's second call, its outputs in a pool of the
+        # prefill graphs' own
+        self._prefill = CompiledPrefill(self)
         # the batched decode chunk, compiled (the JAX engine's jax.jit of
         # decode_many_batched): one CUDA graph per key, replayed from the
         # engine-owned decode states
         self._decode_batched = CompiledDecodeChunk(self)
         # the last batch call's counts (ContinuousBatchingScheduler.stats):
         # chunks, decode steps, batched and solo admission waves, replay
-        # jobs and their host seconds, compiled-chunk compiles
+        # jobs and their host seconds, compiled-chunk and prefill compiles
         self.last_stats: dict = {}
         self._session = None   # the engine-owned open serving session
 
@@ -291,8 +300,9 @@ class DyMoEEngine:
 
     def generate_reference(self, request: Request, rng_key=None
                            ) -> GenerationResult:
-        """Single-request REFERENCE path (no scheduler): the solo prefill,
-        then ``decode_chunk``-sized :func:`decode_many` chunks (one shared
+        """Single-request REFERENCE path (no scheduler): the solo prefill
+        (the engine's compiled prefill, as the reference's is jitted), then
+        ``decode_chunk``-sized :func:`decode_many` chunks (one shared
         Critical set a layer, K2 on the card) with inline telemetry
         replay. Token i's PRNG key is ``fold_in(rng_key, i)``, so outputs
         are chunking-invariant. The oracle :meth:`generate` must equal,
@@ -309,11 +319,12 @@ class DyMoEEngine:
         orch = self._make_orchestrator()
         eos = request.eos_token
         t0 = time.perf_counter()
-        prompt = torch.as_tensor([request.prompt_tokens], dtype=torch.int64,
-                                 device=dev)
-        logits, caches, info = prefill(
-            self.params, cfg, prompt, qparams=self.qparams,
-            cache_slots=s + request.max_new_tokens)
+        # the compiled prefill's outputs: the eager decode_many
+        # chunks below advance these caches in place, which holds because
+        # nothing else calls the engine's prefill while this call runs
+        out = self._prefill(np.asarray([request.prompt_tokens], np.int64),
+                            cache_slots=s + request.max_new_tokens)
+        logits, caches, info = out.logits, out.caches, out.info
         tele = _d2h_async((info.critical_masks, info.active_masks,
                            info.predicted_next))
         tok = sample_token(logits, fold_in(rng_key, 0) if sampling else None,

@@ -16,9 +16,13 @@
                                        #      slots (one ragged row-local
                                        #      prefill per wave of >1
                                        #      request; the solo prefill for
-                                       #      a wave of one), each with ONE
-                                       #      host sync for its first
-                                       #      tokens, then its replay
+                                       #      a wave of one; the engine's
+                                       #      compiled prefill: a CUDA
+                                       #      graph replay on the card),
+                                       #      each with ONE host sync for
+                                       #      its first tokens, then its
+                                       #      replay and the injection of
+                                       #      its rows
                                        #   4. one decode chunk of
                                        #      ``decode_chunk`` steps over
                                        #      every slot (the engine's
@@ -55,7 +59,10 @@ rounded up to a power of two, so later sessions find it again), reset at
 the start; admission writes rows into it in place. The chunk's outputs
 are fixed buffers that the next chunk overwrites, so the session copies
 the last tokens into its own ``_tok_d`` and queues the telemetry copies
-before the next dispatch.
+before the next dispatch. A wave's prefill outputs are fixed buffers too,
+which the next prefill overwrites: each wave's first tokens are fetched,
+its telemetry copied and its rows injected before the next wave's
+prefill.
 
 Admitted KV rows are LEFT-ALIGNED into their slots, so an injected row
 is laid out exactly as a solo admission would have been; an SSM state is
@@ -81,7 +88,6 @@ import torch
 from repro_torch.core.orchestrator import StepTiming
 from repro_torch.models.kv_cache import SSMCache
 from repro_torch.models.layers.moe import _capacity
-from repro_torch.models.model import prefill
 from repro_torch.serving.compiled import slot_bucket
 from repro_torch.serving.faults import NO_FAULTS, AdmissionError, \
     DeadlineExceeded, DispatchError, InjectedFault, QueueFull, \
@@ -104,10 +110,12 @@ def live_cap_for(n_live: int, slots: int) -> int:
 
 # What the dispatch and admission ladders recover from: injected faults,
 # and an allocation failure raised before the work wrote any state the
-# session keeps (an admission wave writes only tensors of its own until
-# its rows are injected; the compiled chunk raises its out-of-memory
-# errors only from capture, before a launch, and turns one raised after
-# its eager chunk began writing the caches into a RuntimeError). Anything
+# session keeps (an admission wave's prefill writes only the compiled
+# prefill's own outputs until its rows are injected, and the compiled
+# prefill turns an out-of-memory error of a capture into a RuntimeError;
+# the compiled chunk raises its out-of-memory errors only from capture,
+# before a launch, and turns one raised after its eager chunk began
+# writing the caches into a RuntimeError). Anything
 # else — a kernel build failure, a CUDA launch or device error, which
 # stays on the context — propagates out of ``step()``: a retry against it
 # would only end in a DispatchError while the run looked healthy.
@@ -197,7 +205,8 @@ class ContinuousBatchingScheduler:
     wave and per chunk), ``replay_s`` (their summed host seconds), and
     ``compiles`` / ``compile_s`` (compiled-chunk keys first met in this
     session — a CUDA graph capture each on the card — and the seconds
-    their warm-up and capture took).
+    their warm-up and capture took), and ``prefill_compiles`` /
+    ``prefill_compile_s`` (the same for the compiled prefill's keys).
 
     **Failure semantics** (the JAX package's, :mod:`~repro_torch.serving.
     faults` for the taxonomy and the injector): EVERY submitted handle
@@ -254,7 +263,8 @@ class ContinuousBatchingScheduler:
         self._lock = threading.Lock()
         self.stats = dict(chunks=0, decode_steps=0, waves_batched=0,
                           waves_solo=0, replay_jobs=0, replay_s=0.0,
-                          compiles=0, compile_s=0.0)
+                          compiles=0, compile_s=0.0, prefill_compiles=0,
+                          prefill_compile_s=0.0)
         # fault-tolerance state — lives on the instance from birth so
         # health() is answerable before the session starts
         self._health = SessionHealth()
@@ -615,8 +625,10 @@ class ContinuousBatchingScheduler:
         first token free their claim at once, so further waves run until
         the slots are full or the queue drains. A failed wave (site
         ``admit.alloc``) is requeued and retried at half size; a single
-        candidate that still fails resolves with :class:`AdmissionError`."""
-        engine, cfg = self.engine, self.engine.cfg
+        candidate that still fails resolves with :class:`AdmissionError`.
+        Survivors claim free slots in pop order, and each wave's rows are
+        injected before the next wave's prefill overwrites its caches."""
+        engine = self.engine
         dev = engine.device
         free = [r for r in range(self._b)
                 if self._done[r] and self._states[r] is None]
@@ -630,7 +642,6 @@ class ContinuousBatchingScheduler:
                         self._policy.order(list(self._queue), now0))
         n_survivors = 0
         cap: Optional[int] = None   # ladder: bound on a retried wave size
-        waves = []   # (row caches, src rows, first tokens, states)
         while n_survivors < len(free) and self._queue:
             room = len(free) - n_survivors
             if cap is not None:
@@ -645,9 +656,12 @@ class ContinuousBatchingScheduler:
             lens = [h.request.prompt_len for h in cands]
             n = len(cands)
             batched = n > 1
+            compiled = engine._prefill
+            n_comp, comp_s = compiled.compiles, compiled.compile_s
             try:
                 self._faults.fire("admit.alloc", n=n)
-                logits, rcaches, info = self._prefill_wave(cands, lens)
+                out = self._prefill_wave(cands, lens)
+                logits, info = out.logits, out.info
                 tele = _d2h_async((info.critical_masks, info.active_masks,
                                    info.predicted_next))
                 # the wave's ONE host sync: every candidate's first token.
@@ -684,6 +698,10 @@ class ContinuousBatchingScheduler:
                 err.__cause__ = e
                 cands[0]._finish_error(err)
                 continue
+            finally:
+                self.stats["prefill_compiles"] += compiled.compiles - n_comp
+                self.stats["prefill_compile_s"] += \
+                    compiled.compile_s - comp_s
             cap = None   # a clean wave resets the ladder
             self.stats["waves_batched" if batched else "waves_solo"] += 1
             t_dec = time.perf_counter()
@@ -705,15 +723,13 @@ class ContinuousBatchingScheduler:
                     surv.append(st)
             self._timed(self._replay_prefill, [h for h in cands],
                         wave_states, tele, batched)
-            if src:
-                waves.append((rcaches, src, toks, surv))
-                n_survivors += len(src)
-        # survivors claim free slots in pop order
-        fi = 0
-        for rc, src, toks, sts in waves:
-            dst = free[fi:fi + len(src)]
-            fi += len(src)
-            for st, r in zip(sts, dst):
+            if not src:
+                continue
+            # the survivors claim the next free slots (pop order); their
+            # rows go in now, before the next prefill overwrites out
+            dst = free[n_survivors:n_survivors + len(src)]
+            n_survivors += len(src)
+            for st, r in zip(surv, dst):
                 h = st.handle
                 self._states[r] = st
                 self._done[r] = False
@@ -725,8 +741,8 @@ class ContinuousBatchingScheduler:
                 self._topks[r] = h.top_k
                 self._keys[r] = h.key if h.key is not None else 0
             dst_d = _h2d(np.asarray(dst, np.int64), dev)
-            self._inject_rows(rc, _h2d(np.asarray(src, np.int64), dev),
-                              dst_d)
+            self._inject_rows(out.caches, _h2d(np.asarray(src, np.int64),
+                                               dev), dst_d)
             self._tok_d[dst_d] = _h2d(np.asarray(toks, np.int32), dev)
         return True
 
@@ -741,29 +757,28 @@ class ContinuousBatchingScheduler:
                 and cfg.sliding_window is None)
 
     def _prefill_wave(self, cands: List[RequestHandle], lens: List[int]):
-        """One admission wave's prefill: a ragged right-aligned row-local
-        prefill for more than one candidate, the exact solo prefill for
-        one. Writes only tensors of its own."""
+        """One admission wave's prefill through the engine's compiled
+        prefill (its key: the wave's shape, the session's ``slots_len``,
+        row-local or not): a ragged right-aligned row-local prefill for
+        more than one candidate, padded to the wave's own longest prompt;
+        the exact solo prefill for one. Writes only the compiled prefill's
+        own outputs, which the next prefill overwrites."""
         engine, cfg = self.engine, self.engine.cfg
-        dev = engine.device
         if len(cands) > 1:
             smax = max(lens)
             prompts = np.zeros((len(cands), smax), np.int64)
             for i, h in enumerate(cands):   # right-aligned
                 prompts[i, smax - lens[i]:] = h.request.prompt_tokens
-            return prefill(
-                engine.params, cfg, _h2d(prompts, dev),
-                qparams=engine.qparams, cache_slots=self._slots_len,
-                lengths=_h2d(np.asarray(lens, np.int32), dev),
-                row_local=True,
+            return engine._prefill(
+                prompts, cache_slots=self._slots_len,
+                lengths=np.asarray(lens, np.int32), row_local=True,
                 # parity trap — capacities: exact host-side solo values
-                row_capacities=_h2d(np.asarray(
-                    [_capacity(cfg, s) for s in lens], np.int64), dev)
+                row_capacities=np.asarray(
+                    [_capacity(cfg, s) for s in lens], np.int64)
                 if cfg.is_moe else None)
         prompt = np.asarray(cands[0].request.prompt_tokens,
                             np.int64)[None, :]
-        return prefill(engine.params, cfg, _h2d(prompt, dev),
-                       qparams=engine.qparams, cache_slots=self._slots_len)
+        return engine._prefill(prompt, cache_slots=self._slots_len)
 
     def _inject_rows(self, rc: dict, src: torch.Tensor,
                      dst: torch.Tensor) -> None:

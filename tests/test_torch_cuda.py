@@ -17,7 +17,10 @@ running K2 on decode (``test_cuda_session_*``, ``test_cuda_close_*``,
 projections' shapes (``test_cuda_expert_one_expert_*``), and the non-MoE
 architectures: the compiled chunk on KV, SSM and hybrid decode states
 against the eager chunk, and serving on the card against the CPU
-(``test_cuda_compiled_chunk_non_moe_*``, ``test_cuda_non_moe_*``).
+(``test_cuda_compiled_chunk_non_moe_*``, ``test_cuda_non_moe_*``); the
+compiled prefill, a CUDA graph replay per prompt shape, against the eager
+prefill for every block family, and its pool and bound
+(``test_cuda_compiled_prefill_*``).
 (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
@@ -770,26 +773,32 @@ def test_cuda_generate_reference_launches_k2_on_decode():
     """``generate_reference`` on the card: the solo prefill and every
     decode step (``decode_step(per_row_moe=False)``, experts at M 1 per
     expert) run K2, three launches a layer, and no K1; tokens and modeled
-    numbers equal the CPU's, greedy and sampled."""
+    numbers equal the CPU's, greedy and sampled. The three calls share one
+    prefill key: the first prefills eagerly, the second captures it and the
+    third replays it, each with the same launch counts."""
     from repro_torch.serving import Request
 
     dev = _need_cuda()
     cfg, cpu, gpu = _reduced_engines(dev)
     rng = np.random.default_rng(5)
-    for temp, seed in ((0.0, None), (0.8, 11)):
+    compiles = []
+    for temp, seed in ((0.0, None), (0.8, 11), (0.0, None)):
         req = Request(prompt_tokens=[int(v) for v in rng.integers(
             1, cfg.vocab_size, 13)], max_new_tokens=7, temperature=temp,
             top_k=20, seed=seed)
         want = cpu.generate_reference(req)
         kmod.reset_launch_counts()
+        n0 = gpu._prefill.compiles
         got = gpu.generate_reference(req)
         torch.cuda.synchronize()
+        compiles.append(gpu._prefill.compiles - n0)
         assert kmod.LAUNCHES["expert_quant_matmul"] == \
             3 * cfg.num_layers * 7          # prefill + 6 decode steps
         assert kmod.LAUNCHES["expert_quant_matmul_grouped"] == 0
         assert got.tokens == want.tokens
         assert (got.ttft_s, got.tpot_s, got.cache_stats) == \
             (want.ttft_s, want.tpot_s, want.cache_stats)
+    assert compiles == [0, 1, 0]
 
 
 def _arch_engines(dev, arch, **over):
@@ -922,3 +931,180 @@ def test_cuda_non_moe_serving_equals_cpu(arch):
         gpu.generate_reference(reqs[3])
     assert ref_g.tokens == ref_c.tokens == got[3].tokens
     assert (ref_g.ttft_s, ref_g.tpot_s) == (ref_c.ttft_s, ref_c.tpot_s)
+
+
+# case -> (config name, reduced() overrides, "wave" | "solo", "4/2" | "4/0")
+_PREFILLS = {"olmoe-wave": ("olmoe_1b_7b", {}, "wave", 2),
+             "olmoe-solo-4/2": ("olmoe_1b_7b", {}, "solo", 2),
+             "olmoe-solo-4/0": ("olmoe_1b_7b", {}, "solo", 0),
+             "qwen3_0p6b-wave": ("qwen3_0p6b", {}, "wave", 2),
+             "zamba2_1p2b-solo": ("zamba2_1p2b", dict(num_layers=4), "solo",
+                                  2),
+             "falcon_mamba_7b-solo": ("falcon_mamba_7b", {}, "solo", 2)}
+
+
+def _prefill_case(dev, name):
+    """A reduced engine on the card and a prompt maker for one case: a
+    right-aligned wave of lengths 11, 4, 7 (lengths, row-local, MoE exact
+    row capacities) or a solo prompt of 13."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers.moe import _capacity
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine
+
+    arch, over, mode, low = _PREFILLS[name]
+    cfg = get_config(arch).reduced(**over)
+    cfg = dataclasses.replace(cfg, dymoe=dataclasses.replace(
+        cfg.dymoe, low_bits=low))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = DyMoEEngine(cfg, params, device=dev)
+
+    def inputs(seed):
+        rng = np.random.default_rng(seed)
+        if mode == "solo":
+            return rng.integers(1, cfg.vocab_size, (1, 13)), {}
+        lens = np.array([11, 4, 7], np.int32)
+        prompt = np.zeros((3, 11), np.int64)
+        for i, s in enumerate(lens):
+            prompt[i, 11 - s:] = rng.integers(1, cfg.vocab_size, s)
+        kw = dict(lengths=lens, row_local=True)
+        if cfg.is_moe:
+            kw["row_capacities"] = np.array(
+                [_capacity(cfg, int(s)) for s in lens], np.int64)
+        return prompt, kw
+
+    return cfg, eng, mode, inputs
+
+
+@pytest.mark.parametrize("name", list(_PREFILLS))
+def test_cuda_compiled_prefill_equals_eager(name):
+    """The engine's compiled prefill (a CUDA graph per key) against eager
+    ``prefill`` on the same inputs, for each block family: a row-local
+    OLMoE wave (K1), solo OLMoE admissions in "4/2" and "4/0" (K2), a
+    dense wave, the hybrid (SSM state and shared-site KV) and Mamba1 solo
+    (K2 at one expert). Three calls of one key with new prompts, each
+    under ``set_sync_debug_mode("error")`` (the first runs eagerly, the
+    second captures and replays, the third replays into the second's
+    tensors): logits, every ``DyMoEInfo`` leaf and every cache leaf
+    bitwise equal; each call adds exactly the key's launch counts, 3
+    (MoE, SwiGLU) or 2 (SSM) x L of K1 (wave) or K2 (solo, non-MoE); the
+    graph lives in the prefill's own pool."""
+    from repro_torch.models.model import prefill
+    from repro_torch.serving.compiled import PrefillOut
+
+    dev = _need_cuda()
+    cfg, eng, mode, inputs = _prefill_case(dev, name)
+    cp = eng._prefill
+    q = eng.qparams["layers"]
+    per_layer = 3 if cfg.is_moe else len(q["mlp"] if "mlp" in q else q["ssm"])
+    k1, k2 = "expert_quant_matmul_grouped", "expert_quant_matmul"
+    wave_moe = cfg.is_moe and mode == "wave"
+    n = per_layer * cfg.num_layers
+    launches = {k: 0 for k in kmod.LAUNCHES}
+    launches.update({k1: n if wave_moe else 0, k2: 0 if wave_moe else n})
+    fixed = None
+    for call in range(3):
+        prompt, kw = inputs(call)
+        dkw = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+               else v for k, v in kw.items()}
+        want = PrefillOut(*prefill(
+            eng.params, cfg, torch.from_numpy(prompt).to(dev),
+            qparams=eng.qparams, cache_slots=40, **dkw)).tensors()
+        torch.cuda.synchronize()
+        before = dict(kmod.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = cp(prompt, cache_slots=40, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        got = out.tensors()
+        assert len(got) == len(want)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), i
+        assert {k: kmod.LAUNCHES[k] - before[k] for k in before} == \
+            {k: launches[k] for k in before}
+        (entry,) = cp.entries().values()
+        assert (entry.graph is not None) == (call > 0)
+        if call == 2:
+            assert all(a is b for a, b in zip(got, fixed))
+        fixed = got
+    assert {k: entry.launches[k] for k in launches} == launches
+    assert cp.compiles == 1 and cp.pool_bytes() > 0
+    assert cp._pool != eng._decode_batched._pool
+
+
+def test_cuda_compiled_prefill_bound_frees_graphs():
+    """Prefill keys beyond ``max_entries`` are dropped with their graphs,
+    and the pool goes once none is left: on the reduced OLMoE, solo
+    prompts of four lengths with two entries kept (the recurring one
+    captured and replayed) give eager ``prefill``'s logits bitwise; with
+    none kept nothing is captured and the pool is dropped; a key met
+    twice after that captures into a fresh pool; a ``generate_batch``
+    after it equals the CPU's tokens."""
+    from repro_torch.models.model import prefill
+    from repro_torch.serving import Request
+
+    dev = _need_cuda()
+    cfg, cpu, gpu = _reduced_engines(dev)
+    cp = gpu._prefill
+    rng = np.random.default_rng(8)
+    for keep, lengths in ((2, (5, 9, 14, 9, 9)), (0, (5, 9)), (2, (9, 9))):
+        cp.max_entries = keep
+        for s in lengths:
+            prompt = rng.integers(1, cfg.vocab_size, (1, s))
+            want, _, _ = prefill(gpu.params, cfg,
+                                 torch.from_numpy(prompt).to(dev),
+                                 qparams=gpu.qparams, cache_slots=32)
+            got = cp(prompt, cache_slots=32).logits
+            assert torch.equal(got, want)
+            assert len(cp.entries()) <= keep
+        assert (cp._pool is None) == (keep == 0)
+    assert cp.compiles == 2
+    cp.max_entries = 8
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, cfg.vocab_size, p)], max_new_tokens=m)
+        for p, m in ((9, 6), (20, 9), (9, 4))]
+    assert [r.tokens for r in gpu.generate_batch(reqs, num_slots=2)] == \
+        [r.tokens for r in cpu.generate_batch(reqs, num_slots=2)]
+
+
+def test_cuda_compiled_prefill_capture_oom_is_not_retried(monkeypatch):
+    """An out-of-memory error raised inside a prefill capture reaches the
+    caller as a ``RuntimeError`` (not ``torch.OutOfMemoryError``, which
+    the admission ladder would retry), with the launch counts as they
+    were; the key keeps no graph, and its next call captures and equals
+    eager ``prefill`` bitwise."""
+    from repro_torch.models.model import prefill
+    from repro_torch.serving import compiled as compiled_mod
+
+    dev = _need_cuda()
+    cfg, _, gpu = _reduced_engines(dev)
+    cp = gpu._prefill
+    rng = np.random.default_rng(9)
+    inner = compiled_mod.prefill
+
+    def failing(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise torch.OutOfMemoryError("out of memory")
+        return inner(*args, **kw)
+
+    prompt = rng.integers(1, cfg.vocab_size, (1, 11))
+    cp(prompt, cache_slots=32)                       # the eager first call
+    monkeypatch.setattr(compiled_mod, "prefill", failing)
+    before = dict(kmod.LAUNCHES)
+    with pytest.raises(RuntimeError) as err:
+        cp(prompt, cache_slots=32)
+    assert not isinstance(err.value, torch.OutOfMemoryError)
+    assert isinstance(err.value.__cause__, torch.OutOfMemoryError)
+    assert dict(kmod.LAUNCHES) == before
+    (entry,) = cp.entries().values()
+    assert entry.graph is None and cp.compiles == 0
+    monkeypatch.setattr(compiled_mod, "prefill", inner)
+    prompt = rng.integers(1, cfg.vocab_size, (1, 11))
+    want, _, _ = prefill(gpu.params, cfg, torch.from_numpy(prompt).to(dev),
+                         qparams=gpu.qparams, cache_slots=32)
+    assert torch.equal(cp(prompt, cache_slots=32).logits, want)
+    assert cp.compiles == 1 and entry.graph is not None

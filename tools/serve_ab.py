@@ -21,19 +21,23 @@ over the trees. A round runs, for each tree in turn:
   a length drawn from 64-1024, 16-48 new tokens, so every session's slot
   budget (largest prompt + new tokens) is one no earlier session had;
 * the profiled request of ``chip_smoke.py`` (a 64-token prompt, 17 new
-  tokens, alone): its decode ms per step (decode wall over 16 steps).
+  tokens, alone): its decode ms per step (decode wall over 16 steps) and
+  its admission ms (service wall less decode wall: the solo prefill, its
+  first token and its replay).
 
 Each session prints one ``run:`` JSON line (label, traffic, round, wall,
-slot budget, the session's replay host seconds and compiled-chunk
-captures where the tree has them, chunks, decode steps, a digest of the
-tokens), each profiled request a ``decode:`` line; the warm-up is in the
-worker's ``ready:`` line. The last line is a ``serve_ab:`` JSON summary:
-per tree and traffic its walls, median, spread, replay seconds and the
-replay's median share of the wall; where the tree compiles, the sessions
-that captured nothing (their share, and the median wall of each kind);
-against the first tree the per-round differences; and per tree the
-profiled decode ms per step. ``--cpu-dry-run`` runs the same protocol on
-the CPU with the reduced OLMoE config, to rehearse the tool without a GPU.
+slot budget, the session's replay host seconds and compiled-chunk and
+compiled-prefill captures where the tree has them, chunks, decode steps,
+a digest of the tokens), each profiled request a ``decode:`` line; the
+warm-up is in the worker's ``ready:`` line. The last line is a
+``serve_ab:`` JSON summary: per tree and traffic its walls, median,
+spread, replay seconds and the replay's median share of the wall; where
+the tree compiles, the sessions that captured nothing (their share, and
+the median wall of each kind) and the seconds the captures took; against
+the first tree the per-round differences; and per tree the profiled
+decode ms per step and admission ms. ``--cpu-dry-run`` runs the same
+protocol on the CPU with the reduced OLMoE config, to rehearse the tool
+without a GPU.
 """
 import argparse
 import hashlib
@@ -113,6 +117,8 @@ def _worker(tree: Path, dry_run: bool) -> int:
             [r.tokens for r in out]).encode()).hexdigest()[:12]
         return dict(wall_s=wall, replay_s=st.get("replay_s"),
                     compiles=st.get("compiles"), compile_s=st.get("compile_s"),
+                    prefill_compiles=st.get("prefill_compiles"),
+                    prefill_compile_s=st.get("prefill_compile_s"),
                     slots_need=max(r.prompt_len + r.max_new_tokens
                                    for r in reqs),
                     chunks=st["chunks"], decode_steps=st["decode_steps"],
@@ -123,7 +129,10 @@ def _worker(tree: Path, dry_run: bool) -> int:
         res = engine.generate(profiled)
         sync()
         return dict(decode_ms_per_step=res.decode_wall_s * 1e3 / 16,
-                    compiles=engine.last_stats.get("compiles"))
+                    admission_ms=(res.wall_s - res.decode_wall_s) * 1e3,
+                    compiles=engine.last_stats.get("compiles"),
+                    prefill_compiles=engine.last_stats.get(
+                        "prefill_compiles"))
 
     warm = serve(_requests(cfg))
     warm_decode = decode()
@@ -185,6 +194,7 @@ def main() -> int:
         orders = list(itertools.permutations(trees))
         runs = {(label, kind): [] for label in trees for kind in traffic}
         decodes = {label: [] for label in trees}
+        admissions = {label: [] for label in trees}
 
         def ask(label, cmd):
             procs[label].stdin.write(cmd + "\n")
@@ -201,6 +211,7 @@ def main() -> int:
                         flush=True)
                 res = ask(label, "decode")
                 decodes[label].append(res["decode_ms_per_step"])
+                admissions[label].append(res["admission_ms"])
                 print("decode: " + json.dumps(dict(label=label, round=r,
                                                    **res)), flush=True)
         for proc in procs.values():
@@ -215,7 +226,10 @@ def main() -> int:
     base = next(iter(trees))
     summary = {label: dict(decode_ms_per_step=decodes[label],
                            decode_ms_per_step_median=statistics.median(
-                               decodes[label])) for label in trees}
+                               decodes[label]),
+                           admission_ms=admissions[label],
+                           admission_ms_median=statistics.median(
+                               admissions[label])) for label in trees}
     for (label, kind), rs in runs.items():
         walls = [x["wall_s"] for x in rs]
         row = summary[label][kind] = dict(
@@ -228,10 +242,17 @@ def main() -> int:
             row["replay_share_median"] = statistics.median(
                 x["replay_s"] / x["wall_s"] for x in rs)
         if all(x["compiles"] is not None for x in rs):
-            warm = [x["wall_s"] for x in rs if x["compiles"] == 0]
-            cold = [x["wall_s"] for x in rs if x["compiles"]]
+            # captures of either compiled program (a tree without a
+            # compiled prefill reports None for it)
+            caught = [x["compiles"] + (x["prefill_compiles"] or 0)
+                      for x in rs]
+            warm = [x["wall_s"] for x, c in zip(rs, caught) if c == 0]
+            cold = [x["wall_s"] for x, c in zip(rs, caught) if c]
             row.update(compiles=[x["compiles"] for x in rs],
                        compile_s=[x["compile_s"] for x in rs],
+                       prefill_compiles=[x["prefill_compiles"] for x in rs],
+                       prefill_compile_s=[x["prefill_compile_s"]
+                                          for x in rs],
                        no_capture_share=len(warm) / len(rs),
                        no_capture_median_s=statistics.median(warm)
                        if warm else None,

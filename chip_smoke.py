@@ -75,7 +75,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bitwise), and the prefill graph gate on a 4-row qwen3_0p6b wave
      (prompts 512, 384, 233, 64) and 512-token zamba2_1p2b and
      falcon_mamba_7b solo prefills; one ``arch:`` line a model (wall,
-     decode ms/step, peak memory, K2 launches).
+     decode ms/step, peak memory, K2 launches);
+  6. frontend — full-width OLMoE-1B-7B through the port's launcher
+     (``repro_torch.launch.serve``, the ``frontend:`` line; see
+     ``_frontend_phase``). In bf16: (c) ``generate_reference`` through
+     the compiled ``decode_many``, graph == eager bitwise, K2 launches
+     exact, ms a token eager and replayed, and the static baseline
+     against continuous batching. In f32, where a row's tokens do not
+     depend on its batch: (a) the open loop over two replicas of one
+     engine on driver threads (captures in the threads), every request's
+     tokens equal to the same engine's solo ``generate``; (b) ``--mode
+     off``, the one-shot and the static batch (dropless capacity), each
+     row equal to ``generate_reference``, no packed kernel launched; (d)
+     a replica's ``replay.chunk`` fault under driver threads: drained,
+     cold-restarted, every handle resolved.
 
 The ``prefill_graph:`` line holds the six full-width prefill gates: the
 compiled prefill's eager protocol (``graphs=False``) against the
@@ -1965,6 +1978,399 @@ def _arch_gate(engine) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- frontend
+
+
+def _launcher_run(launcher, args, engine) -> tuple:
+    """One ``repro_torch.launch.serve`` open loop or one-shot on
+    ``engine``, its streamed lines kept out of this script's output:
+    (report, handles or [result], synchronized host seconds, the slot
+    length of its sessions). Fails if a driver thread caught an error
+    (``Replica.last_error``: a driver retries past what ``step`` raises,
+    so such an error would otherwise pass unseen)."""
+    import contextlib
+    import io
+
+    import torch
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        report, handles, session = launcher.run(args, engine)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replicas = getattr(session, "replicas", None)
+    errors = [repr(rep.last_error) for rep in replicas or ()
+              if rep.last_error is not None]
+    assert not errors, errors
+    slots = None if session is None else {
+        (rep.session if replicas else session)._slots_len
+        for rep in replicas or [None]}
+    return report, handles, wall, slots
+
+
+def _solo_at(engine, reqs, slots_len: int) -> tuple:
+    """Each request alone: a one-slot session of ``slots_len`` slots
+    (rounded up as every session's are), as ``generate`` opens, but at a
+    slot length the caller names. (tokens, the sessions' slot length)."""
+    out, slots = [], set()
+    for r in reqs:
+        session = engine.serve(num_slots=1, slots_len=slots_len)
+        slots.add(session._slots_len)
+        out.append(session.run([r])[0].tokens)
+    return out, slots
+
+
+def _static_vs_continuous(engine) -> dict:
+    """The reference's ``continuous_vs_static`` row on the card: 8 ragged
+    requests (two 64-token stragglers among short ones, prompts of 8, 16
+    or 24 tokens, as ``benchmarks/bench_e2e_latency.py`` draws them)
+    through ``generate_batch(static=True)`` and through continuous
+    batching on 4 slots, each warm (its second run timed): walls and
+    decode tokens a second."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    specs = [(16, 64), (24, 64)] + [(int(rng.choice([8, 16, 24])),
+                                     int(rng.integers(3, 7)))
+                                    for _ in range(6)]
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, engine.cfg.vocab_size, s)], max_new_tokens=m) for s, m in specs]
+    out = {}
+    for mode in ("static", "continuous", "static", "continuous"):
+        t0 = time.perf_counter()
+        res = (engine.generate_batch(reqs, static=True) if mode == "static"
+               else engine.generate_batch(reqs, num_slots=4))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert [len(r.tokens) for r in res] == [m for _, m in specs]
+        new = sum(len(r.tokens) - 1 for r in res)
+        out[mode] = dict(wall_s=wall, decode_tok_s=new / wall,
+                         new_tokens=new)
+    out["speedup_vs_static"] = (out["continuous"]["decode_tok_s"]
+                                / out["static"]["decode_tok_s"])
+    out["specs"] = specs
+    return out
+
+
+def _decode_many_gate(engine) -> dict:
+    """The compiled ``decode_many`` at full width: a 64-token prompt's
+    prefill caches copied into a decode state, then three 16-step calls
+    of one greedy key (eager first call, capture and replay, replay under
+    ``set_sync_debug_mode("error")``) against eager ``decode_many`` from
+    a copy of the same caches: tokens, telemetry and caches bitwise, and
+    3 x L x 16 K2 launches a call."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.models.model import decode_many, prefill
+
+    cfg, dev = engine.cfg, engine.device
+    L, steps, slots = cfg.num_layers, 16, 128
+    prompt = torch.arange(101, 165, device=dev)[None]
+    logits, rc, _ = prefill(engine.params, cfg, prompt,
+                            qparams=engine.qparams, cache_slots=slots)
+    ref = {"layers": dataclasses.replace(rc["layers"], **{
+        f.name: getattr(rc["layers"], f.name).clone()
+        for f in dataclasses.fields(rc["layers"])})}
+    cm = engine._decode_many
+    with engine.lock:
+        state = cm.acquire(1, slots, caches=rc)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    times = []
+    try:
+        for call in range(3):
+            start = 1 + call * steps
+            want_t, _, want_i = decode_many(
+                engine.params, cfg, tok.clone(), ref, num_steps=steps,
+                start_step=start, qparams=engine.qparams)
+            before = dict(km.LAUNCHES)
+            torch.cuda.synchronize()
+            if call == 2:
+                torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                with engine.lock:
+                    out = cm(state, tok, num_steps=steps, start_step=start)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            k2 = km.LAUNCHES["expert_quant_matmul"] - \
+                before["expert_quant_matmul"]
+            assert k2 == 3 * L * steps, (call, k2)
+            assert torch.equal(out.tokens, want_t), call
+            for f in ("critical_masks", "active_masks", "gate_mean",
+                      "predicted_next"):
+                assert torch.equal(getattr(out.info, f),
+                                   getattr(want_i, f)), (call, f)
+            for f in dataclasses.fields(ref["layers"]):
+                assert torch.equal(getattr(state.caches["layers"], f.name),
+                                   getattr(ref["layers"], f.name)), f.name
+            tok = out.tokens[-1].clone()
+    finally:
+        with engine.lock:
+            cm.release(state)
+    return dict(bitwise=True, calls_ms=times, k2_per_call=3 * L * steps)
+
+
+def _tokens_equal(a, b) -> dict:
+    """How many of two lists of token lists agree, and where each first
+    differs (None where it does not)."""
+    first = [next((i for i, (u, v) in enumerate(zip(x, y)) if u != v),
+                  None if len(x) == len(y) else min(len(x), len(y)))
+             for x, y in zip(a, b)]
+    return dict(equal=sum(f is None for f in first), of=len(a),
+                first_diff=first)
+
+
+def _dropless(engine):
+    """``engine``'s model as an engine on the same weights (and store)
+    with ``capacity_factor`` E / k: no token is dropped however a batch
+    is made, the row-independent regime of the reference's static-batch
+    contract (``tests/test_serving_api.py``'s config, E 8 top-2 at 4.0)."""
+    import dataclasses
+
+    from repro_torch.serving import DyMoEEngine
+    cfg = engine.cfg
+    return DyMoEEngine(dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok),
+        engine.params, engine.ecfg, device=engine.device,
+        qparams=engine.qparams)
+
+
+def _frontend_phase(dev) -> tuple:
+    """The serving front end at full width (``olmoe_1b_7b``, 16 layers,
+    the launcher's seeded weights), the ``frontend:`` line; each part
+    fails the run if it fails. A launcher run fails if any driver thread
+    caught an error (``_launcher_run``). First on the launcher's own
+    engine (bf16, "4/2", the serving dtype):
+
+    the bf16 token check: each request of the launcher's loop (``--full
+        --requests 8``) alone at the loop's slot length (``_solo_at``,
+        checked equal to ``generate``) against the loop with 2 replicas
+        of 1 slot (driver threads; gated: every request's solo tokens),
+        2 replicas of 2 slots and 1 replica of 2 slots (reported: a
+        request's tokens with another row in its batch);
+    (c) ``generate_reference`` through ``CompiledDecodeMany``: the graph
+        gate (``_decode_many_gate``), then a 64-token prompt with 33 new
+        tokens through the eager protocol (``graphs=False``) and through
+        the graphs (after a warm call): equal tokens and modeled numbers,
+        K2 launches exactly 3 x L x 33, no K1; ms a token of each;
+    and the reference's ``continuous_vs_static`` row. Then on the same
+    config in f32 (its own engine, weights drawn as the launcher draws
+    them), where a row's tokens do not depend on its batch:
+
+    (a) the launcher's open loop (``repro_torch.launch.serve``: ``--full
+        --requests 8 --replicas 2 --num-slots 2``, driver threads): a cold
+        run (it captures, in the driver threads), then a counted one:
+        every request's tokens equal the same engine's solo ``generate``,
+        both replicas serve, every request completes, K1 runs; the same
+        loop with one replica for the wall beside it;
+    (b) ``--mode off`` (full precision; the same weights, no packed
+        store): the one-shot equals ``generate_reference``, and
+        ``generate_batch(static=True)`` over the launcher's 8 requests
+        gives every row ``generate_reference``'s tokens in the dropless
+        regime (``_dropless``; at the config's capacity factor the count
+        is reported); no K1 or K2 launch;
+    (d) a replica fault under driver threads: two replicas, one with a
+        ``replay.chunk`` fault; every handle resolves, the faulted replica
+        is drained and cold-restarted once, results keep solo tokens, and
+        two requests after it resolve with solo tokens.
+
+    Returns ({path: launch counts}, the summary)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ClusterRouter, DyMoEEngine, \
+        FaultInjector, FaultSpec, ServingError
+    from repro_torch.serving.compiled import CompiledDecodeMany
+
+    argv = ["--full", "--requests", "8"]
+    loop = argv + ["--replicas", "2", "--num-slots", "2"]
+    paths, summary = {}, {}
+
+    # ---- bf16: what holds at the serving dtype, (c), continuous vs static
+    args16 = launcher.parse_args(loop)
+    t0 = time.perf_counter()
+    engine = launcher.build_engine(args16)
+    torch.cuda.synchronize()
+    summary["bf16_init_s"] = time.perf_counter() - t0
+    cfg, ecfg = engine.cfg, engine.ecfg
+    L = cfg.num_layers
+    assert L == 16 and cfg.d_model == 2048 and cfg.dtype == "bfloat16", cfg
+    report, handles, _, slots22 = _launcher_run(launcher, args16, engine)
+    reqs = [h.request for h in handles]
+    slots_len = args16.prompt_len + args16.max_new + args16.requests
+    solo16, solo_slots = _solo_at(engine, reqs, slots_len)
+    assert solo_slots == slots22, (solo_slots, slots22)
+    assert [engine.generate(r).tokens for r in reqs] == solo16
+    bf16 = {"slots_len": sorted(slots22), "replicas_2_slots_2":
+            _tokens_equal([h.result().tokens for h in handles], solo16)}
+    for label, extra in (("replicas_2_slots_1", ["--replicas", "2",
+                                                 "--num-slots", "1"]),
+                         ("replicas_1_slots_2", ["--replicas", "1",
+                                                 "--num-slots", "2"])):
+        _, hs, _, slots = _launcher_run(
+            launcher, launcher.parse_args(argv + extra), engine)
+        assert slots == slots22, (label, slots)
+        bf16[label] = _tokens_equal([h.result().tokens for h in hs], solo16)
+    summary["bf16_vs_solo"] = bf16
+    print("frontend_bf16: " + json.dumps(bf16), flush=True)
+    one_slot = bf16["replicas_2_slots_1"]
+    assert one_slot["equal"] == one_slot["of"] == 8, one_slot
+    summary["decode_many_gate"] = _decode_many_gate(engine)
+    req = dataclasses.replace(reqs[0], prompt_tokens=list(range(101, 165)),
+                              max_new_tokens=33, request_id="ref")
+    graphs = engine._decode_many
+    ref_runs = {}
+    for label, cm in (("eager", CompiledDecodeMany(engine, graphs=False)),
+                      ("graph", graphs)):
+        engine._decode_many = cm
+        engine.generate_reference(req)                 # warm
+        torch.cuda.synchronize()
+        km.reset_launch_counts()     # the (c) path starts here
+        r = engine.generate_reference(req)
+        torch.cuda.synchronize()
+        counts = dict(km.LAUNCHES)   # ... and ends here
+        assert counts["expert_quant_matmul"] == 3 * L * 33, counts
+        assert counts["expert_quant_matmul_grouped"] == 0, counts
+        ref_runs[label] = (r, counts)
+    engine._decode_many = graphs
+    (er, _), (gr, gcounts) = ref_runs["eager"], ref_runs["graph"]
+    assert gr.tokens == er.tokens
+    assert (gr.ttft_s, gr.tpot_s, gr.cache_stats) == \
+        (er.ttft_s, er.tpot_s, er.cache_stats)
+    paths["frontend_reference"] = gcounts
+    summary["generate_reference"] = dict(
+        new_tokens=len(gr.tokens), compiles=graphs.compiles,
+        compile_s=graphs.compile_s, pool_bytes=graphs.pool_bytes(),
+        **{f"{k}_ms_per_token": v.decode_wall_s * 1e3 / (len(v.tokens) - 1)
+           for k, (v, _) in ref_runs.items()})
+    summary["continuous_vs_static"] = _static_vs_continuous(engine)
+    del engine, handles, report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- f32: (a), (b), (d)
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    engine = DyMoEEngine(cfg32, init_params(cfg32, gen, dev), ecfg,
+                         device=dev)
+    torch.cuda.synchronize()
+    summary["f32_init_s"] = time.perf_counter() - t0
+
+    # (a) the launcher's open loop over two replicas on driver threads
+    args = launcher.parse_args(loop)
+    _, _, cold, _ = _launcher_run(launcher, args, engine)
+    km.reset_launch_counts()                 # the (a) path starts here
+    report, handles, wall2, _ = _launcher_run(launcher, args, engine)
+    paths["frontend_serve"] = dict(km.LAUNCHES)   # ... and ends here
+    got = [h.result().tokens for h in handles]
+    solo = [engine.generate(h.request).tokens for h in handles]
+    assert got == solo, _tokens_equal(got, solo)
+    assert {r["replica"] for r in report["requests"]} == {0, 1}
+    assert report["health"]["merged"]["completed"] == 8
+    assert all("error" not in r for r in report["requests"])
+    assert paths["frontend_serve"]["expert_quant_matmul_grouped"] > 0
+    args1 = launcher.parse_args(argv + ["--replicas", "1", "--num-slots",
+                                        "2"])
+    _launcher_run(launcher, args1, engine)
+    _, handles1, wall1, _ = _launcher_run(launcher, args1, engine)
+    assert [h.result().tokens for h in handles1] == solo
+    summary["serve"] = dict(
+        argv=loop, dtype="float32",
+        replicas_2=dict(cold_wall_s=cold, wall_s=wall2),
+        replicas_1=dict(wall_s=wall1), health=report["health"]["merged"],
+        placements=[r["replica"] for r in report["requests"]],
+        tokens_equal_solo=True)
+
+    # (b) full precision: the one-shot and the static baseline, on the
+    # engine ``--mode off`` builds, over the same weights
+    off_args = launcher.parse_args(["--full", "--mode", "off"])
+    off = DyMoEEngine(
+        dataclasses.replace(cfg32, dymoe=dataclasses.replace(
+            cfg32.dymoe, enabled=False)),
+        engine.params, dataclasses.replace(ecfg, use_dymoe=False,
+                                           enable_dyquant=False),
+        device=dev)
+    assert off.qparams is None and not off.cfg.dymoe.enabled
+    km.reset_launch_counts()                 # the (b) path starts here
+    one, (res,), one_wall, _ = _launcher_run(launcher, off_args, off)
+    # the one-shot serves the launcher's request 0, which is reqs[0]
+    assert res.tokens == off.generate_reference(reqs[0]).tokens
+    static_cf = [r.tokens for r in off.generate_batch(reqs, static=True)]
+    refs_cf = [off.generate_reference(r).tokens for r in reqs]
+    dropless = _dropless(off)
+    refs = [dropless.generate_reference(r).tokens for r in reqs]
+    dropless.generate_batch(reqs, static=True)               # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    static = dropless.generate_batch(reqs, static=True)
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    paths["frontend_off"] = dict(km.LAUNCHES)     # ... and ends here
+    assert not any(paths["frontend_off"].values()), paths["frontend_off"]
+    assert [r.tokens for r in static] == refs, \
+        _tokens_equal([r.tokens for r in static], refs)
+    summary["off"] = dict(
+        one_shot=dict(ttft_ms=one["ttft_ms"], tpot_ms=one["tpot_ms"],
+                      wall_s=one_wall),
+        static_wall_s=static_wall, static_rows_equal_reference=True,
+        capacity_factor=dropless.cfg.capacity_factor,
+        at_config_capacity=dict(capacity_factor=off.cfg.capacity_factor,
+                                **_tokens_equal(static_cf, refs_cf)))
+    del off, dropless
+
+    # (d) a replica fault under driver threads
+    faulty = FaultInjector([FaultSpec(site="replay.chunk", at=1)])
+    router = ClusterRouter.replicate(
+        engine, 2, num_slots=2, slots_len=128, faults=[None, faulty],
+        threaded=True)
+    km.reset_launch_counts()                 # the (d) path starts here
+    try:
+        first = [router.submit(r) for r in reqs]
+        results = {}
+        for i, h in enumerate(first):
+            try:
+                results[i] = h.result().tokens
+            except ServingError:
+                pass
+        assert all(h.done for h in first)
+        for _ in range(1000):               # the driver restarts it idle
+            if router.health().restarts:
+                break
+            time.sleep(0.01)
+        after = [router.submit(dataclasses.replace(
+            r, request_id=f"after-{i}")) for i, r in enumerate(reqs[:2])]
+        after_tokens = [h.result().tokens for h in after]
+        health = router.health()
+        errors = [rep.last_error for rep in router.replicas]
+    finally:
+        router.close()
+    paths["frontend_fault"] = dict(km.LAUNCHES)   # ... and ends here
+    assert not any(errors), errors
+    assert health.restarts == 1 and health.merged.replay_faults >= 1, \
+        health
+    assert 0 < len(results) < len(reqs), sorted(results)
+    assert all(results[i] == solo[i] for i in results)
+    assert after_tokens == solo[:2]
+    summary["fault"] = dict(resolved=len(first), failed=len(reqs)
+                            - len(results), restarts=health.restarts,
+                            replay_faults=health.merged.replay_faults,
+                            status=health.status)
+    summary["launches"] = paths
+    print("frontend: " + json.dumps(summary), flush=True)
+    del engine
+    return paths, summary
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py  (takes no arguments; runs "
@@ -2036,6 +2442,8 @@ def main() -> int:
         flush=True)
     errors = [g["launch_error"] for g in gates if g["launch_error"]]
     assert not errors, errors
+    frontend_paths, _ = _frontend_phase(dev)
+    by_path.update(frontend_paths)
 
     kernels = []
     for name, (source, replaces, library) in KERNELS.items():

@@ -7,7 +7,8 @@ a running count, scattered into an (E, C, d) buffer, run through the
 packed-expert matmuls, and gathered back weighted by their gates.
 
   * ``moe_apply`` — one shared Critical mask (the solo admission prefill):
-    three ``expert_quant_matmul`` (K2) launches per layer.
+    three ``expert_quant_matmul`` (K2) launches per layer; without a mask,
+    the full-precision SwiGLU over the float expert weights (DyMoE off).
   * ``moe_apply_rows`` — decode, every row with its own Critical mask: one
     combined hi/lo capacity buffer per expert and three
     ``expert_quant_matmul_grouped`` (K1) launches per layer.
@@ -93,6 +94,14 @@ def _swiglu(mm, xb: torch.Tensor) -> torch.Tensor:
     return mm("w_down", h)
 
 
+def _expert_ffn(w_gate: torch.Tensor, w_up: torch.Tensor,
+                w_down: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """Full-precision SwiGLU, (E, C, dm) -> (E, C, dm): the JAX package
+    computes it outside any Pallas kernel, as these batched products."""
+    h = F.silu(torch.bmm(xb, w_gate)) * torch.bmm(xb, w_up)
+    return torch.bmm(h, w_down)
+
+
 def _expert_ffn_fixed(qweights: dict, prec: str,
                       xb: torch.Tensor) -> torch.Tensor:
     """SwiGLU with every expert at one fixed precision — the two-dispatch
@@ -140,13 +149,16 @@ def _rep(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
-              critical_mask: torch.Tensor, qweights: dict,
+              critical_mask: Optional[torch.Tensor] = None,
+              qweights: Optional[dict] = None,
               hh_mask: Optional[torch.Tensor] = None,
               token_valid: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, MoEStats]:
     """The MoE layer on flattened tokens x (T, dm) with one Critical mask
-    (E,). ``token_valid`` (T,) False marks padding: no slot, zero output,
-    no routing statistics. Returns (y (T, dm), MoEStats)."""
+    (E,) over ``qweights``; ``critical_mask=None`` runs the float expert
+    weights (full precision). ``token_valid`` (T,) False marks padding: no
+    slot, zero output, no routing statistics. Returns (y (T, dm),
+    MoEStats)."""
     t, dm = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     c = _capacity(cfg, t)
@@ -167,7 +179,11 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
     xb = torch.where(keep[:, None], x[tok], torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
     buf = _scatter((e, c, dm), x.dtype, x.device, flat_e, slot, xb)
-    yb = _expert_ffn_quantized(qweights, critical_mask, buf)   # (E, C, dm)
+    if critical_mask is not None:
+        assert qweights is not None
+        yb = _expert_ffn_quantized(qweights, critical_mask, buf)  # (E,C,dm)
+    else:
+        yb = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf)
 
     ye = torch.where(keep[:, None], yb[flat_e, slot],
                      torch.zeros((), dtype=yb.dtype, device=x.device))

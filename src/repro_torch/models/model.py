@@ -12,6 +12,12 @@ Layer pattern per family (pre-norm residual blocks):
                     block run BEFORE layer l's Mamba block wherever
                     ``l % shared_attn_every == 0`` (one KV cache per site).
 
+DyMoE runs when ``qparams`` is given and ``cfg.dymoe.enabled`` (the
+reference's ``dymoe_on``); otherwise every block runs its float weights —
+the MoE experts through ``moe_apply``'s full-precision SwiGLU, the dense
+FFN through ``mlp``, the Mamba projections as dense products — and the
+MoE telemetry reports every expert Critical.
+
 DyMoE on the inference paths:
   * MoE prefill — attention yields the per-token received mass (Eq. 1);
     heavy-hitter routing stats give expert importance (Eq. 2); the depth
@@ -304,6 +310,23 @@ def _q_ssm(sp: dict, qs: dict, tier: bool) -> dict:
                 out_proj=(qs["out_proj"], tier))
 
 
+def _ffn(lp: dict, q: Optional[dict], cfg: ModelConfig, l: int, tier: bool,
+         h: torch.Tensor) -> torch.Tensor:
+    """A dense layer's FFN: from the packed codes of its tier with DyMoE
+    on (``q`` the quantized layer stack), else the float ``mlp``."""
+    if q is None:
+        return mlp(lp["mlp"], cfg, h)
+    return mlp_quantized(_index_tree(q["mlp"], l), cfg, h, tier)
+
+
+def _ssm_params(lp: dict, q: Optional[dict], l: int, tier: bool) -> dict:
+    """A Mamba layer's parameters: its projections from the packed codes
+    of its tier with DyMoE on, else the float ones."""
+    if q is None:
+        return lp["ssm"]
+    return _q_ssm(lp["ssm"], _index_tree(q["ssm"], l), tier)
+
+
 def _shared_block_train(params, cfg: ModelConfig, x: torch.Tensor):
     """The hybrid's weight-shared attention + (unquantized) MLP block over
     a whole prompt; returns (x, (k, v))."""
@@ -364,13 +387,15 @@ def _next_router(params, cfg: ModelConfig, l: int) -> torch.Tensor:
 
 
 def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
-            *, embeds: Optional[torch.Tensor] = None, qparams: dict,
+            *, embeds: Optional[torch.Tensor] = None,
+            qparams: Optional[dict] = None,
             cache_slots: Optional[int] = None,
             lengths: Optional[torch.Tensor] = None,
             row_local: bool = False,
             row_capacities: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Dict[str, Any], DyMoEInfo]:
-    """Prefill under DyMoE mixed precision. tokens: (B, S) int, or
+    """Prefill, under DyMoE mixed precision when ``qparams`` is given and
+    the policy is enabled (else at full precision). tokens: (B, S) int, or
     ``embeds`` (B, S, dm) from a VLM / audio frontend.
 
     ``lengths`` (B,) enables RAGGED batches (attention archs without a
@@ -420,15 +445,17 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
         caches["shared"] = init_kv_cache(b, cfg.num_kv_heads, slots,
                                          cfg.head_dim, dt, dev,
                                          layers=_n_sites(cfg))
+    dymoe_on = qparams is not None and cfg.dymoe.enabled
     if kind == "attn_moe":
-        x, info = _prefill_moe(params, cfg, x, caches["layers"], qparams,
+        x, info = _prefill_moe(params, cfg, x, caches["layers"],
+                               qparams if dymoe_on else None,
                                lengths=lengths, offsets=offsets, valid=valid,
                                positions=positions, row_local=row_local,
                                row_capacities=row_capacities)
     else:
         tier, shared = _layer_tier_flags(cfg), _shared_flags(cfg)
         site = _site_index(cfg)
-        q = qparams["layers"]
+        q = qparams["layers"] if dymoe_on else None
         for l in range(cfg.num_layers):
             lp = _index_tree(params["layers"], l)
             if shared[l]:
@@ -441,12 +468,10 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
                 fill_kv_cache(caches["layers"].index(l), k, v,
                               lengths=lengths, offsets=offsets)
                 x = x + a
-                x = x + mlp_quantized(
-                    _index_tree(q["mlp"], l), cfg,
-                    rmsnorm(lp["norm2"], x, cfg.norm_eps), tier[l])
+                x = x + _ffn(lp, q, cfg, l, tier[l],
+                             rmsnorm(lp["norm2"], x, cfg.norm_eps))
             else:
-                sp = _q_ssm(lp["ssm"], _index_tree(q["ssm"], l), tier[l])
-                y, _ = mamba_prefill(sp, cfg,
+                y, _ = mamba_prefill(_ssm_params(lp, q, l, tier[l]), cfg,
                                      rmsnorm(lp["norm1"], x, cfg.norm_eps),
                                      caches["layers"].index(l))
                 x = x + y
@@ -459,7 +484,10 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
 def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
                  qparams: dict, *, lengths, offsets, valid, positions,
                  row_local: bool, row_capacities):
-    """The MoE layer stack of :func:`prefill`; returns (x, DyMoEInfo)."""
+    """The MoE layer stack of :func:`prefill`; returns (x, DyMoEInfo).
+    ``qparams`` None runs the experts at full precision, as the reference
+    does with DyMoE off: every expert Critical, no heavy hitters."""
+    dymoe_on = qparams is not None
     b, s = x.shape[:2]
     pol = cfg.dymoe
     e, k_tok = cfg.num_experts, cfg.num_experts_per_tok
@@ -473,7 +501,7 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
 
     for l in range(cfg.num_layers):
         lp = _index_tree(params["layers"], l)
-        qm = _index_tree(qparams["layers"]["moe"], l)
+        qm = _index_tree(qparams["layers"]["moe"], l) if dymoe_on else None
         a, tok_imp, (k, v) = attention_train(
             lp["attn"], cfg, rmsnorm(lp["norm1"], x, cfg.norm_eps),
             positions=positions, kv_valid=valid, want_token_importance=True)
@@ -482,21 +510,37 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
         x = x + a
         h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
         hflat = h.reshape(b * s, -1)
-        if valid is None:
-            hh = heavy_hitter_mask(tok_imp, pol.heavy_hitter_frac
-                                   ).reshape(b * s)
-        else:
-            hh = _ragged_hh_mask(tok_imp, pol.heavy_hitter_frac, lengths,
-                                 valid).reshape(b * s)
-        # router pre-pass: pick the Critical set BEFORE expert compute
-        # (Eq. 1-2 -> Eq. 5); ties broken by lower index
-        probs_r = torch.softmax(hflat.to(torch.float32)
-                                @ lp["moe"]["wg_router"], dim=-1)
-        _, idx_r = stable_topk(probs_r, k_tok)
-        oh = torch.nn.functional.one_hot(idx_r, e).to(torch.float32)
-        if vflat is not None:                    # pads route nowhere
-            oh = oh * vflat.to(torch.float32)[:, None, None]
-        if row_local:
+        hh = None
+        if dymoe_on:
+            hh = (heavy_hitter_mask(tok_imp, pol.heavy_hitter_frac)
+                  if valid is None else
+                  _ragged_hh_mask(tok_imp, pol.heavy_hitter_frac, lengths,
+                                  valid)).reshape(b * s)
+        if dymoe_on or row_local:
+            # router pre-pass: pick the Critical set BEFORE expert compute
+            # (Eq. 1-2 -> Eq. 5); ties broken by lower index
+            probs_r = torch.softmax(hflat.to(torch.float32)
+                                    @ lp["moe"]["wg_router"], dim=-1)
+            gates_r, idx_r = stable_topk(probs_r, k_tok)
+            oh = torch.nn.functional.one_hot(idx_r, e).to(torch.float32)
+            if vflat is not None:                    # pads route nowhere
+                oh = oh * vflat.to(torch.float32)[:, None, None]
+        if row_local and not dymoe_on:
+            # full precision: the wave's experts run as one batch; only
+            # the telemetry is per row
+            oh_r = oh.reshape(b, s, k_tok, e)
+            load_rows = oh_r.sum(dim=(1, 2))                     # (B, E)
+            y, st = moe_apply(lp["moe"], cfg, hflat, token_valid=vflat)
+            critical = torch.ones((b, e), dtype=torch.bool, device=x.device)
+            active, load = load_rows > 0, load_rows
+            hh_load = torch.zeros_like(load_rows)
+            gn = gates_r / torch.clamp(gates_r.sum(-1, keepdim=True),
+                                       min=1e-9)
+            gate_mean = torch.einsum(
+                "bske,bsk->be", oh_r, gn.reshape(b, s, k_tok)
+            ) / torch.clamp(load_rows, min=1.0)
+            aux, dropped = st.aux_loss, st.dropped_frac
+        elif row_local:
             oh_r = oh.reshape(b, s, k_tok, e)
             load_rows = oh_r.sum(dim=(1, 2))                     # (B, E)
             imp_rows = prefill_expert_importance_rows(
@@ -510,11 +554,16 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
                 st["active"], load_rows, st["hh_load"], st["gate_mean"])
             aux, dropped = st["aux_loss"], st["dropped_frac"]
         else:
-            imp = prefill_expert_importance(
-                torch.einsum("tke,t->e", oh, hh), oh.sum(dim=(0, 1)))
-            critical = select_critical(imp, t_l[l])
+            critical = None
+            if dymoe_on:
+                imp = prefill_expert_importance(
+                    torch.einsum("tke,t->e", oh, hh), oh.sum(dim=(0, 1)))
+                critical = select_critical(imp, t_l[l])
             y, st = moe_apply(lp["moe"], cfg, hflat, critical_mask=critical,
                               qweights=qm, hh_mask=hh, token_valid=vflat)
+            if critical is None:
+                critical = torch.ones((e,), dtype=torch.bool,
+                                      device=x.device)
             active, load, hh_load, gate_mean = (
                 st.expert_load > 0, st.expert_load, st.expert_hh_load,
                 st.gate_mean)
@@ -569,7 +618,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                caches: Dict[str, Any], *, qparams: dict,
+                caches: Dict[str, Any], *, qparams: Optional[dict] = None,
                 per_row_moe: bool = False,
                 live_rows: Optional[torch.Tensor] = None,
                 moe_capacity: Optional[int] = None,
@@ -590,7 +639,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     garbage by contract. ``moe_capacity`` (requires ``live_rows``) bounds
     each MoE precision region. Non-MoE archs are row-independent either
     way: their FFN / SSM projections run K2 from the tier's packed codes,
-    and their telemetry leaves are None."""
+    and their telemetry leaves are None. Without ``qparams``, or with the
+    policy disabled, every block runs its float weights (see the module
+    docstring)."""
     _check_supported(cfg)
     if not per_row_moe and (live_rows is not None
                             or moe_capacity is not None):
@@ -598,12 +649,14 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     kind = cfg.block_kinds()[0]
     positions = caches["layers"].length[0][:, None]  # (B, 1) new token
     x = _embed(params, cfg, tokens[:, None], None, positions)  # (B, 1, dm)
+    dymoe_on = qparams is not None and cfg.dymoe.enabled
     if kind == "attn_moe":
-        return _decode_moe(params, cfg, x, caches, qparams, per_row_moe,
+        return _decode_moe(params, cfg, x, caches,
+                           qparams if dymoe_on else None, per_row_moe,
                            live_rows, moe_capacity)
     tier, shared = _layer_tier_flags(cfg), _shared_flags(cfg)
     site = _site_index(cfg)
-    q = qparams["layers"]
+    q = qparams["layers"] if dymoe_on else None
     for l in range(cfg.num_layers):
         lp = _index_tree(params["layers"], l)
         cache = caches["layers"].index(l)
@@ -616,12 +669,10 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                                     rmsnorm(lp["norm1"], x, cfg.norm_eps),
                                     cache, live=live_rows)
             x = x + a
-            x = x + mlp_quantized(_index_tree(q["mlp"], l), cfg,
-                                  rmsnorm(lp["norm2"], x, cfg.norm_eps),
-                                  tier[l])
+            x = x + _ffn(lp, q, cfg, l, tier[l],
+                         rmsnorm(lp["norm2"], x, cfg.norm_eps))
         else:
-            sp = _q_ssm(lp["ssm"], _index_tree(q["ssm"], l), tier[l])
-            y, _ = mamba_decode(sp, cfg,
+            y, _ = mamba_decode(_ssm_params(lp, q, l, tier[l]), cfg,
                                 rmsnorm(lp["norm1"], x, cfg.norm_eps),
                                 cache, live=live_rows)
             x = x + y
@@ -632,40 +683,56 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
                 qparams: dict, per_row_moe: bool, live_rows, moe_capacity):
-    """The MoE layer stack of :func:`decode_step`."""
+    """The MoE layer stack of :func:`decode_step`; ``qparams`` None runs
+    the experts at full precision (every expert Critical)."""
+    dymoe_on = qparams is not None
     b = x.shape[0]
     pol = cfg.dymoe
+    e, k_tok = cfg.num_experts, cfg.num_experts_per_tok
     t_l = _t_l_array(cfg)
     crit_l, act_l, gm_l, pred_l = [], [], [], []
     for l in range(cfg.num_layers):
         lp = _index_tree(params["layers"], l)
-        qm = _index_tree(qparams["layers"]["moe"], l)
+        qm = _index_tree(qparams["layers"]["moe"], l) if dymoe_on else None
         a, _ = attention_decode(lp["attn"], cfg,
                                 rmsnorm(lp["norm1"], x, cfg.norm_eps),
                                 caches["layers"].index(l), live=live_rows)
         x = x + a
         h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
         hflat = h.reshape(b, -1)
-        imp = torch.softmax(hflat.to(torch.float32)
-                            @ lp["moe"]["wg_router"], dim=-1)    # (B, E)
         pg = predict_next_gates(hflat, _next_router(params, cfg, l))
-        if per_row_moe:
+        imp = torch.softmax(hflat.to(torch.float32)
+                            @ lp["moe"]["wg_router"], dim=-1) \
+            if dymoe_on else None                                # (B, E)
+        if per_row_moe and dymoe_on:
             # Eq. (3) per row: each request's Critical set from ITS OWN gates
             critical = select_critical_rows(imp, t_l[l])
             y, rstats = moe_apply_rows(lp["moe"], cfg, hflat, critical, qm,
                                        live=live_rows, capacity=moe_capacity)
             active, gate_mean = rstats["active"], rstats["gate_mean"]
-            _, freq = prefetch_targets(pg[:, None, :],
-                                       cfg.num_experts_per_tok,
-                                       pol.prefetch_topk)        # (B, E)
+        elif per_row_moe:
+            # full precision: the rows run as one batch (no live mask, as
+            # in the reference); only the telemetry is per row
+            y, stats = moe_apply(lp["moe"], cfg, hflat)
+            _, top = stable_topk(stats.router_logits, k_tok)
+            active = torch.nn.functional.one_hot(top, e).sum(dim=1) > 0
+            gate_mean = stats.gate_mean[None].expand(active.shape)
+            critical = torch.ones_like(active)
         else:
             # Eq. (3): gate-guided importance of the batch-mean gate
-            critical = select_critical(imp.mean(dim=0), t_l[l])
+            critical = select_critical(imp.mean(dim=0), t_l[l]) \
+                if dymoe_on else None
             y, stats = moe_apply(lp["moe"], cfg, hflat,
                                  critical_mask=critical, qweights=qm)
             active, gate_mean = stats.expert_load > 0, stats.gate_mean
-            _, freq = prefetch_targets(pg, cfg.num_experts_per_tok,
-                                       pol.prefetch_topk)        # (E,)
+            if critical is None:
+                critical = torch.ones((e,), dtype=torch.bool,
+                                      device=x.device)
+        if per_row_moe:
+            _, freq = prefetch_targets(pg[:, None, :], k_tok,
+                                       pol.prefetch_topk)        # (B, E)
+        else:
+            _, freq = prefetch_targets(pg, k_tok, pol.prefetch_topk)  # (E,)
         x = x + y.reshape(b, 1, -1)
         crit_l.append(critical)
         act_l.append(active)
@@ -694,12 +761,14 @@ def _stack_infos(infos: List[DyMoEInfo]) -> DyMoEInfo:
 
 def decode_many(params, cfg: ModelConfig, tokens: torch.Tensor,
                 caches: Dict[str, Any], *, num_steps: int,
-                start_step: int = 0, qparams: dict, rng_key=None,
-                temperature: float = 0.0, top_k: int = 0,
+                start_step=0, qparams: Optional[dict] = None, rng_key=None,
+                temperature=0.0, top_k: int = 0, row_keys=None,
+                row_temperatures=None, row_top_ks=None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any], DyMoEInfo]:
     """``num_steps`` decode steps of one batch with one shared Critical
-    set a layer (``decode_step(per_row_moe=False)``), run eagerly — the
-    single-sequence reference path of ``generate_reference``.
+    set a layer (``decode_step(per_row_moe=False)``) — the path of
+    ``generate_reference`` and of the static batch baseline (the engine
+    runs it as a CUDA graph: ``serving/compiled.py``).
 
     tokens: (B,) — the last sampled token per sequence. Greedy unless
     ``rng_key`` is given and ``temperature > 0``; step ``i`` then draws
@@ -707,22 +776,41 @@ def decode_many(params, cfg: ModelConfig, tokens: torch.Tensor,
     :func:`repro_torch.serving.sampler.sample_token`, a counter-derived
     stream, so any chunking of the same request samples the same tokens.
     ``temperature > 0`` without a key falls back to greedy with a warning.
+    ``start_step`` and ``temperature`` may be 0-d tensors (so a captured
+    graph reads them from its inputs); a tensor ``temperature`` must be
+    > 0 with ``rng_key`` given, as a traced one must in the reference.
+
+    ``row_keys`` (B, 2), ``row_temperatures`` (B,) and ``row_top_ks``
+    (B,) switch to PER-ROW sampling (the static batch): step ``i`` draws
+    row r with ``fold_in(row_keys[r], start_step + i)`` through
+    :func:`repro_torch.serving.sampler.sample_token_rows`, so each row's
+    tokens equal a solo decode with that row's key; rows with temperature
+    <= 0 stay greedy, and ``rng_key`` / ``temperature`` / ``top_k`` are
+    ignored.
 
     Returns (tokens (num_steps, B) int32, caches (updated in place),
     DyMoEInfo with leaves (num_steps, L, E))."""
     # local import: serving depends on models, not the reverse
-    from repro_torch.serving.sampler import fold_in, sample_token
+    from repro_torch.serving.sampler import fold_in, sample_token, \
+        sample_token_rows
 
-    if temperature > 0.0 and rng_key is None:
+    row_mode = row_keys is not None
+    concrete_t = not isinstance(temperature, torch.Tensor)
+    if not row_mode and concrete_t and temperature > 0.0 and rng_key is None:
         warnings.warn("decode_many: temperature > 0 but no PRNG key was "
                       "provided; falling back to greedy decoding")
-    greedy = rng_key is None or temperature <= 0.0
+    greedy = not row_mode and (rng_key is None
+                               or (concrete_t and temperature <= 0.0))
     tok = tokens.to(torch.int32)
     toks, infos = [], []
     for i in range(num_steps):
         logits, caches, info = decode_step(params, cfg, tok, caches,
                                            qparams=qparams)
-        if greedy:
+        if row_mode:
+            tok = sample_token_rows(
+                logits, fold_in(row_keys, start_step + i),
+                row_temperatures, row_top_ks)
+        elif greedy:
             tok = sample_token(logits)
         else:
             tok = sample_token(logits, fold_in(rng_key, start_step + i),

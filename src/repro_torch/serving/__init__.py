@@ -1,6 +1,7 @@
 """Serving of the port: engine (with the modeled edge replay), the
 step-driven continuous-batching session, requests and sampling, the fault
-taxonomy with its injector and retry helpers, and the SLO policy layer."""
+taxonomy with its injector and retry helpers, the SLO policy layer, and
+the multi-replica tier (``cluster``) over one shared engine."""
 from repro_torch.serving.cost_model import EdgeCostModel, EdgeProfile
 from repro_torch.serving.engine import DyMoEEngine, EngineConfig, \
     GenerationResult
@@ -16,6 +17,8 @@ from repro_torch.serving.request import Request, RequestHandle, \
 from repro_torch.serving.sampler import sample_token, sample_token_rows
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler, \
     SchedulerConfig
+from repro_torch.serving.cluster import ClusterHandle, ClusterHealth, \
+    ClusterRouter, Replica
 
 __all__ = ["EdgeProfile", "EdgeCostModel", "DyMoEEngine", "EngineConfig",
            "GenerationResult", "Request", "RequestHandle",
@@ -31,4 +34,6 @@ __all__ = ["EdgeProfile", "EdgeCostModel", "DyMoEEngine", "EngineConfig",
            # SLO policy layer
            "SchedulingPolicy", "FIFOPolicy", "EDFPolicy", "SLOPressure",
            "DegradationLadder", "make_policy", "estimate_service_s",
-           "effective_deadline"]
+           "effective_deadline",
+           # multi-replica tier
+           "ClusterRouter", "ClusterHandle", "ClusterHealth", "Replica"]

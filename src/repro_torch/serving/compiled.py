@@ -1,8 +1,14 @@
 """The engine's compiled programs: the port's counterparts of the JAX
 engine's ``jax.jit(decode_many_batched, static_argnames=("num_steps",
-"live_cap"))`` (:class:`CompiledDecodeChunk`) and ``jax.jit(prefill,
+"live_cap"))`` (:class:`CompiledDecodeChunk`), ``jax.jit(prefill,
 static_argnames=("cache_slots", "row_local"))`` (:class:`CompiledPrefill`)
-(``repro/serving/engine.py``).
+and ``jax.jit(decode_many, static_argnames=("num_steps", "top_k"))``
+(:class:`CompiledDecodeMany`) (``repro/serving/engine.py``).
+
+None of them is thread-safe: outputs are fixed tensors that the next call
+overwrites, the launch counters are process-wide, and a capture fails if
+another thread touches the device meanwhile. Callers hold the engine's
+``lock`` over each call until they have read what they keep.
 
 Eager PyTorch dispatches every op of a decode step from the host (about
 4,300 launches a step at full-width OLMoE-1B-7B), so the card waits on the
@@ -84,15 +90,24 @@ decode chunk's, so neither kind of replay overwrites the other's unread
 outputs; the key's next call overwrites them. Each key owns its static
 inputs; at most ``max_entries`` keys are kept, the least recently used
 dropped with its graph.
+
+``decode_many`` (:class:`CompiledDecodeMany`, the chunks of
+``generate_reference`` and of the static batch) takes its warm-up rule
+from the prefill — eager at a key's first call, captured at its second —
+and its engine-owned decode states from the chunk: a caller copies the
+prefill's caches into a state it holds for the whole request, so no graph
+binds the prefill graphs' outputs. Its graphs have a pool of their own.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
+import threading
 import time
+import warnings
 import weakref
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -101,11 +116,12 @@ from repro_torch.kernels.attn_scores import attn_scores as _attn
 from repro_torch.kernels.quant_matmul import expert_quant_matmul as _eqm
 from repro_torch.kernels.quant_matmul import quant_matmul as _qm
 from repro_torch.models.kv_cache import KVCache, SSMCache
-from repro_torch.models.model import DyMoEInfo, decode_many_batched, \
-    init_decode_state, prefill
+from repro_torch.models.model import DyMoEInfo, decode_many, \
+    decode_many_batched, init_decode_state, prefill
 
 __all__ = ["CompiledDecodeChunk", "DecodeState", "ChunkOut",
-           "CompiledPrefill", "PrefillOut", "slot_bucket"]
+           "CompiledPrefill", "PrefillOut", "CompiledDecodeMany", "ManyOut",
+           "slot_bucket"]
 
 # every kernel wrapper's launch counter (name -> count)
 _COUNTERS = (_eqm.LAUNCHES, _qm.LAUNCHES, _attn.LAUNCHES)
@@ -133,6 +149,20 @@ class ChunkOut:
         return [t for t in (self.tokens, *(getattr(self.info, f)
                                            for f in _INFO),
                             self.done, self.n_emitted) if t is not None]
+
+
+@dataclasses.dataclass
+class ManyOut:
+    """A ``decode_many`` call's outputs: tokens (T, B) int32 and the
+    telemetry leaves (T, L, E) (None for a non-MoE config)."""
+
+    tokens: torch.Tensor
+    info: DyMoEInfo
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [t for t in (self.tokens, *(getattr(self.info, f)
+                                           for f in _INFO))
+                if t is not None]
 
 
 @dataclasses.dataclass
@@ -174,29 +204,22 @@ def slot_bucket(need: int, max_seq_len: int) -> int:
 
 
 class DecodeState:
-    """The decode state of one slot batch: the stacked caches of
+    """The decode state of one batch: the stacked caches of
     :func:`init_decode_state` (``caches["layers"]``, a KVCache or an
-    SSMCache, and the hybrid's ``caches["shared"]`` KV stack), the chunk's
-    static inputs and the compiled entries bound to them, keyed by
-    (num_steps, live_cap, sampled)."""
+    SSMCache, and the hybrid's ``caches["shared"]`` KV stack), the static
+    inputs of its compiled program and the entries bound to them (a
+    chunk's keyed by (num_steps, live_cap, sampled), a ``decode_many``'s
+    by (num_steps, top_k, sampling mode))."""
 
     def __init__(self, cfg, num_slots: int, slots_len: int,
-                 device: torch.device):
-        b = self.num_slots = num_slots
+                 device: torch.device, inputs: Dict[str, torch.Tensor]):
+        self.num_slots = num_slots
         self.slots_len = slots_len
         self.caches: Dict[str, Union[KVCache, SSMCache]] = \
-            init_decode_state(cfg, b, slots_len, device)
-
-        def z(dtype, *shape):
-            return torch.zeros(shape or (b,), dtype=dtype, device=device)
-
-        self.inputs = dict(
-            tokens=z(torch.int32), done=z(torch.bool),
-            n_emitted=z(torch.int32), limits=z(torch.int32),
-            eos_tokens=z(torch.int32), rng_keys=z(torch.int64, b, 2),
-            temperatures=z(torch.float32), top_ks=z(torch.int64))
-        self.entries: Dict[Tuple[int, int, bool], _Entry] = {}
-        self._holder = None           # () -> the holding session, or None
+            init_decode_state(cfg, num_slots, slots_len, device)
+        self.inputs = inputs
+        self.entries: "OrderedDict[tuple, _Entry]" = OrderedDict()
+        self._holder = None           # () -> the holder, or None
 
     @property
     def held(self) -> bool:
@@ -217,6 +240,36 @@ class DecodeState:
             c.length.zero_()
             c.offset.zero_()
 
+    def load(self, caches: Dict[str, Union[KVCache, SSMCache]]) -> None:
+        """Copy every leaf of ``caches`` (a prefill's, of this state's
+        shapes) into the state's own caches."""
+        for part, c in caches.items():
+            mine = self.caches[part]
+            for f in dataclasses.fields(c):
+                getattr(mine, f.name).copy_(getattr(c, f.name))
+
+
+def _chunk_inputs(b: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The static inputs of a decode chunk over ``b`` slots."""
+    def z(dtype, *shape):
+        return torch.zeros(shape or (b,), dtype=dtype, device=device)
+
+    return dict(tokens=z(torch.int32), done=z(torch.bool),
+                n_emitted=z(torch.int32), limits=z(torch.int32),
+                eos_tokens=z(torch.int32), rng_keys=z(torch.int64, b, 2),
+                temperatures=z(torch.float32), top_ks=z(torch.int64))
+
+
+def _many_inputs(b: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The static inputs of a ``decode_many`` call over ``b`` rows."""
+    def z(dtype, *shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return dict(tokens=z(torch.int32, b), start_step=z(torch.int64),
+                rng_key=z(torch.int64, 2), temperature=z(torch.float32),
+                row_keys=z(torch.int64, b, 2),
+                row_temperatures=z(torch.float32, b),
+                row_top_ks=z(torch.int64, b))
 
 def _stage(dst: torch.Tensor, host) -> None:
     """Copy a host array into a static input without a stream sync
@@ -244,11 +297,36 @@ def _add_counts(launches: Dict[str, int]) -> None:
             c[k] += launches[k]
 
 
+_THREAD = threading.local()
+
+
+def _thread_libraries() -> None:
+    """Run the calling thread's first products on the current device
+    (f32 and bf16 ``mm``, ``addmm``, ``bmm``), once, outside any capture:
+    they create the thread's cuBLAS handles, which are per thread, and
+    creating one inside a capture fails (``CUBLAS_STATUS_NOT_INITIALIZED``)
+    — a replica's driver thread may capture a key whose eager first call
+    ran on another thread before this one ran any product."""
+    dev = torch.cuda.current_device()
+    ready = getattr(_THREAD, "devices", None)
+    if ready is None:
+        ready = _THREAD.devices = set()
+    if dev in ready:
+        return
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.ones((16, 16), dtype=dtype, device="cuda")
+        torch.mm(x, x)
+        torch.addmm(x, x, x)
+        torch.bmm(x[None], x[None])
+    ready.add(dev)
+
+
 def _capture(pool, warmup: Optional[Callable[[], Any]],
              body: Callable[[], Any]) -> _Entry:
     """Run ``warmup()`` (if any) eagerly on a side stream, then capture
     ``body()`` into ``pool``. The capture's launch counts become the
     entry's per-replay counts and are taken back."""
+    _thread_libraries()
     t0 = time.perf_counter()
     if warmup is not None:
         main = torch.cuda.current_stream()
@@ -263,7 +341,12 @@ def _capture(pool, warmup: Optional[Callable[[], Any]],
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        # thread_local: a CUDA call another thread makes meanwhile (a
+        # sibling replica's driver freeing the pinned host copies of its
+        # telemetry after its replay, say) must not invalidate this
+        # capture; every unit of device work holds the engine's lock
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
             out = body()
     finally:
         if collecting:
@@ -275,6 +358,41 @@ def _capture(pool, warmup: Optional[Callable[[], Any]],
                   warmup_s=t1 - t0, capture_s=time.perf_counter() - t1)
 
 
+def _call_fixed(owner, entry: _Entry, run: Callable[[], Any],
+                what: str) -> None:
+    """A call of a key met before, for :class:`CompiledPrefill` and
+    :class:`CompiledDecodeMany` (``owner``), whose first call ran ``run``
+    eagerly as the warm-up. The second call sets up the key's fixed
+    outputs: on the card it captures ``run()`` into ``owner``'s pool and
+    replays it (an out-of-memory error inside the capture is re-raised as
+    a ``RuntimeError``, which no retry ladder takes), else one eager call's
+    outputs become them. Later calls replay, or refill them eagerly."""
+    if entry.out is not None:
+        if owner.graphs:
+            entry.graph.replay()
+            _add_counts(entry.launches)
+        else:
+            for dst, src in zip(entry.out.tensors(), run().tensors()):
+                dst.copy_(src)
+        return
+    if not owner.graphs:
+        entry.out = run()
+    else:
+        if owner._pool is None:
+            owner._pool = torch.cuda.graph_pool_handle()
+        try:
+            cap = _capture(owner._pool, None, run)
+        except torch.OutOfMemoryError as e:
+            raise RuntimeError(f"the capture of {what} ran out of device "
+                               "memory") from e
+        entry.out, entry.graph = cap.out, cap.graph
+        entry.launches, entry.capture_s = cap.launches, cap.capture_s
+        entry.graph.replay()
+        _add_counts(entry.launches)
+    owner.compiles += 1
+    owner.compile_s += entry.capture_s
+
+
 def _pool_bytes(pool) -> int:
     """Device bytes reserved by a graph memory pool (0 without one)."""
     if pool is None:
@@ -284,23 +402,22 @@ def _pool_bytes(pool) -> int:
                if tuple(s["segment_pool_id"]) == pid)
 
 
-class CompiledDecodeChunk:
-    """``engine._decode_batched``: the scheduler's decode chunk, captured
-    as one CUDA graph per key and replayed from engine-owned decode states
-    (see the module docstring). ``graphs`` defaults to True on CUDA and
-    must be False on the CPU.
+class _StatePool:
+    """Engine-owned decode states and the one graph pool of their
+    compiled entries: the state machinery :class:`CompiledDecodeChunk` and
+    :class:`CompiledDecodeMany` share. ``graphs`` defaults to True on CUDA
+    and must be False on the CPU."""
 
-    ``compiles`` counts the keys met for the first time (a capture on the
-    card) and ``compile_s`` their seconds (warm-up included)."""
-
-    # decode states kept while no session holds them
+    # decode states kept while nothing holds them
     max_idle_states = 4
 
-    def __init__(self, engine, *, graphs: Optional[bool] = None):
+    def __init__(self, engine, inputs: Callable, *,
+                 graphs: Optional[bool] = None):
         # the engine's model, not the engine (no reference cycle: an
         # engine and its graphs are freed when it is dropped)
         self._params, self._qparams = engine.params, engine.qparams
         self._cfg, self._device = engine.cfg, engine.device
+        self._inputs = inputs
         on_card = self._device.type == "cuda"
         self.graphs = on_card if graphs is None else graphs
         if self.graphs and not on_card:
@@ -313,16 +430,17 @@ class CompiledDecodeChunk:
     # ----------------------------------------------------------- states
     def acquire(self, num_slots: int, slots_len: int,
                 owner=None) -> DecodeState:
-        """A decode state for (``num_slots``, ``slots_len``) that no live
-        session holds (a kept one, with its compiled entries, if there is
-        one; else a new one), reset, and held by ``owner`` until
+        """A decode state for (``num_slots``, ``slots_len``) that nothing
+        holds (a kept one, with its compiled entries, if there is one;
+        else a new one), reset, and held by ``owner`` until
         :meth:`release` or ``owner``'s end (without an owner, until
         :meth:`release`)."""
         st = next((s for s in reversed(self._states) if not s.held
                    and (s.num_slots, s.slots_len) == (num_slots, slots_len)),
                   None)
         if st is None:
-            st = DecodeState(self._cfg, num_slots, slots_len, self._device)
+            st = DecodeState(self._cfg, num_slots, slots_len, self._device,
+                             self._inputs(num_slots, self._device))
         else:
             self._states.remove(st)
             st.reset()
@@ -354,6 +472,19 @@ class CompiledDecodeChunk:
     def pool_bytes(self) -> int:
         """Device bytes reserved by the graphs' shared memory pool."""
         return _pool_bytes(self._pool)
+
+
+class CompiledDecodeChunk(_StatePool):
+    """``engine._decode_batched``: the scheduler's decode chunk, captured
+    as one CUDA graph per key and replayed from engine-owned decode states
+    (see the module docstring). ``graphs`` defaults to True on CUDA and
+    must be False on the CPU.
+
+    ``compiles`` counts the keys met for the first time (a capture on the
+    card) and ``compile_s`` their seconds (warm-up included)."""
+
+    def __init__(self, engine, *, graphs: Optional[bool] = None):
+        super().__init__(engine, _chunk_inputs, graphs=graphs)
 
     # ------------------------------------------------------------- call
     def __call__(self, state: DecodeState, tokens: torch.Tensor, *,
@@ -518,15 +649,8 @@ class CompiledPrefill:
             return out
         self._entries.move_to_end(key)
         try:
-            if entry.out is None:
-                self._compile(key, entry)
-            elif self.graphs:
-                entry.graph.replay()
-                _add_counts(entry.launches)
-            else:
-                for dst, src in zip(entry.out.tensors(),
-                                    self._prefill(key, ins).tensors()):
-                    dst.copy_(src)
+            _call_fixed(self, entry, lambda: self._prefill(key, ins),
+                        f"prefill key {key}")
         finally:
             self._evict()
         return entry.out
@@ -557,26 +681,101 @@ class CompiledPrefill:
             row_local=key[3], row_capacities=ins.get("row_capacities"))
         return PrefillOut(logits, caches, info)
 
-    def _compile(self, key, entry: _Entry) -> None:
-        """A key's second call sets up its fixed outputs: on the card the
-        capture (the first call was its warm-up) and a replay; else one
-        eager prefill whose outputs become them."""
-        ins = entry.inputs
-        if not self.graphs:
-            entry.out = self._prefill(key, ins)
+
+class CompiledDecodeMany(_StatePool):
+    """``engine._decode_many``: :func:`~repro_torch.models.model.decode_many`
+    chunks of ``generate_reference`` and the static batch baseline, one
+    CUDA graph per key on the card (see the module docstring for what it
+    shares with the other two).
+
+    A caller takes a decode state for its batch (B, cache slots) with
+    :meth:`acquire`, passing the prefill's caches: they are COPIED into the
+    state, so no graph binds the prefill graphs' outputs, which the next
+    prefill overwrites; the caller then holds nothing that aliases another
+    call's outputs, and :meth:`release` hands the state back at its end.
+    Within a state a key is (``num_steps``, ``top_k``, mode): greedy,
+    sampled with one key (``rng_key``, a tensor ``temperature``), or
+    sampled per row (``row_keys``, ``row_temperatures``, ``row_top_ks``).
+    As in :class:`CompiledPrefill`, a key's first call runs eagerly (its
+    warm-up), its second captures and replays, later calls replay; at most
+    ``max_entries`` keys a state are kept, the least recently used dropped
+    with its graph. ``start_step``, the temperature and the keys are
+    static inputs, so a request's later chunks replay the same graph.
+    ``compiles`` counts the keys whose fixed outputs were set up (a
+    capture on the card) and ``compile_s`` the captures' seconds."""
+
+    max_entries = 8
+
+    def __init__(self, engine, *, graphs: Optional[bool] = None):
+        super().__init__(engine, _many_inputs, graphs=graphs)
+
+    def acquire(self, num_slots: int, slots_len: int, owner=None, *,
+                caches=None) -> DecodeState:
+        """A state as :meth:`_StatePool.acquire` gives it, with ``caches``
+        (a prefill's, (B = ``num_slots``, ``slots_len`` slots)) copied
+        in."""
+        st = super().acquire(num_slots, slots_len, owner)
+        if caches is not None:
+            st.load(caches)
+        return st
+
+    def __call__(self, state: DecodeState, tokens: torch.Tensor, *,
+                 num_steps: int, start_step: int = 0, rng_key=None,
+                 temperature: float = 0.0, top_k: int = 0, row_keys=None,
+                 row_temperatures=None, row_top_ks=None) -> ManyOut:
+        """``num_steps`` steps of :func:`decode_many` on ``state``'s caches
+        (advanced in place) from ``tokens`` (B,) on the device; the keys and
+        per-row sampling values are host arrays. Returns the eager outputs
+        at a key's first call, else the key's fixed outputs; either is
+        overwritten by the next call."""
+        ins = state.inputs
+        ins["tokens"].copy_(tokens)
+        ins["start_step"].fill_(int(start_step))
+        if row_keys is not None:
+            mode, top_k = "rows", 0
+            for name, values in (("row_keys", row_keys),
+                                 ("row_temperatures", row_temperatures),
+                                 ("row_top_ks", row_top_ks)):
+                _stage(ins[name], values)
+        elif rng_key is not None and temperature > 0.0:
+            mode = "sampled"
+            _stage(ins["rng_key"], np.asarray(rng_key, np.int64))
+            ins["temperature"].fill_(float(temperature))
         else:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            try:
-                cap = _capture(self._pool, None,
-                               lambda: self._prefill(key, ins))
-            except torch.OutOfMemoryError as e:
-                raise RuntimeError(
-                    f"the capture of prefill key {key} ran out of device "
-                    "memory") from e
-            entry.out, entry.graph = cap.out, cap.graph
-            entry.launches, entry.capture_s = cap.launches, cap.capture_s
-            entry.graph.replay()
-            _add_counts(entry.launches)
-        self.compiles += 1
-        self.compile_s += entry.capture_s
+            if temperature > 0.0:
+                warnings.warn("decode_many: temperature > 0 but no PRNG "
+                              "key was provided; falling back to greedy "
+                              "decoding")
+            mode, top_k = "greedy", 0
+        key = (num_steps, top_k, mode)
+        entry = state.entries.get(key)
+        if entry is None:
+            # the key's warm-up: one eager call, its outputs the call's
+            out = self._many(state, key)
+            state.entries[key] = _Entry(out=None, graph=None, launches={})
+            while len(state.entries) > self.max_entries:
+                state.entries.popitem(last=False)
+            self._evict()
+            return out
+        state.entries.move_to_end(key)
+        _call_fixed(self, entry, lambda: self._many(state, key),
+                    f"decode_many key {key}")
+        return entry.out
+
+    def _many(self, state: DecodeState, key) -> ManyOut:
+        """The call run eagerly on ``state``'s static inputs."""
+        num_steps, top_k, mode = key
+        ins = state.inputs
+        kw = {}
+        if mode == "sampled":
+            kw = dict(rng_key=ins["rng_key"], temperature=ins["temperature"],
+                      top_k=top_k)
+        elif mode == "rows":
+            kw = dict(row_keys=ins["row_keys"],
+                      row_temperatures=ins["row_temperatures"],
+                      row_top_ks=ins["row_top_ks"])
+        toks, _, info = decode_many(
+            self._params, self._cfg, ins["tokens"], state.caches,
+            num_steps=num_steps, start_step=ins["start_step"],
+            qparams=self._qparams, **kw)
+        return ManyOut(toks, info)

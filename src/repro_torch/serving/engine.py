@@ -26,9 +26,24 @@ and ``row_local``, as the reference jits it, captured when the key
 recurs; a decode chunk per key of decode states the engine owns across
 sessions, captured at first use.
 ``generate`` and ``generate_batch`` are thin wrappers over one session;
-:meth:`DyMoEEngine.generate_reference` (prefill, then eager
-``decode_many`` chunks with one shared Critical set a layer, replayed
-inline) is the oracle ``generate`` must equal.
+:meth:`DyMoEEngine.generate_reference` (prefill, then ``decode_many``
+chunks with one shared Critical set a layer, replayed inline) is the
+oracle ``generate`` must equal. ``generate_batch(static=True)`` keeps the
+lockstep baseline continuous batching is measured against: one
+right-aligned batch, ``decode_many`` chunks until every row is done, NaN
+modeled numbers. Both run ``decode_many`` through the engine's third
+compiled program, a CUDA graph per key on the card.
+
+``EngineConfig(use_dymoe=False)`` serves at full precision (no packed
+store; the paper's no-DyMoE baseline), as does a config whose policy is
+disabled: the model then runs its float weights.
+
+The engine's compiled programs are not thread-safe, so the engine has one
+``lock``: every unit of device work — a prefill through the injection or
+readout of its outputs, a decode chunk through its readout — holds it.
+Sessions over one engine (the multi-replica tier, ``serving/cluster``)
+may then be driven from several threads: their device work serializes,
+their host work (the telemetry replay) does not.
 Requests carry per-request sampling parameters
 (temperature / top-k / seed) with counter-derived PRNG streams, so a
 request's tokens are the same solo and in a batch. Ablation rows of paper
@@ -41,6 +56,7 @@ falls back from one to the other.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -51,16 +67,15 @@ from repro_torch.core.orchestrator import DynamicExpertOrchestrator, \
     OrchestratorConfig, StepTiming
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import _check_supported, decode_many, \
-    quantize_model
+from repro_torch.models.model import _check_supported, quantize_model
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
 from repro_torch.serving.cost_model import EdgeCostModel, EdgeProfile, \
     expert_bytes
 from repro_torch.serving.compiled import CompiledDecodeChunk, \
-    CompiledPrefill
+    CompiledDecodeMany, CompiledPrefill
 from repro_torch.serving.request import Request, RequestHandle
-from repro_torch.serving.sampler import fold_in, resolve_sampling, \
-    sample_token
+from repro_torch.serving.sampler import fold_in, raw_key_data, \
+    resolve_sampling, sample_token, sample_token_rows
 
 __all__ = ["EngineConfig", "DyMoEEngine", "GenerationResult"]
 
@@ -69,6 +84,7 @@ __all__ = ["EngineConfig", "DyMoEEngine", "GenerationResult"]
 class EngineConfig:
     profile: EdgeProfile = dataclasses.field(default_factory=EdgeProfile)
     use_dymoe: bool = True          # quantized mixed-precision execution
+    #                                 (False: full precision, no store)
     enable_cache: bool = True       # ablation rows 1 vs 2
     enable_prefetch: bool = True    # rows 2 vs 3
     enable_dyquant: bool = True     # rows 3 vs 4 (False: all-high requests)
@@ -129,11 +145,10 @@ class DyMoEEngine:
         # threaded through the serving hot path (the scheduler's dispatch,
         # admission, replay, preemption and rung sites and the expert
         # cache's blob loads). None = every site is a no-op.
+        # ``qparams``: reuse an already-quantized packed store (a sibling
+        # engine's) instead of quantizing again; ignored (and none made)
+        # with ``use_dymoe=False``.
         assert engine_cfg.decode_chunk >= 1, engine_cfg.decode_chunk
-        if not engine_cfg.use_dymoe:
-            raise NotImplementedError(
-                "use_dymoe=False (unquantized execution) is not ported: the "
-                "port always runs the routed experts from the packed store")
         cfg.validate()
         _check_supported(cfg)
         self.device = resolve_device(device)
@@ -141,9 +156,15 @@ class DyMoEEngine:
         self.ecfg = engine_cfg
         self.faults = faults
         self.params = to_device(params, self.device)
-        self.qparams = to_device(qparams, self.device) if qparams is not None \
-            else quantize_model(self.params, cfg)
+        if not engine_cfg.use_dymoe:
+            self.qparams = None
+        elif qparams is not None:
+            self.qparams = to_device(qparams, self.device)
+        else:
+            self.qparams = quantize_model(self.params, cfg)
         self.cost = EdgeCostModel(cfg, engine_cfg.profile)
+        # held over every unit of device work (see the module docstring)
+        self.lock = threading.RLock()
         # every prefill, compiled (the JAX engine's jax.jit of prefill):
         # one CUDA graph per prompt shape, cache_slots and row_local,
         # captured at the key's second call, its outputs in a pool of the
@@ -153,6 +174,10 @@ class DyMoEEngine:
         # decode_many_batched): one CUDA graph per key, replayed from the
         # engine-owned decode states
         self._decode_batched = CompiledDecodeChunk(self)
+        # decode_many, compiled (the JAX engine's jax.jit of decode_many):
+        # one CUDA graph per key, replayed from engine-owned decode states
+        # that each call copies its prefill's caches into
+        self._decode_many = CompiledDecodeMany(self)
         # the last batch call's counts (ContinuousBatchingScheduler.stats):
         # chunks, decode steps, batched and solo admission waves, replay
         # jobs and their host seconds, compiled-chunk and prefill compiles
@@ -300,76 +325,83 @@ class DyMoEEngine:
 
     def generate_reference(self, request: Request, rng_key=None
                            ) -> GenerationResult:
-        """Single-request REFERENCE path (no scheduler): the solo prefill
-        (the engine's compiled prefill, as the reference's is jitted), then
-        ``decode_chunk``-sized :func:`decode_many` chunks (one shared
-        Critical set a layer, K2 on the card) with inline telemetry
-        replay. Token i's PRNG key is ``fold_in(rng_key, i)``, so outputs
-        are chunking-invariant. The oracle :meth:`generate` must equal,
-        tokens and modeled numbers."""
+        """Single-request REFERENCE path (no scheduler): the solo prefill,
+        then ``decode_chunk``-sized :func:`decode_many` chunks (one shared
+        Critical set a layer, K2 on the card), both through the engine's
+        compiled programs, with inline telemetry replay. Token i's PRNG key
+        is ``fold_in(rng_key, i)``, so outputs are chunking-invariant. The
+        oracle :meth:`generate` must equal, tokens and modeled numbers."""
         from repro_torch.serving.scheduler import _d2h_async, _numpy
 
         cfg, dev = self.cfg, self.device
         temperature, top_k, rng_key = resolve_sampling(
             request, rng_key, context="generate")
         sampling = temperature > 0.0
-        if sampling:
-            rng_key = torch.as_tensor(rng_key).to(dev)
         s = request.prompt_len
+        slots = s + request.max_new_tokens
         orch = self._make_orchestrator()
         eos = request.eos_token
         t0 = time.perf_counter()
-        # the compiled prefill's outputs: the eager decode_many
-        # chunks below advance these caches in place, which holds because
-        # nothing else calls the engine's prefill while this call runs
-        out = self._prefill(np.asarray([request.prompt_tokens], np.int64),
-                            cache_slots=s + request.max_new_tokens)
-        logits, caches, info = out.logits, out.caches, out.info
-        tele = _d2h_async((info.critical_masks, info.active_masks,
-                           info.predicted_next))
-        tok = sample_token(logits, fold_in(rng_key, 0) if sampling else None,
-                           temperature=temperature, top_k=top_k)
-        tokens: List[int] = [int(tok[0])]   # host sync: prefill complete
-        pre_timings, pre_totals, pre_wbytes = self._replay(
-            *_numpy(tele), phase="prefill", s_ctx=np.asarray([s]), s_q=s,
-            orch=orch)
-        pre_t = pre_timings[0] if pre_timings else None
-        t_dec = time.perf_counter()   # decode wall: after prefill's replay
-        decode_timings: List[StepTiming] = []
-        tpot_total = 0.0
-        dec_wbytes = 0
-        done = eos is not None and tokens[0] == eos
-        total_steps = request.max_new_tokens - 1
-        n_done = 0  # decode steps completed (== tokens sampled - 1)
-        while n_done < total_steps and not done:
-            chunk = min(self.ecfg.decode_chunk, total_steps - n_done)
-            toks_d, caches, infos = decode_many(
-                self.params, cfg, tok, caches, num_steps=chunk,
-                start_step=n_done + 1, qparams=self.qparams,
-                rng_key=rng_key if sampling else None,
-                temperature=temperature, top_k=top_k)
-            tok = toks_d[-1]
-            # the chunk's ONE host sync: the telemetry copies are queued
-            # first, so the tokens' fetch completes them
-            crit, act, pred = _numpy(_d2h_async(
-                (infos.critical_masks, infos.active_masks,
-                 infos.predicted_next)))
-            new = [int(t) for t in toks_d[:, 0].cpu()]
-            keep = chunk
-            if eos is not None and eos in new:
-                keep = new.index(eos) + 1
-                done = True
-            if crit is not None:
-                crit, act, pred = crit[:keep], act[:keep], pred[:keep]
-            timings, totals, wbytes = self._replay(
-                crit, act, pred, phase="decode",
-                s_ctx=s + n_done + 1 + np.arange(keep), s_q=1, orch=orch)
-            decode_timings.extend(timings)
-            for x in totals:   # per-step adds: equal to decode_chunk=1
-                tpot_total += x
-            dec_wbytes += wbytes
-            tokens.extend(new[:keep])
-            n_done += keep
+        with self.lock:
+            # the prefill's outputs are the compiled prefill's, which its
+            # next call overwrites: the caches go into a decode state this
+            # call holds before the lock is let go
+            out = self._prefill(np.asarray([request.prompt_tokens],
+                                           np.int64), cache_slots=slots)
+            info = out.info
+            tele = _d2h_async((info.critical_masks, info.active_masks,
+                               info.predicted_next))
+            tok = sample_token(
+                out.logits,
+                fold_in(torch.as_tensor(rng_key).to(dev), 0) if sampling
+                else None, temperature=temperature, top_k=top_k)
+            state = self._decode_many.acquire(1, slots, caches=out.caches)
+            tokens: List[int] = [int(tok[0])]   # host sync: prefill done
+        try:
+            pre_timings, pre_totals, pre_wbytes = self._replay(
+                *_numpy(tele), phase="prefill", s_ctx=np.asarray([s]),
+                s_q=s, orch=orch)
+            pre_t = pre_timings[0] if pre_timings else None
+            t_dec = time.perf_counter()   # decode wall: after the replay
+            decode_timings: List[StepTiming] = []
+            tpot_total = 0.0
+            dec_wbytes = 0
+            done = eos is not None and tokens[0] == eos
+            total_steps = request.max_new_tokens - 1
+            n_done = 0  # decode steps completed (== tokens sampled - 1)
+            key = raw_key_data(rng_key) if sampling else None
+            while n_done < total_steps and not done:
+                chunk = min(self.ecfg.decode_chunk, total_steps - n_done)
+                with self.lock:
+                    o = self._decode_many(
+                        state, tok, num_steps=chunk, start_step=n_done + 1,
+                        rng_key=key, temperature=temperature, top_k=top_k)
+                    tok = o.tokens[-1].clone()
+                    # the chunk's ONE host sync: the telemetry copies are
+                    # queued first, so the tokens' fetch completes them
+                    crit, act, pred = _numpy(_d2h_async(
+                        (o.info.critical_masks, o.info.active_masks,
+                         o.info.predicted_next)))
+                    new = [int(t) for t in o.tokens[:, 0].cpu()]
+                keep = chunk
+                if eos is not None and eos in new:
+                    keep = new.index(eos) + 1
+                    done = True
+                if crit is not None:
+                    crit, act, pred = crit[:keep], act[:keep], pred[:keep]
+                timings, totals, wbytes = self._replay(
+                    crit, act, pred, phase="decode",
+                    s_ctx=s + n_done + 1 + np.arange(keep), s_q=1,
+                    orch=orch)
+                decode_timings.extend(timings)
+                for x in totals:   # per-step adds: equal to decode_chunk=1
+                    tpot_total += x
+                dec_wbytes += wbytes
+                tokens.extend(new[:keep])
+                n_done += keep
+        finally:
+            with self.lock:
+                self._decode_many.release(state)
         t_end = time.perf_counter()
         n_dec = max(len(tokens) - 1, 1)
         return GenerationResult(
@@ -387,12 +419,18 @@ class DyMoEEngine:
 
     def generate_batch(self, requests: Sequence[Request], rng_key=None, *,
                        num_slots: Optional[int] = None,
-                       ) -> List[GenerationResult]:
+                       static: bool = False) -> List[GenerationResult]:
         """Continuous batching over ``num_slots`` device slots (default
         min(len(requests), 4)): ragged prompts, per-request
         ``max_new_tokens`` / ``eos_token`` / sampling parameters, eviction
         and admission at every chunk boundary, real per-request modeled
         TTFT/TPOT. Results come back in submission order.
+
+        ``static=True`` is the lockstep baseline instead: one batch for
+        the whole call (ragged prompts right-aligned), decode until every
+        row is done, telemetry discarded (NaN modeled numbers); sampled
+        rows draw from their own streams, so in the row-independent
+        full-precision regime each row equals its solo run.
 
         ``rng_key`` is an optional shared PRNG
         root for requests WITHOUT a seed: request i's stream root becomes
@@ -401,7 +439,96 @@ class DyMoEEngine:
         if rng_key is not None:
             rng_keys = [None if r.seed is not None else fold_in(rng_key, i)
                         for i, r in enumerate(requests)]
+        if static:
+            return self._generate_batch_static(requests, rng_keys=rng_keys)
         return self._run(requests, num_slots=num_slots, rng_keys=rng_keys)
+
+    def _generate_batch_static(self, requests: Sequence[Request], *,
+                               rng_keys: Optional[Sequence] = None
+                               ) -> List[GenerationResult]:
+        """The lockstep baseline: every request holds a row for the whole
+        call; ragged prompts are right-aligned into one padded batch (one
+        prefill with per-row offsets), and rows that finish early keep
+        decoding until the whole batch is done. Per-row done state is
+        tracked from each chunk's new tokens only."""
+        from repro_torch.serving.scheduler import _h2d
+
+        dev = self.device
+        b = len(requests)
+        temps = np.zeros(b, np.float32)
+        topks = np.zeros(b, np.int64)
+        keys = np.zeros((b, 2), np.int64)
+        for i, r in enumerate(requests):
+            t, k, key = resolve_sampling(
+                r, rng_keys[i] if rng_keys is not None else None,
+                context=f"generate_batch(static=True) request {i}")
+            temps[i], topks[i] = t, k
+            if t > 0.0:
+                keys[i] = raw_key_data(key)
+        any_sampling = bool((temps > 0).any())
+        lens = [len(r.prompt_tokens) for r in requests]
+        s = max(lens)
+        ragged = len(set(lens)) > 1
+        prompts = np.zeros((b, s), np.int64)
+        for i, r in enumerate(requests):
+            prompts[i, s - lens[i]:] = r.prompt_tokens   # right-aligned
+        limits = [r.max_new_tokens for r in requests]
+        eos = [r.eos_token for r in requests]
+        max_new = max(limits)
+        slots = s + max_new
+        t0 = time.perf_counter()
+        with self.lock:
+            out = self._prefill(prompts, cache_slots=slots,
+                                lengths=np.asarray(lens, np.int32)
+                                if ragged else None)
+            if any_sampling:
+                tok = sample_token_rows(
+                    out.logits, fold_in(_h2d(keys, dev), 0),
+                    _h2d(temps, dev), _h2d(topks, dev))
+            else:
+                tok = sample_token(out.logits)
+            state = self._decode_many.acquire(b, slots, caches=out.caches)
+            rows = [[int(t)] for t in tok.cpu()]
+        done = [len(rows[i]) >= limits[i]
+                or (eos[i] is not None and rows[i][0] == eos[i])
+                for i in range(b)]
+        remaining = b - sum(done)
+        row_kw = {}
+        if any_sampling:   # per-row mode: step i folds row r's key with i
+            row_kw = dict(row_keys=keys, row_temperatures=temps,
+                          row_top_ks=topks)
+        n_done = 1  # tokens sampled per row so far
+        try:
+            while n_done < max_new and remaining:
+                chunk = min(self.ecfg.decode_chunk, max_new - n_done)
+                with self.lock:
+                    o = self._decode_many(state, tok, num_steps=chunk,
+                                          start_step=n_done, **row_kw)
+                    tok = o.tokens[-1].clone()
+                    toks_np = o.tokens.cpu().numpy()   # one sync a chunk
+                for i in range(b):
+                    new = [int(t) for t in toks_np[:, i]]
+                    rows[i].extend(new)
+                    if not done[i]:
+                        hit_eos = eos[i] is not None and any(
+                            t == eos[i] for t in new[:limits[i] - n_done])
+                        if hit_eos or len(rows[i]) >= limits[i]:
+                            done[i] = True
+                            remaining -= 1
+                n_done += chunk
+        finally:
+            with self.lock:
+                self._decode_many.release(state)
+        wall = time.perf_counter() - t0
+        results = []
+        for i, row in enumerate(rows):
+            row = row[:limits[i]]
+            if eos[i] is not None and eos[i] in row:
+                row = row[:row.index(eos[i]) + 1]
+            results.append(GenerationResult(
+                tokens=row, ttft_s=float("nan"), tpot_s=float("nan"),
+                wall_s=wall))
+        return results
 
     def _run(self, requests, num_slots, rng_keys):
         from repro_torch.serving.scheduler import ContinuousBatchingScheduler

@@ -150,18 +150,25 @@ def sample_token(logits: torch.Tensor, key=None, *, temperature=0.0,
     """logits (B, V) -> (B,) int32. ``temperature <= 0`` is greedy
     (argmax, first maximum). ``temperature > 0`` draws from the
     (optionally top-k truncated; ``top_k`` clipped to V) categorical with
-    ``key``; without a key it falls back to greedy with a warning."""
-    if temperature <= 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    if key is None:
-        warnings.warn("sample_token: temperature > 0 but no PRNG key was "
-                      "provided; falling back to greedy decoding")
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    # divide by an f32 tensor on the logits' device: CUDA turns division
-    # by a host scalar into a multiply by its reciprocal, which is not
-    # the CPU's (and jax's) rounding, and not ``sample_token_rows``'
-    logits = logits / torch.full((), float(temperature), dtype=torch.float32,
-                                 device=logits.device)
+    ``key``; without a key it falls back to greedy with a warning. A 0-d
+    tensor ``temperature`` (a compiled decode's input) is taken as > 0 and
+    needs ``key``: nothing reads it on the host."""
+    if isinstance(temperature, torch.Tensor):
+        assert key is not None, "a tensor temperature needs a PRNG key"
+        t = temperature.to(device=logits.device, dtype=torch.float32)
+    else:
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        if key is None:
+            warnings.warn("sample_token: temperature > 0 but no PRNG key "
+                          "was provided; falling back to greedy decoding")
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        # an f32 tensor on the logits' device: CUDA turns division by a
+        # host scalar into a multiply by its reciprocal, which is not the
+        # CPU's (and jax's) rounding, and not ``sample_token_rows``'
+        t = torch.full((), float(temperature), dtype=torch.float32,
+                       device=logits.device)
+    logits = logits / t
     if top_k:
         vals = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1).values
         logits = torch.where(logits >= vals[..., -1:], logits,

@@ -52,6 +52,13 @@ package's ``pipeline=False`` mode, its own parity mode. A request's
 replay of its telemetry; its wall clocks stop at the host sync that
 fetched its last token.
 
+**One engine, many sessions.** Sessions over one engine (the replicas of
+``serving/cluster``) may be driven from different threads. The engine's
+compiled programs are not thread-safe, so each unit of device work holds
+the engine's ``lock``: an admission wave from its prefill through the
+injection of its rows, a decode chunk from its dispatch through its
+readout. The replay runs after the lock is let go.
+
 **Decode state.** The slot batch's KV caches belong to the engine, because
 the compiled chunk's graphs bind their addresses: a session holds one of
 the engine's decode states from its start to :meth:`close` (``slots_len``
@@ -301,9 +308,10 @@ class ContinuousBatchingScheduler:
         dev = engine.device
         b = self._b
         self._states: List[Optional[_SlotState]] = [None] * b
-        self._state = engine._decode_batched.acquire(b, self._slots_len,
-                                                     owner=self)
-        self._tok_d = torch.zeros(b, dtype=torch.int32, device=dev)
+        with engine.lock:
+            self._state = engine._decode_batched.acquire(
+                b, self._slots_len, owner=self)
+            self._tok_d = torch.zeros(b, dtype=torch.int32, device=dev)
         self._done = np.ones(b, bool)          # empty slots stay frozen
         self._emitted = np.zeros(b, np.int32)
         self._limits = np.zeros(b, np.int32)
@@ -341,7 +349,8 @@ class ContinuousBatchingScheduler:
         :class:`SessionClosed`, so no ``result(drive=False)`` /
         ``stream(drive=False)`` waiter is left blocked."""
         if self._started and not self.closed:
-            self.engine._decode_batched.release(self._state)
+            with self.engine.lock:
+                self.engine._decode_batched.release(self._state)
             self._state = None
         self.closed = True
         with self._lock:
@@ -629,7 +638,6 @@ class ContinuousBatchingScheduler:
         Survivors claim free slots in pop order, and each wave's rows are
         injected before the next wave's prefill overwrites its caches."""
         engine = self.engine
-        dev = engine.device
         free = [r for r in range(self._b)
                 if self._done[r] and self._states[r] is None]
         if not free or not self._queue:
@@ -655,96 +663,116 @@ class ContinuousBatchingScheduler:
             now = time.perf_counter()
             lens = [h.request.prompt_len for h in cands]
             n = len(cands)
-            batched = n > 1
-            compiled = engine._prefill
-            n_comp, comp_s = compiled.compiles, compiled.compile_s
-            try:
-                self._faults.fire("admit.alloc", n=n)
-                out = self._prefill_wave(cands, lens)
-                logits, info = out.logits, out.info
-                tele = _d2h_async((info.critical_masks, info.active_masks,
-                                   info.predicted_next))
-                # the wave's ONE host sync: every candidate's first token.
-                # Sampled candidates draw with fold count 0 through the
-                # per-row sampler (greedy rows take the same argmax)
-                if any(h.temperature > 0.0 for h in cands):
-                    keys = np.zeros((n, 2), np.int64)
-                    for i, h in enumerate(cands):
-                        if h.key is not None:
-                            keys[i] = h.key
-                    first_d = sample_token_rows(
-                        logits, fold_in(_h2d(keys, dev), 0),
-                        _h2d(np.asarray([h.temperature for h in cands],
-                                        np.float32), dev),
-                        _h2d(np.asarray([h.top_k for h in cands],
-                                        np.int64), dev))
-                else:
-                    first_d = torch.argmax(logits, dim=-1)
-                first = first_d.cpu().numpy()
-            except _LADDER_ERRORS as e:
-                self._last_fault = e
-                self._health.last_fault = repr(e)
-                if n > 1:
-                    with self._lock:
-                        for h in reversed(cands):
-                            self._queue.appendleft(h)
-                    self._health.admission_retries += 1
-                    cap = max(1, n // 2)
-                    continue
-                self._health.admission_failures += 1
-                err = AdmissionError(
-                    f"{cands[0].request_id}: admission prefill failed "
-                    f"even as a solo wave ({e!r})")
-                err.__cause__ = e
-                cands[0]._finish_error(err)
+            # the engine's lock from the prefill through the injection of
+            # its rows: the prefill's outputs are fixed buffers that any
+            # other session's next prefill on this engine overwrites
+            with engine.lock:
+                wave = self._admit_wave(cands, lens, now, free, n_survivors)
+            if wave is None:                   # failed: requeued or resolved
+                cap = max(1, n // 2) if n > 1 else cap
                 continue
-            finally:
-                self.stats["prefill_compiles"] += compiled.compiles - n_comp
-                self.stats["prefill_compile_s"] += \
-                    compiled.compile_s - comp_s
             cap = None   # a clean wave resets the ladder
-            self.stats["waves_batched" if batched else "waves_solo"] += 1
-            t_dec = time.perf_counter()
-            wave_states, src, toks, surv = [], [], [], []
-            for i, h in enumerate(cands):
-                req = h.request
-                ft = int(first[i])
-                st = _SlotState(
-                    handle=h, request=req, tokens=[ft], prompt_len=lens[i],
-                    admit_t=now, queue_wait_s=now - h.submit_t,
-                    finish_now=(req.max_new_tokens <= 1
-                                or (req.eos_token is not None
-                                    and ft == req.eos_token)),
-                    decode_t0=t_dec, end_t=t_dec)
-                wave_states.append(st)
-                if not st.finish_now:
-                    src.append(i)
-                    toks.append(ft)
-                    surv.append(st)
+            wave_states, tele, n_new = wave
+            n_survivors += n_new
             self._timed(self._replay_prefill, [h for h in cands],
-                        wave_states, tele, batched)
-            if not src:
-                continue
-            # the survivors claim the next free slots (pop order); their
-            # rows go in now, before the next prefill overwrites out
-            dst = free[n_survivors:n_survivors + len(src)]
-            n_survivors += len(src)
-            for st, r in zip(surv, dst):
-                h = st.handle
-                self._states[r] = st
-                self._done[r] = False
-                self._emitted[r] = 1
-                self._limits[r] = st.request.max_new_tokens
-                self._eos[r] = (-1 if st.request.eos_token is None
-                                else st.request.eos_token)
-                self._temps[r] = h.temperature
-                self._topks[r] = h.top_k
-                self._keys[r] = h.key if h.key is not None else 0
-            dst_d = _h2d(np.asarray(dst, np.int64), dev)
-            self._inject_rows(out.caches, _h2d(np.asarray(src, np.int64),
-                                               dev), dst_d)
-            self._tok_d[dst_d] = _h2d(np.asarray(toks, np.int32), dev)
+                        wave_states, tele, n > 1)
         return True
+
+    def _admit_wave(self, cands: List[RequestHandle], lens: List[int],
+                    now: float, free: List[int], n_survivors: int):
+        """One admission wave's device work, under the engine's lock: its
+        prefill, the ONE host sync for its first tokens, and the injection
+        of its survivors into the next free slots (pop order). Returns
+        (the wave's slot states, its telemetry, the slots it took), or
+        None when the prefill failed: a wave of several candidates is
+        requeued (the ladder retries it at half size), a single candidate
+        resolves with :class:`AdmissionError`."""
+        engine = self.engine
+        dev = engine.device
+        n = len(cands)
+        compiled = engine._prefill
+        n_comp, comp_s = compiled.compiles, compiled.compile_s
+        try:
+            self._faults.fire("admit.alloc", n=n)
+            out = self._prefill_wave(cands, lens)
+            logits, info = out.logits, out.info
+            tele = _d2h_async((info.critical_masks, info.active_masks,
+                               info.predicted_next))
+            # the wave's ONE host sync: every candidate's first token.
+            # Sampled candidates draw with fold count 0 through the
+            # per-row sampler (greedy rows take the same argmax)
+            if any(h.temperature > 0.0 for h in cands):
+                keys = np.zeros((n, 2), np.int64)
+                for i, h in enumerate(cands):
+                    if h.key is not None:
+                        keys[i] = h.key
+                first_d = sample_token_rows(
+                    logits, fold_in(_h2d(keys, dev), 0),
+                    _h2d(np.asarray([h.temperature for h in cands],
+                                    np.float32), dev),
+                    _h2d(np.asarray([h.top_k for h in cands],
+                                    np.int64), dev))
+            else:
+                first_d = torch.argmax(logits, dim=-1)
+            first = first_d.cpu().numpy()
+        except _LADDER_ERRORS as e:
+            self._last_fault = e
+            self._health.last_fault = repr(e)
+            if n > 1:
+                with self._lock:
+                    for h in reversed(cands):
+                        self._queue.appendleft(h)
+                self._health.admission_retries += 1
+                return None
+            self._health.admission_failures += 1
+            err = AdmissionError(
+                f"{cands[0].request_id}: admission prefill failed "
+                f"even as a solo wave ({e!r})")
+            err.__cause__ = e
+            cands[0]._finish_error(err)
+            return None
+        finally:
+            self.stats["prefill_compiles"] += compiled.compiles - n_comp
+            self.stats["prefill_compile_s"] += compiled.compile_s - comp_s
+        self.stats["waves_batched" if n > 1 else "waves_solo"] += 1
+        t_dec = time.perf_counter()
+        wave_states, src, toks, surv = [], [], [], []
+        for i, h in enumerate(cands):
+            req = h.request
+            ft = int(first[i])
+            st = _SlotState(
+                handle=h, request=req, tokens=[ft], prompt_len=lens[i],
+                admit_t=now, queue_wait_s=now - h.submit_t,
+                finish_now=(req.max_new_tokens <= 1
+                            or (req.eos_token is not None
+                                and ft == req.eos_token)),
+                decode_t0=t_dec, end_t=t_dec)
+            wave_states.append(st)
+            if not st.finish_now:
+                src.append(i)
+                toks.append(ft)
+                surv.append(st)
+        if not src:
+            return wave_states, tele, 0
+        # the survivors claim the next free slots (pop order); their rows
+        # go in now, before the next prefill overwrites out
+        dst = free[n_survivors:n_survivors + len(src)]
+        for st, r in zip(surv, dst):
+            h = st.handle
+            self._states[r] = st
+            self._done[r] = False
+            self._emitted[r] = 1
+            self._limits[r] = st.request.max_new_tokens
+            self._eos[r] = (-1 if st.request.eos_token is None
+                            else st.request.eos_token)
+            self._temps[r] = h.temperature
+            self._topks[r] = h.top_k
+            self._keys[r] = h.key if h.key is not None else 0
+        dst_d = _h2d(np.asarray(dst, np.int64), dev)
+        self._inject_rows(out.caches, _h2d(np.asarray(src, np.int64), dev),
+                          dst_d)
+        self._tok_d[dst_d] = _h2d(np.asarray(toks, np.int32), dev)
+        return wave_states, tele, len(src)
 
     def _can_batch_admissions(self) -> bool:
         """A ragged batched admission prefill needs the right-aligned
@@ -826,15 +854,54 @@ class ContinuousBatchingScheduler:
         end, of the done/emitted masks together with its tokens — outside
         the retry ladder (site ``device.dispatch``; see the class
         docstring), so an error surfacing there propagates."""
-        compiled = self.engine._decode_batched
         emitted_before = self._emitted.copy()
-        chunk = self._chunk          # transient: self._chunk is untouched
         deferred = np.zeros(self._b, bool)
+        # the engine's lock from the dispatch through the readout: the
+        # chunk's outputs are fixed buffers any next call overwrites
+        with self.engine.lock:
+            got = self._run_chunk(deferred)
+        if got is None:
+            return   # everything deferred/failed; retry next step
+        chunk, tele, host = got
+        new_done = host[0].astype(bool)
+        new_emitted = host[1].astype(np.int32)
+        # deferred rows were frozen for THIS dispatch only: their host
+        # masks stay, so they dispatch again at the next boundary
+        new_done[deferred] = self._done[deferred]
+        new_emitted[deferred] = self._emitted[deferred]
+        self._done, self._emitted = new_done, new_emitted
+        t_sync = time.perf_counter()
+        self.stats["chunks"] += 1
+        self.stats["decode_steps"] += chunk
+        rows = []
+        for r in range(self._b):
+            st = self._states[r]
+            if st is None or deferred[r]:
+                continue
+            st.end_t = t_sync
+            rows.append((r, st, int(self._emitted[r] - emitted_before[r]),
+                         st.prompt_len + int(emitted_before[r]),
+                         bool(self._done[r])))
+            if self._done[r]:
+                self._states[r] = None  # evict: free to admit; the replay
+                #                         below finalizes st
+        self._timed(self._replay_chunk, [st.handle for _, st, *_ in rows],
+                    host[2:2 + chunk], tele, rows)
+
+    def _run_chunk(self, deferred: np.ndarray):
+        """The chunk's device work, under the engine's lock: the dispatch
+        and its retry ladder (``deferred`` marks the rows it froze for
+        this dispatch), then the copies the session keeps and the boundary
+        sync. Returns (the chunk's length, its telemetry's host copies,
+        the fetched done / emitted / token rows), or None when no row
+        could run."""
+        compiled = self.engine._decode_batched
+        chunk = self._chunk          # transient: self._chunk is untouched
         while True:
             live = [r for r in range(self._b)
                     if not self._done[r] and not deferred[r]]
             if not live:
-                return   # everything deferred/failed; retry next step
+                return None
             done_in = self._done | deferred
             sample_kw = {}
             if (self._temps[~done_in] > 0.0).any():
@@ -885,30 +952,7 @@ class ContinuousBatchingScheduler:
         host = torch.cat([out.done.to(torch.int32)[None],
                           out.n_emitted[None], out.tokens]
                          ).cpu().numpy()                  # the boundary sync
-        new_done = host[0].astype(bool)
-        new_emitted = host[1].astype(np.int32)
-        # deferred rows were frozen for THIS dispatch only: their host
-        # masks stay, so they dispatch again at the next boundary
-        new_done[deferred] = self._done[deferred]
-        new_emitted[deferred] = self._emitted[deferred]
-        self._done, self._emitted = new_done, new_emitted
-        t_sync = time.perf_counter()
-        self.stats["chunks"] += 1
-        self.stats["decode_steps"] += chunk
-        rows = []
-        for r in range(self._b):
-            st = self._states[r]
-            if st is None or deferred[r]:
-                continue
-            st.end_t = t_sync
-            rows.append((r, st, int(self._emitted[r] - emitted_before[r]),
-                         st.prompt_len + int(emitted_before[r]),
-                         bool(self._done[r])))
-            if self._done[r]:
-                self._states[r] = None  # evict: free to admit; the replay
-                #                         below finalizes st
-        self._timed(self._replay_chunk, [st.handle for _, st, *_ in rows],
-                    host[2:2 + chunk], tele, rows)
+        return chunk, tele, host
 
     # ------------------------------------------- replay fault tolerance
     def _timed(self, replay, handles, *args) -> None:

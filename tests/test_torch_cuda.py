@@ -20,7 +20,11 @@ against the eager chunk, and serving on the card against the CPU
 (``test_cuda_compiled_chunk_non_moe_*``, ``test_cuda_non_moe_*``); the
 compiled prefill, a CUDA graph replay per prompt shape, against the eager
 prefill for every block family, and its pool and bound
-(``test_cuda_compiled_prefill_*``).
+(``test_cuda_compiled_prefill_*``); the compiled ``decode_many`` of
+``generate_reference`` and the static batch against eager, greedy,
+sampled and per row (``test_cuda_compiled_decode_many_*``), and two
+replicas of one engine on driver threads capturing while they step
+(``test_cuda_threaded_replicas_*``).
 (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
@@ -1108,3 +1112,115 @@ def test_cuda_compiled_prefill_capture_oom_is_not_retried(monkeypatch):
                          qparams=gpu.qparams, cache_slots=32)
     assert torch.equal(cp(prompt, cache_slots=32).logits, want)
     assert cp.compiles == 1 and entry.graph is not None
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled", "rows"])
+def test_cuda_compiled_decode_many_equals_eager(mode):
+    """The engine's compiled ``decode_many`` (``generate_reference``'s and
+    the static batch's chunks) against eager ``decode_many`` from a copy
+    of the same prefill caches, on the reduced OLMoE: one row greedy or
+    sampled with one key, or three rows sampled per row. The key's first
+    call runs eagerly, the second captures and replays (from the first's
+    outputs, at the next start step), the third replays under
+    ``set_sync_debug_mode("error")``: tokens, telemetry and the state's
+    caches bitwise eager's, and each call adds exactly 3 × L × steps K2
+    launches. The state's caches share no storage with the prefill's."""
+    import dataclasses
+
+    from repro_torch.models.model import decode_many, prefill
+
+    dev = _need_cuda()
+    cfg, _, eng = _reduced_engines(dev)
+    b = 3 if mode == "rows" else 1
+    s, slots, steps = 11, 40, 5
+    prompts = torch.randint(1, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(2))
+    logits, rc, _ = prefill(eng.params, cfg, prompts, qparams=eng.qparams,
+                            cache_slots=slots)
+    ref = {"layers": dataclasses.replace(
+        rc["layers"], **{f: getattr(rc["layers"], f).clone() for f in
+                         ("k", "v", "positions", "length", "offset")})}
+    cm = eng._decode_many
+    state = cm.acquire(b, slots, caches=rc)
+    def ptrs(caches):
+        return {getattr(c, f.name).untyped_storage().data_ptr()
+                for c in caches.values() for f in dataclasses.fields(c)}
+
+    assert not ptrs(rc) & ptrs(state.caches)
+    kw, eager_kw = {}, {}
+    if mode == "sampled":
+        kw = dict(rng_key=np.array([0, 7], np.int64), temperature=0.8,
+                  top_k=20)
+        eager_kw = dict(rng_key=torch.tensor([0, 7], device=dev),
+                        temperature=0.8, top_k=20)
+    elif mode == "rows":
+        kw = dict(row_keys=np.arange(6, dtype=np.int64).reshape(3, 2),
+                  row_temperatures=np.array([0.7, 0.0, 1.2], np.float32),
+                  row_top_ks=np.array([0, 5, 20], np.int64))
+        eager_kw = {k: torch.from_numpy(v).to(dev) for k, v in kw.items()}
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    k2 = "expert_quant_matmul"
+    for call in range(3):
+        start = 1 + call * steps
+        want_t, _, want_i = decode_many(
+            eng.params, cfg, tok.clone(), ref, num_steps=steps,
+            start_step=start, qparams=eng.qparams, **eager_kw)
+        before = dict(kmod.LAUNCHES)
+        torch.cuda.synchronize()
+        if call == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = cm(state, tok, num_steps=steps, start_step=start, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert kmod.LAUNCHES[k2] - before[k2] == 3 * cfg.num_layers * steps
+        assert torch.equal(out.tokens, want_t), call
+        for f in ("critical_masks", "active_masks", "gate_mean",
+                  "predicted_next"):
+            assert torch.equal(getattr(out.info, f), getattr(want_i, f)), f
+        for f in ("k", "v", "positions", "length", "offset"):
+            assert torch.equal(getattr(state.caches["layers"], f),
+                               getattr(ref["layers"], f)), f
+        tok = out.tokens[-1].clone()
+    (entry,) = state.entries.values()
+    assert entry.graph is not None and cm.compiles == 1
+    cm.release(state)
+
+
+def test_cuda_threaded_replicas_capture_while_stepping():
+    """Two replicas of one engine on driver threads, serving requests of
+    one prompt length and mixed lengths of output from a cold engine:
+    the replicas' first waves share a prefill key (one thread's call is
+    eager, the other's captures it) and each replica's chunks meet new
+    keys, so one thread captures graphs while the other steps; the
+    engine's lock keeps them apart, and every request's tokens equal a
+    solo run on a second engine from the same weights;
+    ``generate_reference`` calls on the test's thread, meanwhile, equal
+    the second engine's."""
+    from repro_torch.serving import ClusterRouter, DyMoEEngine, \
+        EngineConfig, Request
+
+    dev = _need_cuda()
+    cfg, cpu, eng = _reduced_engines(dev)
+    solo_eng = DyMoEEngine(cfg, cpu.params, device=dev)
+    rng = np.random.default_rng(12)
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, cfg.vocab_size, 9)], max_new_tokens=m, request_id=f"r{i}")
+        for i, m in enumerate((6, 9, 12, 4, 7, 5, 10, 3))]
+    want = [solo_eng.generate(r).tokens for r in reqs]
+    refs = [solo_eng.generate_reference(r).tokens for r in reqs[:3]]
+    router = ClusterRouter.replicate(eng, 2, num_slots=2, slots_len=64,
+                                     threaded=True)
+    try:
+        handles = [router.submit(r) for r in reqs]
+        got_ref = [eng.generate_reference(r).tokens for r in reqs[:3]]
+        got = [h.result().tokens for h in handles]
+        health = router.health()
+    finally:
+        router.close()
+    assert got == want and got_ref == refs
+    assert {h.replica for h in handles} == {0, 1}
+    assert eng._decode_batched.compiles > 0 and eng._prefill.compiles > 0
+    assert health.completed == len(reqs)

@@ -2,7 +2,8 @@
 ``generate_batch`` gives the JAX engine's greedy tokens and modeled
 TTFT/TPOT (exact) on ragged requests; the engine refuses to run without
 CUDA unless asked for the CPU; and the port (its serving, replay and
-sampling modules, the compiled chunk, ``chip_smoke``) imports with
+sampling modules, the compiled programs, the multi-replica tier, the
+launcher, ``chip_smoke``) imports with
 ``jax`` and ``repro`` made unimportable."""
 import os
 import subprocess
@@ -77,6 +78,8 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.serving.policy\n"
             "import repro_torch.serving.request\n"
             "import repro_torch.serving.compiled\n"
+            "import repro_torch.serving.cluster\n"
+            "import repro_torch.launch.serve\n"
             "import repro_torch.serving.sampler\n"
             "import repro_torch.serving.cost_model\n"
             "import repro_torch.core.cache\n"

@@ -88,7 +88,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      off``, the one-shot and the static batch (dropless capacity), each
      row equal to ``generate_reference``, no packed kernel launched; (d)
      a replica's ``replay.chunk`` fault under driver threads: drained,
-     cold-restarted, every handle resolved.
+     cold-restarted, every handle resolved;
+  7. train — the training path (``train:`` line; ``_train_phase``): (a)
+     five ``TrainLoop`` steps of the reduced f32 OLMoE-1B-7B on the card
+     and on the CPU from the same params and batches, losses within rtol
+     1e-4; (b) full-width bf16 train steps (remat "block") of
+     OLMoE-1B-7B at 4 of its 16 layers, qwen3_0p6b and zamba2_1p2b (one
+     row), 512 tokens a row: step ms, device busy and idle share, kernels
+     a step, peak memory, finite losses and grad norms; (c) 60 steps of
+     the reduced f32 OLMoE-1B-7B lower the loss by >= 0.3, the final
+     checkpoint restores bit for bit, and engines on the restored and on
+     the in-memory weights serve 4 requests ("4/2") to the same tokens
+     with K1 and K2 launched (``train_skew:``: each layer's expert-load
+     skew at init and after training).
 
 The ``prefill_graph:`` line holds the six full-width prefill gates: the
 compiled prefill's eager protocol (``graphs=False``) against the
@@ -100,7 +112,9 @@ then a replay: logits, every ``DyMoEInfo`` leaf and every cache leaf
 memory the eager prefill takes above its baseline and the allocator's
 device calls during it, and the K1/K2 kernels a traced replay ran
 against the key's counted launches; then each engine's prefill keys,
-compile seconds and pool bytes. No phase is cut in depth.
+compile seconds and pool bytes. No serving phase is cut in depth; the
+train phase keeps 4 of OLMoE-1B-7B's 16 layers (memory) and one row of
+zamba2_1p2b (time), see ``TRAIN_FULL``.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and ``{"ok": true, "device": {...}}``.
@@ -108,6 +122,7 @@ Exits non-zero without a result when there is no CUDA device or when the
 repository's sources are not beside this file.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2371,6 +2386,266 @@ def _frontend_phase(dev) -> tuple:
     return paths, summary
 
 
+# ------------------------------------------------------------------- train
+
+# (arch, layers kept or None for the published depth, batch): bf16, remat
+# "block", TRAIN_SEQ tokens a row. Cuts: OLMoE-1B-7B's 16 layers would need
+# ~83 GB of bf16 params and grads and f32 AdamW moments, more than the
+# card; zamba2_1p2b at batch 4 took 15.7-16.7 s an eager step (555k
+# kernels, 77 % idle), 80 s of the phase, so it trains one row
+TRAIN_FULL = (("olmoe_1b_7b", 4, 4), ("qwen3_0p6b", None, 4),
+              ("zamba2_1p2b", None, 1))
+TRAIN_BATCH = 4
+TRAIN_SEQ = 512
+
+
+class _NormAdamW:
+    """An optimizer that records each step's global grad norm (as a device
+    scalar, read after the timed steps) and hands the update to AdamW."""
+
+    def __init__(self, opt):
+        self.opt, self.norms = opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, params, grads, state):
+        import torch
+        from repro_torch.tree import tree_leaves
+        self.norms.append(torch.sqrt(sum(
+            torch.sum(torch.square(g.to(torch.float32)))
+            for g in tree_leaves(grads))))
+        return self.opt.update(params, grads, state)
+
+
+def _train_parity(dev) -> dict:
+    """(a) Five steps of the reduced f32 OLMoE-1B-7B's ``TrainLoop`` on the
+    card and on the CPU, from the same params (drawn on the CPU) and the
+    same synthetic batches (4 x 32, lr 1e-2): each step's loss, ce and aux
+    agree to rtol 1e-4 (TF32 off). Losses, not params: Adam's first steps
+    are near lr · sign(g), so a grad near zero can flip an element by 2 lr
+    between devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.training import TrainLoop, TrainLoopConfig
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("olmoe_1b_7b").reduced()
+    lc = TrainLoopConfig(steps=5, lr=1e-2, warmup=1, log_every=1)
+    cpu = TrainLoop(cfg, lc, device="cpu")
+    card = TrainLoop(cfg, lc, device=dev)
+    card.params = tree_map(lambda p: p.to(dev), cpu.params)
+    card.opt_state = card.optimizer.init(card.params)
+    dc = DataConfig(batch_size=4, seq_len=32, vocab_size=cfg.vocab_size)
+    cpu.run(synthetic_lm_batches(dc))
+    card.run(synthetic_lm_batches(dc))
+    worst = 0.0
+    for c, g in zip(cpu.history, card.history):
+        for k in ("loss", "ce", "aux"):
+            rel = abs(g[k] - c[k]) / abs(c[k])
+            assert rel <= 1e-4, f"step {c['step']} {k}: card {g[k]} != " \
+                                f"CPU {c[k]} (rel {rel:.2e} > 1e-4)"
+            worst = max(worst, rel)
+    return dict(steps=len(card.history), rtol=1e-4, max_rel=worst,
+                loss_card=[h["loss"] for h in card.history],
+                loss_cpu=[h["loss"] for h in cpu.history])
+
+
+def _train_full(dev, arch: str, layers, batch: int) -> dict:
+    """(b) Train steps of ``arch`` at full width (bf16, remat "block", the
+    config's own), ``batch`` x ``TRAIN_SEQ`` synthetic tokens: one warm-up
+    step, three timed (CUDA events around the step: the host's time is in
+    it), then one under torch.profiler (device busy = the sum of its CUDA
+    kernels' time, one stream; idle share = 1 - busy / that step's wall).
+    Every loss and grad norm must be finite. Peak memory over all five."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.models.model import init_params, train_step_fn
+    from repro_torch.training import AdamW, cosine_lr
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    cuts = []
+    if layers is not None and layers < cfg.num_layers:
+        cuts.append(f"{layers} of {cfg.num_layers} layers")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if batch < TRAIN_BATCH:
+        cuts.append(f"batch {batch} of {TRAIN_BATCH}")
+    assert cfg.remat == "block" and cfg.dtype == "bfloat16", cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    opt = _NormAdamW(AdamW(lr=cosine_lr(3e-4, 20, 100), weight_decay=0.01))
+    state = opt.init(params)
+    step = train_step_fn(cfg, opt)
+    batches = synthetic_lm_batches(DataConfig(batch, TRAIN_SEQ,
+                                              cfg.vocab_size, seed=0))
+    data = [{k: torch.as_tensor(v, device=dev) for k, v in next(
+        batches).items()} for _ in range(5)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, ms = [], []
+    for i, b in enumerate(data[:4]):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, state, m = step(params, state, b)
+        e.record()
+        e.synchronize()
+        losses.append(m["loss"])
+        if i:                                   # step 0 is the warm-up
+            ms.append(a.elapsed_time(e))
+    walls = []
+
+    def profiled():
+        nonlocal params, state
+        t = time.perf_counter()
+        params, state, m = step(params, state, data[4])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(m["loss"])
+
+    t_trace = time.perf_counter()
+    kernels = _trace(profiled)
+    trace_s = time.perf_counter() - t_trace
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    losses = [float(v) for v in losses]
+    norms = [float(v) for v in opt.norms]
+    assert all(map(math.isfinite, losses + norms)), (losses, norms)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    out = dict(
+        arch=arch, layers=cfg.num_layers, batch=batch, seq=TRAIN_SEQ,
+        cuts=cuts, params=n_params, init_s=init_s, step_ms=ms,
+        loss=losses, grad_norm=norms, profiled_wall_ms=walls[0] * 1e3,
+        device_busy_ms=busy_ms, idle_share=1 - busy_ms / (walls[0] * 1e3),
+        kernels_a_step=sum(e.count for e in kernels),
+        peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        trace_s=trace_s, run_s=time.perf_counter() - t_run,
+        top_kernels=[dict(name=e.key[:60], count=e.count,
+                          ms=e.self_device_time_total / 1e3) for e in top])
+    del params, state, data, step, opt
+    return out
+
+
+def _load_skew(params, cfg, tokens) -> list:
+    """Each layer's share of the expert load that its top-k experts take
+    (k = experts a token), from a full-precision prefill of ``tokens``:
+    k / E when the load is uniform, 1 when k experts take it all."""
+    from repro_torch.models.model import prefill
+    _, _, info = prefill(params, cfg, tokens)
+    load = info.expert_load                                      # (L, E)
+    top = load.sort(dim=-1, descending=True).values
+    return (top[:, :cfg.num_experts_per_tok].sum(-1)
+            / load.sum(-1)).tolist()
+
+
+def _train_serve(dev) -> dict:
+    """(c) A ``TrainLoop`` on the reduced f32 OLMoE-1B-7B (60 steps, lr
+    1e-2, warmup 5, 4 x 32) lowers the loss by >= 0.3 (the bar of
+    ``tests/test_train.py::test_loss_decreases``) and writes its final
+    checkpoint; ``load_checkpoint`` restores it bit for bit; engines on the
+    restored and on the in-memory params ("4/2") serve the same 4 requests
+    on 2 slots to the same tokens, launching K1 (the first, batched
+    admission and the decode chunks) and K2 (the later admissions, one
+    request each: their lengths stagger the finishes across chunk
+    boundaries). Returns the launch counts of the serve from the restored
+    params."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.serving import DyMoEEngine, Request
+    from repro_torch.training import TrainLoop, TrainLoopConfig, \
+        latest_step, load_checkpoint
+    from repro_torch.tree import tree_map, tree_paths
+
+    cfg = get_config("olmoe_1b_7b").reduced()
+    held_out = next(synthetic_lm_batches(DataConfig(
+        8, 64, cfg.vocab_size, seed=99)))["tokens"]
+    held_out = torch.as_tensor(held_out, device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        loop = TrainLoop(cfg, TrainLoopConfig(
+            steps=60, lr=1e-2, warmup=5, log_every=5, checkpoint_dir=d),
+            device=dev)
+        skew_init = _load_skew(loop.params, cfg, held_out)
+        res = loop.run(synthetic_lm_batches(DataConfig(
+            batch_size=4, seq_len=32, vocab_size=cfg.vocab_size)))
+        first, last = loop.history[0]["loss"], loop.history[-1]["loss"]
+        assert last < first - 0.3, f"loss {first} -> {last}: < 0.3 drop"
+        step = latest_step(d)
+        restored, got_step = load_checkpoint(d, step, tree_map(
+            torch.empty_like, loop.params))
+    assert step == got_step == 60
+    for k, v in tree_paths(loop.params).items():
+        r = tree_paths(restored)[k]
+        assert r.dtype == v.dtype and r.device == v.device and \
+            torch.equal(r.view(torch.uint8), v.contiguous().view(
+                torch.uint8)), k
+    skew_trained = _load_skew(restored, cfg, held_out)
+    rng = np.random.default_rng(3)
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, cfg.vocab_size, int(s))], max_new_tokens=int(m))
+        for s, m in ((9, 6), (17, 40), (5, 8), (12, 20))]
+    served = {}
+    for label, params in (("memory", loop.params), ("restored", restored)):
+        engine = DyMoEEngine(cfg, params, device=dev)
+        engine.generate_batch(reqs, num_slots=2)                 # warm
+        torch.cuda.synchronize()
+        km.reset_launch_counts()     # the train-then-serve path starts here
+        out = engine.generate_batch(reqs, num_slots=2)
+        torch.cuda.synchronize()
+        served[label] = ([r.tokens for r in out], dict(km.LAUNCHES))
+    (mem, _), (tok, launches) = served["memory"], served["restored"]
+    assert tok == mem, f"restored tokens {tok} != in-memory {mem}"
+    assert launches["expert_quant_matmul_grouped"] > 0 and \
+        launches["expert_quant_matmul"] > 0, launches
+    print("train_skew: " + json.dumps(dict(
+        what="share of each layer's expert load on its top-k experts "
+             f"(k={cfg.num_experts_per_tok} of {cfg.num_experts}), "
+             "full-precision prefill of 8 x 64 held-out synthetic tokens",
+        init=skew_init, trained=skew_trained)), flush=True)
+    return dict(loss_first=first, loss_last=last, wall_s=res["wall_s"],
+                checkpoint_step=step, restored_bitwise=True,
+                requests_equal=len(tok), new_tokens=sum(map(len, tok)),
+                launches=launches)
+
+
+def _train_phase(dev) -> dict:
+    """The training path (``train:`` line): (a) card == CPU losses, (b)
+    full-width steps, (c) train, checkpoint, restore and serve. Returns the
+    K1/K2 launch counts of (c)'s counted serve."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    summary = dict(allocated_at_start_gib=torch.cuda.memory_allocated()
+                   / 2 ** 30, parity=_train_parity(dev))
+    summary["parity_s"] = time.perf_counter() - t0
+    summary["full"] = [_train_full(dev, *run) for run in TRAIN_FULL]
+    t1 = time.perf_counter()
+    serve = _train_serve(dev)
+    launches = serve.pop("launches")
+    summary.update(serve=serve, serve_s=time.perf_counter() - t1,
+                   launches=launches, phase_s=time.perf_counter() - t0)
+    print("train: " + json.dumps(summary), flush=True)
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py  (takes no arguments; runs "
@@ -2444,6 +2719,7 @@ def main() -> int:
     assert not errors, errors
     frontend_paths, _ = _frontend_phase(dev)
     by_path.update(frontend_paths)
+    by_path["train_serve"] = _train_phase(dev)
 
     kernels = []
     for name, (source, replaces, library) in KERNELS.items():

@@ -170,11 +170,12 @@ def _scan_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _assoc_scan(a: torch.Tensor, b: torch.Tensor,
-                h0: torch.Tensor) -> torch.Tensor:
+                h0: Optional[torch.Tensor]) -> torch.Tensor:
     """Run h_t = a_t * h_{t-1} + b_t along dim 1 (time); returns every h_t.
     a, b: (B, T, ...) (``a`` broadcastable to ``b``); h0: (B, ...) the
-    initial state, folded into step 0."""
-    b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    initial state, folded into step 0 (None: a zero state)."""
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
     return _scan_b(a, b)
 
 
@@ -218,10 +219,13 @@ def _mamba1_abc(p, cfg: ModelConfig, xc: torch.Tensor):
     return dt, a, bmat, cmat
 
 
-def mamba1_prefill(p, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache
-                   ) -> Tuple[torch.Tensor, SSMCache]:
+def mamba1_prefill(p, cfg: ModelConfig, x: torch.Tensor,
+                   cache: Optional[SSMCache]
+                   ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """x: (B, T, dm). Writes the state after the last token into ``cache``
-    (fresh, or carrying the state to continue from)."""
+    (fresh, or carrying the state to continue from); ``cache`` None starts
+    from a zero state and keeps none (the training forward: writing a cache
+    the scan read would modify a tensor that autograd saved)."""
     bsz, t, _ = x.shape
     xin, z = _proj(x, p["in_proj"]).chunk(2, dim=-1)
     xc = F.silu(_causal_conv(xin, p["conv_w"], p["conv_b"]))
@@ -229,18 +233,21 @@ def mamba1_prefill(p, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache
     xf = xc.to(torch.float32)
     dtx = dt * xf
     y = torch.empty_like(xf)
-    h_last = torch.empty_like(cache.ssm_state)
+    h_last = None if cache is None else torch.empty_like(cache.ssm_state)
     for c in _blocks(cfg.d_inner, bsz * t * cfg.ssm_state * 4):
         decay = torch.exp(dt[..., c, None] * a[c])          # (B,T,c,N)
         contrib = dtx[..., c, None] * bmat[:, :, None, :]
-        h = _assoc_scan(decay, contrib, cache.ssm_state[:, c])
+        h = _assoc_scan(decay, contrib,
+                        None if cache is None else cache.ssm_state[:, c])
         y[..., c] = torch.einsum("btdn,btn->btd", h, cmat)
-        h_last[:, c] = h[:, -1]
+        if cache is not None:
+            h_last[:, c] = h[:, -1]
         del decay, contrib, h
     y = y + p["d_skip"] * xf
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
     out = _proj(y, p["out_proj"])
-    _write_state(cache, _conv_tail(xin, cfg.ssm_conv), h_last, t, None)
+    if cache is not None:
+        _write_state(cache, _conv_tail(xin, cfg.ssm_conv), h_last, t, None)
     return out, cache
 
 
@@ -275,8 +282,11 @@ def _mamba2_split(cfg: ModelConfig, proj: torch.Tensor):
             proj[..., 2 * di + 2 * n:])
 
 
-def mamba2_prefill(p, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache
-                   ) -> Tuple[torch.Tensor, SSMCache]:
+def mamba2_prefill(p, cfg: ModelConfig, x: torch.Tensor,
+                   cache: Optional[SSMCache]
+                   ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+    """As :func:`mamba1_prefill` (``cache`` None: a zero state, none
+    kept)."""
     bsz, t, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
     hh, pd = cfg.ssm_heads, cfg.ssm_head_dim
@@ -292,19 +302,23 @@ def mamba2_prefill(p, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache
     decay = torch.exp(dt * a)[..., None, None]              # (B,T,H,1,1)
     dtx = dt[..., None] * xh                                # (B,T,H,P)
     y = torch.empty_like(xh)
-    h_last = torch.empty_like(cache.ssm_state)
+    h_last = None if cache is None else torch.empty_like(cache.ssm_state)
     for c in _blocks(hh, bsz * t * pd * n * 4):
         contrib = dtx[:, :, c, :, None] * bmat[:, :, None, None, :]
-        h = _assoc_scan(decay[:, :, c], contrib, cache.ssm_state[:, c])
+        h = _assoc_scan(decay[:, :, c], contrib,
+                        None if cache is None else cache.ssm_state[:, c])
         y[:, :, c] = torch.einsum("bthpn,btn->bthp", h, cmat)
-        h_last[:, c] = h[:, -1]
+        if cache is not None:
+            h_last[:, c] = h[:, -1]
         del contrib, h
     y = y + p["d_skip"][:, None] * xh
     y = y.reshape(bsz, t, di)
     y = rmsnorm(p["gate_norm"],
                 (y * F.silu(z.to(torch.float32))).to(x.dtype), cfg.norm_eps)
     out = _proj(y, p["out_proj"])
-    _write_state(cache, _conv_tail(conv_in, cfg.ssm_conv), h_last, t, None)
+    if cache is not None:
+        _write_state(cache, _conv_tail(conv_in, cfg.ssm_conv), h_last, t,
+                     None)
     return out, cache
 
 
@@ -337,7 +351,8 @@ def mamba2_decode(p, cfg: ModelConfig, x1: torch.Tensor, cache: SSMCache,
     return out, cache
 
 
-def mamba_prefill(p, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache):
+def mamba_prefill(p, cfg: ModelConfig, x: torch.Tensor,
+                  cache: Optional[SSMCache]):
     fn = mamba1_prefill if cfg.ssm_version == 1 else mamba2_prefill
     return fn(p, cfg, x, cache)
 

@@ -1,6 +1,7 @@
-"""Top-level model of the port: init, quantization, prefill and the
-continuous-batching decode for every block kind of the JAX package (torch
-twin of ``repro/models/model.py``), under DyMoE mixed precision.
+"""Top-level model of the port: init, quantization, the training forward
+and loss, prefill and the continuous-batching decode for every block kind
+of the JAX package (torch twin of ``repro/models/model.py``), under DyMoE
+mixed precision on the inference paths.
 
 Per-layer parameters are STACKED with a leading L dim, as in the JAX
 package; a Python loop over the layers takes the place of ``lax.scan``.
@@ -45,6 +46,7 @@ import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.importance import heavy_hitter_mask, \
     prefill_expert_importance, prefill_expert_importance_rows, \
@@ -64,10 +66,11 @@ from repro_torch.models.layers.rotary import sinusoidal_embedding
 from repro_torch.models.layers.ssm import init_mamba, init_ssm_cache, \
     mamba_decode, mamba_prefill
 from repro_torch.quant.qtensor import MixedPrecisionWeights
+from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "quantize_model", "prefill", "decode_step",
-           "decode_many", "decode_many_batched", "init_decode_state",
-           "DyMoEInfo"]
+__all__ = ["init_params", "quantize_model", "forward", "loss_fn",
+           "train_step_fn", "prefill", "decode_step", "decode_many",
+           "decode_many_batched", "init_decode_state", "DyMoEInfo"]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -75,10 +78,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.sliding_window or cfg.moe_dispatch_shards > 1:
+    if cfg.sliding_window or cfg.moe_dispatch_shards > 1 \
+            or cfg.act_seq_shard:
         raise NotImplementedError(
-            f"{cfg.name}: sliding-window ring caches and sharded MoE "
-            "dispatch are not ported yet")
+            f"{cfg.name}: sliding-window ring caches, sharded MoE dispatch "
+            "and the sequence-sharded residual are not ported yet")
 
 
 def _index_tree(tree, i):
@@ -346,6 +350,113 @@ def _shared_block_decode(params, cfg: ModelConfig, x: torch.Tensor,
                             live=live)
     x = x + a
     return x + mlp(sp["mlp"], cfg, rmsnorm(sp["norm2"], x, cfg.norm_eps))
+
+
+# ------------------------------------------------------- train forward
+
+
+def _unbind_layers(tree, n: int) -> List[dict]:
+    """The n per-layer trees of a stacked parameter tree, through one
+    ``unbind`` a leaf: its backward stacks every layer's grad at once,
+    where indexing a layer would add a zero gradient of the full stack
+    for each layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: parts[k][l] for k in tree} for l in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _train_block(params, cfg: ModelConfig, kind: str, shared: bool,
+                 lp: dict, x: torch.Tensor, aux: torch.Tensor):
+    """One layer of :func:`forward` (the hybrid's shared block first
+    where it runs); returns (x, aux)."""
+    if shared:
+        x = _shared_block_train(params, cfg, x)[0]
+    if kind == "ssm":
+        # a fresh zero state a call, as the reference's init_ssm_cache
+        y, _ = mamba_prefill(lp["ssm"], cfg,
+                             rmsnorm(lp["norm1"], x, cfg.norm_eps), None)
+        return x + y, aux
+    a, _, _ = attention_train(lp["attn"], cfg,
+                              rmsnorm(lp["norm1"], x, cfg.norm_eps))
+    x = x + a
+    h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    if kind == "attn_dense":
+        return x + mlp(lp["mlp"], cfg, h), aux
+    b, s, _ = h.shape
+    # moe_apply_sharded with moe_dispatch_shards <= 1 (the only case
+    # ported) is moe_apply over the float experts
+    y, stats = moe_apply(lp["moe"], cfg, h.reshape(b * s, -1))
+    return x + y.reshape(b, s, -1), aux + stats.aux_loss
+
+
+def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            *, embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward. Returns (logits (B,S,V) f32, aux_loss scalar: the
+    MoE router losses summed over the layers). ``cfg.remat == "block"``
+    recomputes each block in the backward pass (``jax.checkpoint``'s
+    counterpart, non-reentrant activation checkpointing)."""
+    _check_supported(cfg)
+    x = _embed(params, cfg, tokens, embeds)
+    kind = cfg.block_kinds()[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = _unbind_layers(params["layers"], cfg.num_layers)
+    for lp, shared in zip(layers, _shared_flags(cfg)):
+        if cfg.remat == "block":
+            x, aux = checkpoint(_train_block, params, cfg, kind, shared, lp,
+                                x, aux, use_reentrant=False)
+        else:
+            x, aux = _train_block(params, cfg, kind, shared, lp, x, aux)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _lm_head(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked mean next-token NLL plus the router losses; returns (loss,
+    {"ce", "aux"}). ``batch``: "tokens" (or "embeds"), "labels", and an
+    optional "loss_mask"."""
+    logits, aux = forward(params, cfg, batch.get("tokens"),
+                          embeds=batch.get("embeds"))
+    labels = batch["labels"].to(torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def train_step_fn(cfg: ModelConfig, optimizer):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "ce", "aux"})``: the grads of :func:`loss_fn` over every
+    param leaf by ``torch.autograd.grad``, then ``optimizer.update``. The
+    params given are not modified."""
+
+    def step(params, opt_state, batch):
+        leaves: List[torch.Tensor] = []
+
+        def track(p):
+            leaves.append(p.detach().requires_grad_(True))
+            return leaves[-1]
+
+        with torch.enable_grad():
+            loss, metrics = loss_fn(tree_map(track, params), cfg, batch)
+            found = iter(torch.autograd.grad(loss, leaves,
+                                             allow_unused=True))
+
+        def grad_of(p):
+            # a leaf the loss does not reach: the zero grad jax.grad gives
+            g = next(found)
+            return torch.zeros_like(p) if g is None else g
+
+        grads = tree_map(grad_of, params)
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, dict(metrics, loss=loss.detach())
+
+    return step
 
 
 @dataclasses.dataclass

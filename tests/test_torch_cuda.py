@@ -24,12 +24,16 @@ prefill for every block family, and its pool and bound
 ``generate_reference`` and the static batch against eager, greedy,
 sampled and per row (``test_cuda_compiled_decode_many_*``), and two
 replicas of one engine on driver threads capturing while they step
-(``test_cuda_threaded_replicas_*``).
+(``test_cuda_threaded_replicas_*``); and the training path: train steps on
+the card against the CPU, a checkpoint of CUDA tensors
+(``test_cuda_train_*``, ``test_cuda_checkpoint_*``).
 (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 Every test skips (and says why) where there is no GPU."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -1224,3 +1228,65 @@ def test_cuda_threaded_replicas_capture_while_stepping():
     assert {h.replica for h in handles} == {0, 1}
     assert eng._decode_batched.compiles > 0 and eng._prefill.compiles > 0
     assert health.completed == len(reqs)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "zamba2_1p2b"])
+def test_cuda_train_steps_equal_cpu(arch):
+    """Three train steps (``train_step_fn``, AdamW lr 1e-2) of the reduced
+    f32 config on the card and on the CPU from the same params and
+    batches, TF32 off: each step's loss, ce and aux at rtol 1e-4 (losses,
+    not params: Adam's first steps are near lr · sign(g), and a grad near
+    zero may take another sign on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.models.model import init_params, train_step_fn
+    from repro_torch.training import AdamW, constant_lr
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = _need_cuda()
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = AdamW(lr=constant_lr(1e-2), weight_decay=0.01)
+    step = train_step_fn(cfg, opt)
+    runs = {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda x: x.to(d), params)
+        state, hist = opt.init(p), []
+        for b in itertools.islice(synthetic_lm_batches(DataConfig(
+                4, 32, cfg.vocab_size)), 3):
+            p, state, m = step(p, state, {k: torch.as_tensor(v, device=d)
+                                          for k, v in b.items()})
+            hist.append({k: float(v) for k, v in m.items()})
+        runs[str(d)] = hist
+        assert all(x.device.type == torch.device(d).type
+                   for x in tree_leaves(p))
+    for c, g in zip(runs["cpu"], runs[str(dev)]):
+        for k in ("loss", "ce", "aux"):
+            assert g[k] == pytest.approx(c[k], rel=1e-4, abs=1e-7), (k, c, g)
+
+
+def test_cuda_checkpoint_bf16_round_trip(tmp_path):
+    """A tree of CUDA tensors (bf16, f32, int32) through ``save_checkpoint``
+    and back into a CUDA template: bit for bit, same dtypes, on the card;
+    ``TrainLoop`` with no device trains on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import TrainLoop, TrainLoopConfig, \
+        latest_step, load_checkpoint, save_checkpoint
+    from repro_torch.tree import tree_map, tree_paths
+
+    dev = _need_cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn(3, 5, generator=g, device=dev).to(
+        torch.bfloat16), "b": {"s": torch.randn(7, generator=g, device=dev)},
+        "n": torch.arange(4, dtype=torch.int32, device=dev)}
+    save_checkpoint(str(tmp_path), 2, tree)
+    back, step = load_checkpoint(str(tmp_path), latest_step(str(tmp_path)),
+                                 tree_map(torch.empty_like, tree))
+    assert step == 2
+    for k, v in tree_paths(tree).items():
+        r = tree_paths(back)[k]
+        assert r.dtype == v.dtype and r.device == v.device
+        assert torch.equal(r.view(torch.uint8), v.view(torch.uint8)), k
+    loop = TrainLoop(get_config("olmoe_1b_7b").reduced(),
+                     TrainLoopConfig(steps=2, log_every=1))
+    assert loop.params["embed"].device.type == "cuda"

@@ -65,6 +65,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      prefill key the engine captured and kept replayed once under
      torch.profiler: its
      K1/K2 kernels by symbol must equal its counted launches;
+  4b. window — sliding-window ring caches at the reference's 8,192-token
+     window (``window:`` line; ``_window_phase``): reduced f32 windowed
+     OLMoE, qwen3_0p6b and zamba2_1p2b card == CPU; on the serve phase's
+     weights, full-width OLMoE-1B-7B ("4/2", 4 slots, 16-step chunks):
+     the prefill gate on a 9,000-token solo admission, the ring
+     decode-chunk gate (replay == eager bitwise under
+     ``set_sync_debug_mode("error")``, the ring wrapping mid-chunk), and
+     prompts of 9,000, 8,600, 8,160 and 2,000 tokens + 48 through
+     ``generate_batch`` (ring positions after every admission; K1 48 a
+     decode step, K2 48 a solo admission, exactly); then full-width
+     qwen3_0p6b with the window, 2 × (9,000 + 48), K2 84 a step;
   5. archs — full-width qwen3_0p6b (28 layers), zamba2_1p2b (38 layers,
      7 shared-attention sites) and falcon_mamba_7b (64 layers), "4/2":
      a 512-token eager prefill on the new engine, then 6 ragged
@@ -1900,6 +1911,7 @@ def _arch_gate(engine) -> dict:
 
     import numpy as np
     import torch
+    from repro_torch.models.kv_cache import cache_tensors
     from repro_torch.models.model import decode_many_batched, prefill
     from torch.profiler import ProfilerActivity, profile
 
@@ -1916,11 +1928,10 @@ def _arch_gate(engine) -> dict:
     state = compiled.acquire(b, slots)
     ref = {}
     for part, c in rc.items():
-        fields = [f.name for f in dataclasses.fields(c)]
         ref[part] = dataclasses.replace(
-            c, **{f: getattr(c, f).clone() for f in fields})
-        for f in fields:
-            getattr(state.caches[part], f).copy_(getattr(c, f))
+            c, **{f: t.clone() for f, t in cache_tensors(c)})
+        for f, t in cache_tensors(c):
+            getattr(state.caches[part], f).copy_(t)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     host = dict(done=np.array([False, False, False, True]),
                 n_emitted=np.ones(b, np.int32),
@@ -1953,9 +1964,9 @@ def _arch_gate(engine) -> dict:
         assert torch.equal(got.done, dn) and \
             torch.equal(got.n_emitted, emitted)
         for part, cache in ref.items():
-            for f in dataclasses.fields(cache):
-                assert torch.equal(getattr(state.caches[part], f.name),
-                                   getattr(cache, f.name)), (part, f.name)
+            for f, t in cache_tensors(cache):
+                assert torch.equal(getattr(state.caches[part], f), t), \
+                    (part, f)
         if c == 0:
             rec["first_call_s"] = t2 - t1        # capture and one replay
         elif c == 1:
@@ -1987,10 +1998,357 @@ def _arch_gate(engine) -> dict:
     assert host["done"][2] and not host["done"][0]
     compiled.release(state)
     rec.update(caches=sorted(ref), state_bytes=sum(
-                   getattr(c, f.name).numel()
-                   * getattr(c, f.name).element_size()
-                   for c in ref.values() for f in dataclasses.fields(c)))
+                   t.numel() * t.element_size()
+                   for c in ref.values() for _, t in cache_tensors(c)))
     return rec
+
+
+# ------------------------------------------------------------------ window
+
+# the reference's long-context window (src/repro/launch/dryrun.py,
+# LONG_CONTEXT_WINDOW): every attention layer's cache a ring of 8192 slots
+WINDOW = 8192
+# 9000 and 8600: the prefill keeps only the last 8192 keys; 8160: the ring
+# wraps mid-decode; 2000: it never wraps
+WINDOW_PROMPTS = (9000, 8600, 8160, 2000)
+WINDOW_NEW = 48
+# the dense model's two requests
+WINDOW_DENSE_PROMPT = 9000
+
+
+def _ring_expected(length: int, w: int) -> list:
+    """The positions a ring of ``w`` slots holds after ``length`` tokens:
+    position p at slot p % w for the last min(length, w), else -1."""
+    exp = [-1] * w
+    for p in range(max(0, length - w), length):
+        exp[p % w] = p
+    return exp
+
+
+def _admission_check(checked: list):
+    """A wrapper of the scheduler's ``_inject_rows`` that, after each
+    admission, holds every injected row's positions (all layers) to
+    ``_ring_expected`` of its length, and appends (length, rows ok)."""
+    import torch
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    inner = ContinuousBatchingScheduler._inject_rows
+
+    def check(self, rc, src, dst):
+        inner(self, rc, src, dst)
+        pos = self._state.caches["layers"].positions      # (L, B, W)
+        w = pos.shape[-1]
+        for d in dst.tolist():
+            length = int(self._state.caches["layers"].length[0, d])
+            want = torch.tensor(_ring_expected(length, w), dtype=pos.dtype,
+                                device=pos.device)
+            assert torch.equal(pos[:, d], want.expand_as(pos[:, d])), \
+                f"slot {d}: ring positions after a {length}-token admission"
+            checked.append(length)
+    return inner, check
+
+
+def _ring_gate(engine) -> dict:
+    """The compiled decode chunk on ring caches at full width: 4 rows of
+    8184-token prompts prefilled into rings of ``WINDOW`` slots (one row
+    dead, one reaching its limit in the second chunk), then three 16-step
+    chunks by eager ``decode_many_batched`` on a copy of the state and by
+    the engine's compiled chunk on the state itself; the ring wraps inside
+    the first chunk. The first call captures; the second replays under
+    ``set_sync_debug_mode("error")``, both timed; the third replays under
+    torch.profiler (device busy, K1 kernels = 3 x L x 16). Tokens,
+    Critical/active masks, done, emitted and every cache leaf bitwise."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.kv_cache import cache_tensors
+    from repro_torch.models.model import decode_many_batched, prefill
+
+    cfg, dev = engine.cfg, engine.device
+    b, s, steps, chunks = 4, WINDOW - 8, 16, 3
+    prompts = torch.randint(1, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(9))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, rc, _ = prefill(engine.params, cfg, prompts,
+                            qparams=engine.qparams)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    compiled = engine._decode_batched
+    state = compiled.acquire(b, WINDOW)
+    assert rc["layers"].ring and state.caches["layers"].ring
+    ref = {"layers": dataclasses.replace(rc["layers"], **{
+        f: x.clone() for f, x in cache_tensors(rc["layers"])})}
+    state.load(rc)
+    del rc
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    host = dict(done=np.array([False, False, False, True]),
+                n_emitted=np.ones(b, np.int32),
+                limits=np.array([64, 64, 24, 64], np.int32),
+                eos_tokens=np.full(b, -1, np.int32))
+    rec = dict(prompt=s, prefill_s=prefill_s)
+    for c in range(chunks):
+        kw = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = decode_many_batched(
+            engine.params, cfg, tok.clone(), ref, num_steps=steps,
+            done=kw["done"], n_emitted=kw["n_emitted"], limits=kw["limits"],
+            eos_tokens=kw["eos_tokens"], qparams=engine.qparams, live_cap=4)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if c < 2:
+            if c == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = compiled(state, tok, num_steps=steps, live_cap=4,
+                               **host)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        else:
+            res = {}
+            kernels = _trace(lambda: res.setdefault("got", compiled(
+                state, tok, num_steps=steps, live_cap=4, **host)))
+            got = res["got"]
+        t2 = time.perf_counter()
+        toks, _, info, dn, emitted = want
+        assert torch.equal(got.tokens, toks), \
+            f"ring chunk {c}: graph tokens != eager tokens"
+        for f in ("critical_masks", "active_masks"):
+            assert torch.equal(getattr(got.info, f), getattr(info, f)), f
+        assert torch.equal(got.done, dn) and \
+            torch.equal(got.n_emitted, emitted)
+        for f, x in cache_tensors(ref["layers"]):
+            assert torch.equal(getattr(state.caches["layers"], f), x), (c, f)
+        if c == 0:
+            rec["first_call_s"] = t2 - t1         # capture and one replay
+        elif c == 1:
+            rec.update(eager_ms_per_step=(t1 - t0) * 1e3 / steps,
+                       graph_ms_per_step=(t2 - t1) * 1e3 / steps)
+        else:
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            k1 = sum(e.count for e in kernels
+                     if SYMBOLS["expert_quant_matmul_grouped"] in e.key)
+            assert k1 == 3 * cfg.num_layers * steps, k1
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            # idle share against the second chunk's untraced replay
+            rec.update(replay_device_busy_ms_per_step=busy / steps,
+                       replay_idle_share=1 - busy / (
+                           rec["graph_ms_per_step"] * steps),
+                       kernels_per_step=sum(e.count for e in kernels) / steps,
+                       k1_kernels_per_replay=k1,
+                       top_kernels=[dict(name=e.key[:60], count=e.count,
+                                         ms=e.self_device_time_total / 1e3)
+                                    for e in top[:6]])
+        tok = got.tokens[-1].clone()
+        host.update(done=got.done.cpu().numpy(),
+                    n_emitted=got.n_emitted.cpu().numpy())
+    assert host["done"][2] and not host["done"][0]
+    pos = state.caches["layers"].positions[0, 0].tolist()
+    assert sorted(pos) == list(range(s + chunks * steps - WINDOW,
+                                     s + chunks * steps)), "ring positions"
+    compiled.release(state)
+    rec["wrapped_at_step"] = WINDOW - s
+    return rec
+
+
+def _window_serve(engine, reqs, by_rows: int, admissions: list) -> tuple:
+    """``generate_batch`` of ``reqs`` on ``by_rows`` slots three times: the
+    first (warm: captures the chunk keys, meets the prefill keys) with
+    every admission's ring positions checked (``_admission_check``), the
+    second captures the prefill keys, the third is counted (launch
+    counters reset just before, read just after). Returns (results,
+    launches, stats, walls)."""
+    import torch
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+
+    walls = []
+    inner, check = _admission_check(admissions)
+    ContinuousBatchingScheduler._inject_rows = check
+    try:
+        t0 = time.perf_counter()
+        warm = engine.generate_batch(reqs, num_slots=by_rows)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    finally:
+        ContinuousBatchingScheduler._inject_rows = inner
+    t0 = time.perf_counter()
+    second = engine.generate_batch(reqs, num_slots=by_rows)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    km.reset_launch_counts()                       # this path starts here
+    t0 = time.perf_counter()
+    out = engine.generate_batch(reqs, num_slots=by_rows)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    launches = dict(km.LAUNCHES)                   # this path ends here
+    stats = dict(engine.last_stats)
+    assert [r.tokens for r in out] == [r.tokens for r in warm] == \
+        [r.tokens for r in second]
+    assert stats["compiles"] == 0 == stats["prefill_compiles"], stats
+    assert stats["waves_batched"] == 0, stats      # a ring admits solo
+    for r, q in zip(out, reqs):
+        assert len(r.tokens) == q.max_new_tokens
+        assert all(0 <= v < engine.cfg.vocab_size for v in r.tokens)
+    return out, launches, stats, walls
+
+
+def _window_reduced(dev) -> list:
+    """Reduced f32 OLMoE ("4/2"), qwen3_0p6b and zamba2_1p2b with an
+    8-token window on the card against the plain path on the CPU:
+    ``generate_batch`` (prompts of 20 and 8 tokens, 2 slots, so every ring
+    wraps) and ``generate_reference`` tokens and modeled numbers equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, Request
+
+    modeled = ("ttft_s", "tpot_s", "cache_stats", "prefill_weight_bytes",
+               "decode_weight_bytes_per_tok")
+    rows = []
+    for arch in ("olmoe_1b_7b", "qwen3_0p6b", "zamba2_1p2b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  sliding_window=8)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(6)
+        reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+            1, cfg.vocab_size, s)], max_new_tokens=m)
+            for s, m in ((20, 9), (8, 6), (20, 3))]
+        engines = [DyMoEEngine(cfg, params, device=d) for d in ("cpu", dev)]
+        for name, run in (
+                ("generate_batch",
+                 lambda e: e.generate_batch(reqs, num_slots=2)),
+                ("generate_reference",
+                 lambda e: [e.generate_reference(reqs[0])])):
+            cpu, gpu = (run(e) for e in engines)
+            ct, gt = [r.tokens for r in cpu], [r.tokens for r in gpu]
+            assert gt == ct, f"window {arch} {name}: card {gt} != CPU {ct}"
+            for i, (c, g) in enumerate(zip(cpu, gpu)):
+                for f in modeled:
+                    assert getattr(g, f) == getattr(c, f), \
+                        f"window {arch} {name} request {i} {f}"
+        rows.append(dict(arch=arch, tokens=sum(map(len, ct)),
+                         card_equals_cpu=True))
+    return rows
+
+
+def _window_phase(engine) -> dict:
+    """Sliding-window ring caches (``window:`` line). (a) Reduced f32
+    windowed OLMoE, qwen3_0p6b and zamba2_1p2b, card == CPU
+    (``_window_reduced``). (b) Full-width OLMoE-1B-7B ("4/2", the serve
+    phase's weights and codes) with a ``WINDOW``-token window, 4 slots,
+    16-step chunks: the prefill graph gate on a 9000-token solo admission
+    (its ring keeps the last 8192 keys; eager == replay bitwise), the ring
+    decode-chunk gate (``_ring_gate``), then ``WINDOW_PROMPTS`` + 48 new
+    tokens each through ``generate_batch`` (``_window_serve``: ring
+    positions after every admission, K1 = 48 a decode step and K2 = 48 a
+    solo admission, exactly). (c) Full-width qwen3_0p6b with the same
+    window: 2 requests of 9000 + 48 on 2 slots, K2 = 84 a step and a
+    prefill. Returns the counted K1/K2 launches of (b) and (c) by path."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, EngineConfig, Request
+
+    t_phase = time.perf_counter()
+    summary = dict(window=WINDOW, reduced=_window_reduced(engine.device))
+    summary["reduced_s"] = time.perf_counter() - t_phase
+    dev = engine.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(engine.cfg, sliding_window=WINDOW)
+    L = cfg.num_layers
+    eng = DyMoEEngine(cfg, engine.params, EngineConfig(decode_chunk=16),
+                      device=dev, qparams=engine.qparams)
+    rng = np.random.default_rng(21)
+    n = WINDOW_PROMPTS[0]
+    gate = _prefill_gate(eng, f"olmoe_1b_7b window solo {n}",
+                         rng.integers(1, cfg.vocab_size, (1, n)), {}, WINDOW)
+    assert not gate["launch_error"], gate["launch_error"]
+    ring = _ring_gate(eng)
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, cfg.vocab_size, n)], max_new_tokens=WINDOW_NEW)
+        for n in WINDOW_PROMPTS]
+    admissions = []
+    out, launches, stats, walls = _window_serve(eng, reqs, 4, admissions)
+    assert sorted(admissions) == sorted(WINDOW_PROMPTS), admissions
+    k1, k2 = (launches[k] for k in ("expert_quant_matmul_grouped",
+                                    "expert_quant_matmul"))
+    assert k1 == 3 * L * stats["decode_steps"], (k1, stats)
+    assert k2 == 3 * L * stats["waves_solo"] and stats["waves_solo"] == 4, \
+        (k2, stats)
+    states = eng._decode_batched.states()
+    assert [(st.num_slots, st.slots_len) for st in states] == \
+        [(4, WINDOW)], [(st.num_slots, st.slots_len) for st in states]
+    peak = torch.cuda.max_memory_allocated()
+    kv = states[0].caches["layers"]
+    summary["olmoe"] = dict(
+        prompts=list(WINDOW_PROMPTS), new_tokens=[len(r.tokens) for r in out],
+        serve_walls_s=dict(warm=walls[0], second=walls[1], counted=walls[2]),
+        batch=stats, k1_per_decode_step=3 * L, k2_per_admission=3 * L,
+        k1_launches=k1, k2_launches=k2,
+        decode_wall_ms_per_token=[r.decode_wall_s * 1e3
+                                  / (len(r.tokens) - 1) for r in out],
+        modeled_edge_ttft_s=[r.ttft_s for r in out],
+        modeled_edge_tpot_s=[r.tpot_s for r in out],
+        admissions_checked=sorted(admissions), ring_gate=ring,
+        prefill_gate=gate,
+        state_kv_gib=(kv.k.numel() * kv.k.element_size() * 2) / 2**30,
+        max_memory_allocated_gib=peak / 2**30,
+        above_start_gib=(peak - base) / 2**30,
+        prefill_engine=_prefill_engine("olmoe_1b_7b window", eng._prefill))
+    by_path = {"window": launches}
+    del eng, out, states, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dcfg = dataclasses.replace(get_config("qwen3_0p6b"), sliding_window=WINDOW)
+    t0 = time.perf_counter()
+    params = init_params(dcfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    deng = DyMoEEngine(dcfg, params, EngineConfig(decode_chunk=16),
+                       device=dev)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    dreqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, dcfg.vocab_size, WINDOW_DENSE_PROMPT)], max_new_tokens=WINDOW_NEW)
+        for _ in range(2)]
+    admissions = []
+    out, launches, stats, walls = _window_serve(deng, dreqs, 2, admissions)
+    assert admissions == [WINDOW_DENSE_PROMPT] * 2, admissions
+    per_step = 3 * dcfg.num_layers
+    k2 = launches["expert_quant_matmul"]
+    assert launches["expert_quant_matmul_grouped"] == 0, launches
+    assert k2 == per_step * (stats["decode_steps"] + stats["waves_solo"]), \
+        (k2, stats)
+    summary["qwen3_0p6b"] = dict(
+        init_quantize_s=init_s, prompts=[WINDOW_DENSE_PROMPT] * 2,
+        new_tokens=[len(r.tokens) for r in out],
+        serve_walls_s=dict(warm=walls[0], second=walls[1], counted=walls[2]),
+        batch=stats, k2_per_step=per_step, k2_launches=k2,
+        decode_wall_ms_per_token=[r.decode_wall_s * 1e3
+                                  / (len(r.tokens) - 1) for r in out],
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    by_path["window_dense"] = launches
+    del deng
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print("window: " + json.dumps(summary), flush=True)
+    return by_path
 
 
 # ---------------------------------------------------------------- frontend
@@ -2079,6 +2437,7 @@ def _decode_many_gate(engine) -> dict:
 
     import torch
     from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.models.kv_cache import cache_tensors
     from repro_torch.models.model import decode_many, prefill
 
     cfg, dev = engine.cfg, engine.device
@@ -2087,8 +2446,7 @@ def _decode_many_gate(engine) -> dict:
     logits, rc, _ = prefill(engine.params, cfg, prompt,
                             qparams=engine.qparams, cache_slots=slots)
     ref = {"layers": dataclasses.replace(rc["layers"], **{
-        f.name: getattr(rc["layers"], f.name).clone()
-        for f in dataclasses.fields(rc["layers"])})}
+        f: t.clone() for f, t in cache_tensors(rc["layers"])})}
     cm = engine._decode_many
     with engine.lock:
         state = cm.acquire(1, slots, caches=rc)
@@ -2120,9 +2478,8 @@ def _decode_many_gate(engine) -> dict:
                       "predicted_next"):
                 assert torch.equal(getattr(out.info, f),
                                    getattr(want_i, f)), (call, f)
-            for f in dataclasses.fields(ref["layers"]):
-                assert torch.equal(getattr(state.caches["layers"], f.name),
-                                   getattr(ref["layers"], f.name)), f.name
+            for f, t in cache_tensors(ref["layers"]):
+                assert torch.equal(getattr(state.caches["layers"], f), t), f
             tok = out.tokens[-1].clone()
     finally:
         with engine.lock:
@@ -2708,6 +3065,7 @@ def main() -> int:
     by_path = {"serve": serve_launches, "session": _session_phase(engine),
                "generate_reference": _reference_full(engine)}
     olmoe = _prefill_olmoe(engine)
+    by_path.update(_window_phase(engine))
     del engine
     arch_paths, archs = _serve_archs(dev)
     by_path.update(arch_paths)

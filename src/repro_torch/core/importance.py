@@ -17,8 +17,8 @@ from typing import Tuple
 import torch
 
 __all__ = ["stable_topk", "heavy_hitter_mask", "prefill_expert_importance",
-           "prefill_expert_importance_rows", "select_critical",
-           "select_critical_rows"]
+           "prefill_expert_importance_rows", "decode_expert_importance",
+           "select_critical", "select_critical_rows"]
 
 
 def stable_topk(x: torch.Tensor, k: int
@@ -67,6 +67,12 @@ def select_critical_rows(importance: torch.Tensor, t_l: int) -> torch.Tensor:
     ar = torch.arange(e, device=importance.device).expand_as(order)
     rank.scatter_(-1, order, ar)
     return rank < t_l
+
+
+def decode_expert_importance(gate_scores: torch.Tensor) -> torch.Tensor:
+    """Eq. (3): importance = gate score. gate_scores: (E,) — for batched
+    decode the caller averages gates over the batch first."""
+    return gate_scores
 
 
 def select_critical(importance: torch.Tensor, t_l: int) -> torch.Tensor:

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.core.importance import stable_topk
 
-__all__ = ["predict_next_gates", "prefetch_targets"]
+__all__ = ["predict_next_gates", "prefetch_targets", "layer_similarity"]
 
 
 def predict_next_gates(h: torch.Tensor, next_router_w: torch.Tensor
@@ -40,3 +40,14 @@ def prefetch_targets(pred_gates: torch.Tensor, k: int, t: int,
     freq = oh.sum(dim=(-3, -2)) + mass * 0.5
     _, top = stable_topk(freq, min(t, e))
     return top, freq
+
+
+def layer_similarity(h_l: torch.Tensor, h_next: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity between adjacent-layer activations (paper Fig. 6):
+    the mean over tokens of each token's cosine, 0-d f32."""
+    a = h_l.to(torch.float32).reshape(-1, h_l.shape[-1])
+    b = h_next.to(torch.float32).reshape(-1, h_next.shape[-1])
+    num = (a * b).sum(dim=-1)
+    den = torch.linalg.vector_norm(a, dim=-1) \
+        * torch.linalg.vector_norm(b, dim=-1) + 1e-9
+    return (num / den).mean()

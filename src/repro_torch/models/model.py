@@ -78,11 +78,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.sliding_window or cfg.moe_dispatch_shards > 1 \
-            or cfg.act_seq_shard:
+    if cfg.moe_dispatch_shards > 1 or cfg.act_seq_shard:
         raise NotImplementedError(
-            f"{cfg.name}: sliding-window ring caches, sharded MoE dispatch "
-            "and the sequence-sharded residual are not ported yet")
+            f"{cfg.name}: sharded MoE dispatch and the sequence-sharded "
+            "residual are not ported yet")
 
 
 def _index_tree(tree, i):
@@ -544,18 +543,21 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
         positions = torch.clamp(idx - offsets[:, None], min=0)   # (B, S)
     x = _embed(params, cfg, tokens, embeds, positions)
     dt = _dtype(cfg)
-    slots = cache_slots or max(s, cfg.max_seq_len)
+    slots = cache_slots or (cfg.sliding_window or max(s, cfg.max_seq_len))
+    ring = cfg.sliding_window is not None and slots == cfg.sliding_window
+    assert lengths is None or not ring, \
+        "ragged prefill unsupported with sliding-window ring caches"
     if kind == "ssm":
         caches = {"layers": init_ssm_cache(cfg, b, dt, dev,
                                            layers=cfg.num_layers)}
     else:
         caches = {"layers": init_kv_cache(b, cfg.num_kv_heads, slots,
                                           cfg.head_dim, dt, dev,
-                                          layers=cfg.num_layers)}
+                                          layers=cfg.num_layers, ring=ring)}
     if hybrid:
         caches["shared"] = init_kv_cache(b, cfg.num_kv_heads, slots,
                                          cfg.head_dim, dt, dev,
-                                         layers=_n_sites(cfg))
+                                         layers=_n_sites(cfg), ring=ring)
     dymoe_on = qparams is not None and cfg.dymoe.enabled
     if kind == "attn_moe":
         x, info = _prefill_moe(params, cfg, x, caches["layers"],
@@ -708,23 +710,27 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None) -> Dict[str, Any]:
-    """Fresh stacked caches sized for ``seq_len`` context (``device``
-    None means CUDA); an SSM state does not depend on ``seq_len``, the
-    hybrid's shared-site KV caches do."""
+    """Fresh stacked caches sized for ``seq_len`` context, ring-buffered
+    to the sliding window when one is configured (``device`` None means
+    CUDA); an SSM state does not depend on ``seq_len``, the hybrid's
+    shared-site KV caches do."""
     _check_supported(cfg)
     device = resolve_device(device)
     dt = _dtype(cfg)
+    slots = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+        else seq_len
+    ring = cfg.sliding_window is not None and slots == cfg.sliding_window
     if cfg.block_kinds()[0] == "ssm":
         caches = {"layers": init_ssm_cache(cfg, batch, dt, device,
                                            layers=cfg.num_layers)}
     else:
-        caches = {"layers": init_kv_cache(batch, cfg.num_kv_heads, seq_len,
+        caches = {"layers": init_kv_cache(batch, cfg.num_kv_heads, slots,
                                           cfg.head_dim, dt, device,
-                                          layers=cfg.num_layers)}
+                                          layers=cfg.num_layers, ring=ring)}
     if cfg.shared_attn_every:
-        caches["shared"] = init_kv_cache(batch, cfg.num_kv_heads, seq_len,
+        caches["shared"] = init_kv_cache(batch, cfg.num_kv_heads, slots,
                                          cfg.head_dim, dt, device,
-                                         layers=_n_sites(cfg))
+                                         layers=_n_sites(cfg), ring=ring)
     return caches
 
 

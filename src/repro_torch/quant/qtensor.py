@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.quant.quantize import quantize_tensor
+from repro_torch.quant.quantize import dequantize_tensor, quantize_tensor
 
 __all__ = ["QuantizedTensor", "MixedPrecisionWeights"]
 
@@ -31,6 +31,12 @@ class QuantizedTensor:
         packed, scales = quantize_tensor(w, bits, group_size)
         return cls(packed=packed, scales=scales, bits=bits,
                    group_size=group_size, k=w.shape[-2])
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """The dense (..., K, N) weight (tests and oracles only: the serving
+        paths run the codes through the kernels)."""
+        return dequantize_tensor(self.packed, self.scales, self.bits,
+                                 self.group_size, dtype)
 
     def index(self, i) -> "QuantizedTensor":
         """The slice ``[i]`` of every leading-stacked leaf (a layer)."""

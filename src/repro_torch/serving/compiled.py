@@ -42,7 +42,10 @@ CUDA graph and then replayed with one launch:
   key recurs across request lengths, and the engine keeps at most
   ``max_idle_states`` states that no session holds, dropping the least
   recently used with its graphs: memory stays bounded however the lengths
-  vary. Admission writes rows into a state in place.
+  vary. A config with a sliding window never gets a bucket above its
+  window W: its caches are rings of W slots (the token at position p in
+  slot p % W), so a state's slot count is the reference's min(slots_len,
+  W). Admission writes rows into a state in place.
 * **Launch counts.** A kernel wrapper counts on the host when it launches
   (``LAUNCHES``); during capture it records a launch without running it.
   So a capture's counts are taken back, kept as the key's per-replay
@@ -115,7 +118,7 @@ import torch
 from repro_torch.kernels.attn_scores import attn_scores as _attn
 from repro_torch.kernels.quant_matmul import expert_quant_matmul as _eqm
 from repro_torch.kernels.quant_matmul import quant_matmul as _qm
-from repro_torch.models.kv_cache import KVCache, SSMCache
+from repro_torch.models.kv_cache import KVCache, SSMCache, cache_tensors
 from repro_torch.models.model import DyMoEInfo, decode_many, \
     decode_many_batched, init_decode_state, prefill
 
@@ -180,8 +183,7 @@ class PrefillOut:
         """Every output tensor (None leaves left out)."""
         leaves = [self.logits]
         for part in sorted(self.caches):
-            c = self.caches[part]
-            leaves += [getattr(c, f.name) for f in dataclasses.fields(c)]
+            leaves += [t for _, t in cache_tensors(self.caches[part])]
         return leaves + [t for t in (getattr(self.info, f.name) for f in
                                      dataclasses.fields(self.info))
                          if t is not None]
@@ -197,10 +199,13 @@ class _Entry:
     inputs: Optional[Dict[str, torch.Tensor]] = None  # a prefill key's
 
 
-def slot_bucket(need: int, max_seq_len: int) -> int:
+def slot_bucket(need: int, max_seq_len: int,
+                window: Optional[int] = None) -> int:
     """The cache slots of a session whose requests need ``need``: the next
-    power of two, but no more than ``max(need, max_seq_len)``."""
-    return min(1 << max(need - 1, 0).bit_length(), max(need, max_seq_len))
+    power of two, but no more than ``max(need, max_seq_len)``, and no more
+    than a sliding ``window`` (whose ring of W slots serves any length)."""
+    bucket = min(1 << max(need - 1, 0).bit_length(), max(need, max_seq_len))
+    return min(bucket, window) if window else bucket
 
 
 class DecodeState:
@@ -245,8 +250,9 @@ class DecodeState:
         shapes) into the state's own caches."""
         for part, c in caches.items():
             mine = self.caches[part]
-            for f in dataclasses.fields(c):
-                getattr(mine, f.name).copy_(getattr(c, f.name))
+            assert getattr(mine, "ring", False) == getattr(c, "ring", False)
+            for name, t in cache_tensors(c):
+                getattr(mine, name).copy_(t)
 
 
 def _chunk_inputs(b: int, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -627,7 +633,9 @@ class CompiledPrefill:
         if tokens is not None:
             tokens = np.asarray(tokens)
         b, s = (tokens if tokens is not None else embeds).shape[:2]
-        key = (b, s, cache_slots or max(s, self._cfg.max_seq_len),
+        cfg = self._cfg
+        key = (b, s,
+               cache_slots or (cfg.sliding_window or max(s, cfg.max_seq_len)),
                row_local, lengths is not None, row_capacities is not None,
                None if embeds is None else embeds.dtype)
         entry = self._entries.get(key)

@@ -270,9 +270,10 @@ class DyMoEEngine:
         :meth:`submit` / :meth:`step` / :meth:`health` delegate to it.
 
         ``num_slots`` device slots (default 4); ``slots_len`` the per-slot
-        cache length (default ``cfg.max_seq_len``; rounded up to a power
-        of two), which a request's ``prompt_len + max_new_tokens`` must
-        fit; ``max_queue`` bounds the admission queue (a submit beyond it
+        cache length (default the config's sliding window, else
+        ``cfg.max_seq_len``; rounded up to a power of two, but never above
+        the window), which a request's ``prompt_len + max_new_tokens``
+        must fit unless a window's ring serves any length; ``max_queue`` bounds the admission queue (a submit beyond it
         raises a typed ``QueueFull``; None = unbounded); ``policy`` is
         ``"fifo"`` (default), ``"edf"`` or a ``SchedulingPolicy``
         (:mod:`repro_torch.serving.policy`).
@@ -338,7 +339,7 @@ class DyMoEEngine:
             request, rng_key, context="generate")
         sampling = temperature > 0.0
         s = request.prompt_len
-        slots = s + request.max_new_tokens
+        slots = cfg.sliding_window or (s + request.max_new_tokens)
         orch = self._make_orchestrator()
         eos = request.eos_token
         t0 = time.perf_counter()
@@ -475,7 +476,7 @@ class DyMoEEngine:
         limits = [r.max_new_tokens for r in requests]
         eos = [r.eos_token for r in requests]
         max_new = max(limits)
-        slots = s + max_new
+        slots = self.cfg.sliding_window or (s + max_new)
         t0 = time.perf_counter()
         with self.lock:
             out = self._prefill(prompts, cache_slots=slots,

@@ -62,8 +62,9 @@ readout. The replay runs after the lock is let go.
 **Decode state.** The slot batch's KV caches belong to the engine, because
 the compiled chunk's graphs bind their addresses: a session holds one of
 the engine's decode states from its start to :meth:`close` (``slots_len``
-rounded up to a power of two, so later sessions find it again), reset at
-the start; admission writes rows into it in place. The chunk's outputs
+rounded up to a power of two, so later sessions find it again; with a
+sliding window W, no more than W: the caches are then rings of W
+slots), reset at the start; admission writes rows into it in place. The chunk's outputs
 are fixed buffers that the next chunk overwrites, so the session copies
 the last tokens into its own ``_tok_d`` and queues the telemetry copies
 before the next dispatch. A wave's prefill outputs are fixed buffers too,
@@ -74,7 +75,8 @@ prefill.
 Admitted KV rows are LEFT-ALIGNED into their slots, so an injected row
 is laid out exactly as a solo admission would have been; an SSM state is
 copied as it is. SSM and hybrid configs admit one exact-shape solo
-prefill per request (a ragged wave would thread pads through the scan).
+prefill per request (a ragged wave would thread pads through the scan),
+as do windowed configs (a ragged prefill into a ring is refused).
 Rows are independent programs (row-local Critical sets, per-row PRNG streams
 indexed by the request's own token position), so a request's tokens do
 not depend on its neighbours, the chunk length or its slot — which is
@@ -158,8 +160,9 @@ class SchedulerConfig:
     num_slots: int = 4            # concurrent device slots (decode batch)
     max_chunks: Optional[int] = None  # run() safety valve; None = auto
     # per-slot cache length for OPEN sessions (submit/step); None defaults
-    # to cfg.max_seq_len (rounded to a power of two, see ``slot_bucket``).
-    # run() sizes it to its workload.
+    # to sliding_window or cfg.max_seq_len (rounded to a power of two but
+    # never above the window, see ``slot_bucket``). run() sizes it to its
+    # workload.
     slots_len: Optional[int] = None
     # admission-queue bound: submits beyond it raise a typed QueueFull
     # (backpressure) instead of growing latency unbounded. None = no bound.
@@ -300,8 +303,8 @@ class ContinuousBatchingScheduler:
             self._policy = make_policy(policy)
         self._b = max(1, num_slots or self._num_slots or self.scfg.num_slots)
         self._slots_len = slot_bucket(
-            slots_len or self.scfg.slots_len or cfg.max_seq_len,
-            cfg.max_seq_len)
+            slots_len or self.scfg.slots_len or cfg.sliding_window
+            or cfg.max_seq_len, cfg.max_seq_len, cfg.sliding_window)
         self._chunk = engine.ecfg.decode_chunk
         self._orch = engine._make_orchestrator()  # ONE shared cache+clock
         self._can_batch = self._can_batch_admissions()
@@ -393,7 +396,7 @@ class ContinuousBatchingScheduler:
             raise SessionClosed("serving session is closed")
         self._ensure_started()
         need = request.prompt_len + request.max_new_tokens
-        if need > self._slots_len:
+        if self.engine.cfg.sliding_window is None and need > self._slots_len:
             raise ValueError(
                 f"request needs {need} cache slots (prompt "
                 f"{request.prompt_len} + max_new {request.max_new_tokens}) "
@@ -774,11 +777,22 @@ class ContinuousBatchingScheduler:
         self._tok_d[dst_d] = _h2d(np.asarray(toks, np.int32), dev)
         return wave_states, tele, len(src)
 
+    def _slot_budget(self, requests: Sequence[Request]) -> int:
+        """The cache slots :meth:`run` asks for: the sliding window, whose
+        ring serves any length, else the longest prompt plus its new
+        tokens."""
+        cfg = self.engine.cfg
+        if cfg.sliding_window:
+            return cfg.sliding_window
+        return max(r.prompt_len + r.max_new_tokens for r in requests)
+
     def _can_batch_admissions(self) -> bool:
         """A ragged batched admission prefill needs the right-aligned
         ragged machinery: attention archs without a shared-attention site
         (an SSM scan would thread pads through its state). Everything else
-        admits one request per prefill, the exact solo program."""
+        admits one request per prefill, the exact solo program; so does a
+        config with a sliding window (a ragged prefill into a ring cache
+        is refused, as in the reference)."""
         cfg = self.engine.cfg
         return (cfg.block_kinds()[0] in ("attn_dense", "attn_moe")
                 and not cfg.shared_attn_every
@@ -1128,9 +1142,8 @@ class ContinuousBatchingScheduler:
         if not requests:
             return []
         b = self._num_slots or min(len(requests), self.scfg.num_slots)
-        self._ensure_started(
-            num_slots=max(1, min(b, len(requests))),
-            slots_len=max(r.prompt_len + r.max_new_tokens for r in requests))
+        self._ensure_started(num_slots=max(1, min(b, len(requests))),
+                             slots_len=self._slot_budget(requests))
         handles = [self.submit(r, rng_key=rng_keys[i] if rng_keys else None)
                    for i, r in enumerate(requests)]
         max_chunks = self.scfg.max_chunks or (

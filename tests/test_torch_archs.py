@@ -12,6 +12,7 @@ replay is the cost model alone: no timings, cache stats or weight bytes.
 Tolerance: none — tokens, modeled TTFT/TPOT and every result field are
 compared with ``==``."""
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -55,7 +56,11 @@ def test_every_arch_is_served(arch):
     assert torch.isfinite(logits).all()
 
 
+@functools.lru_cache(maxsize=None)
 def _engines(arch):
+    """The JAX engine and the port's of one reduced config, built once a
+    module: the fixture's tests and the single-arch tests below share them
+    (and the JAX engine's compiles)."""
     cfg = jget_config(arch).reduced()
     params = numpy_init(lambda: jinit_params(cfg, jax.random.PRNGKey(0)))
     qp = jquantize_model(params, cfg)

@@ -9,7 +9,9 @@ multiples of a tile), with f32 and bf16 x, unaligned x, and f32 rows
 spanning 2^-100 to 2^100; and the sampler's threefry bits and per-row
 tokens on the card against the CPU's (``test_cuda_sampler_equals_cpu``),
 and the engine's compiled decode chunk, a CUDA graph replay, against the
-eager chunk (``test_cuda_compiled_chunk_equals_eager``); the open session
+eager chunk (``test_cuda_compiled_chunk_equals_eager``), also on ring
+caches of a sliding window, whose writes equal the CPU's
+(``test_cuda_compiled_chunk_ring_*``, ``test_cuda_ring_*``); the open session
 with a ``device.dispatch`` fault against the CPU, ``close()`` after an
 unretried fault giving its decode state back, and ``generate_reference``
 running K2 on decode (``test_cuda_session_*``, ``test_cuda_close_*``,
@@ -42,6 +44,7 @@ from repro_torch.kernels import flash_attention_with_scores
 from repro_torch.kernels.attn_scores import attn_scores as amod
 from repro_torch.kernels.quant_matmul import expert_quant_matmul as kmod
 from repro_torch.kernels.quant_matmul import quant_matmul as dmod
+from repro_torch.models.kv_cache import cache_tensors
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
 from repro_torch.serving import sampler
 
@@ -672,6 +675,103 @@ def test_cuda_evicted_decode_states_free_their_graphs():
         assert (graphs._pool is None) == (keep == 0)
 
 
+@pytest.mark.parametrize("s", [8, 20, 24])
+def test_cuda_ring_fill_and_update_equal_cpu(s):
+    """A ring of 8 slots filled with S keys on the card (S == W; S > W, the
+    trailing W kept at p % W; S = 3W, no rotation) and then 11 decode
+    writes with rows frozen at random: every field bitwise the same
+    cache's on the CPU after every write (the writes are copies)."""
+    from repro_torch.models.kv_cache import cache_tensors, fill_kv_cache, \
+        init_kv_cache, update_kv_cache
+
+    dev = _need_cuda()
+    rng = np.random.default_rng(s)
+    b, h, w, d = 3, 2, 8, 16
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)) for _ in range(2))
+    caches = [fill_kv_cache(init_kv_cache(b, h, w, d, torch.bfloat16, where,
+                                          ring=True), k.to(where),
+                            v.to(where)) for where in ("cpu", dev)]
+    for step in range(12):
+        for f, x in cache_tensors(caches[0]):
+            assert torch.equal(getattr(caches[1], f).cpu(), x), (f, step)
+        assert sorted(caches[0].positions[0].tolist()) == \
+            list(range(s + step - w, s + step))
+        kn, vn = (torch.from_numpy(rng.standard_normal((b, h, 1, d)).astype(
+            np.float32)) for _ in range(2))
+        live = torch.from_numpy(rng.random(b) > 0.3)
+        live[0] = True
+        for c in caches:
+            dv = c.k.device
+            update_kv_cache(c, kn.to(dv), vn.to(dv), live=live.to(dv))
+
+
+@pytest.mark.parametrize("s", [5, 20])
+def test_cuda_compiled_chunk_ring_equals_eager(s):
+    """The compiled decode chunk on ring caches (reduced OLMoE with an
+    8-token window; the state is a ring of W slots): prompts of 5 (the
+    ring wraps inside the first chunk) and 20 (the prefill kept the last
+    8 keys, the ring wraps again mid-chunk), 4 slots, one dead, one row
+    stopping mid-chunk. Capture, then a replay under
+    ``set_sync_debug_mode("error")``: tokens, masks, done, emitted and
+    every cache leaf bitwise eager ``decode_many_batched``'s."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.kv_cache import cache_tensors
+    from repro_torch.models.model import decode_many_batched, init_params, \
+        prefill
+    from repro_torch.serving import DyMoEEngine
+
+    dev = _need_cuda()
+    w = 8
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b").reduced(),
+                              sliding_window=w)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = DyMoEEngine(cfg, params, device=dev)
+    b, steps = 4, 6
+    prompts = torch.randint(1, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(1))
+    logits, rc, _ = prefill(eng.params, cfg, prompts, qparams=eng.qparams)
+    compiled = eng._decode_batched
+    state = compiled.acquire(b, w)
+    assert rc["layers"].ring and state.caches["layers"].ring
+    ref = {"layers": dataclasses.replace(rc["layers"], **{
+        f: x.clone() for f, x in cache_tensors(rc["layers"])})}
+    state.load(rc)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    host = dict(done=np.array([False, True, False, False]),
+                n_emitted=np.ones(b, np.int32),
+                limits=np.array([20, 20, 4, 20], np.int32),
+                eos_tokens=np.full(b, -1, np.int32))
+    for c in range(2):
+        kw = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        want = decode_many_batched(
+            eng.params, cfg, tok.clone(), ref, num_steps=steps,
+            done=kw["done"], n_emitted=kw["n_emitted"], limits=kw["limits"],
+            eos_tokens=kw["eos_tokens"], qparams=eng.qparams, live_cap=4)
+        torch.cuda.synchronize()
+        if c:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = compiled(state, tok, num_steps=steps, live_cap=4, **host)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        _chunk_equal(out, want)
+        for f, x in cache_tensors(ref["layers"]):
+            assert torch.equal(getattr(state.caches["layers"], f), x), (c, f)
+        tok = out.tokens[-1].clone()
+        host.update(done=out.done.cpu().numpy(),
+                    n_emitted=out.n_emitted.cpu().numpy())
+    (entry,) = state.entries.values()
+    assert entry.graph is not None
+    assert sorted(state.caches["layers"].positions[0, 0].tolist()) == \
+        list(range(s + 2 * steps - w, s + 2 * steps))
+    compiled.release(state)
+
+
 def _reduced_engines(dev, faults_cpu=None, faults_dev=None):
     """The reduced f32 OLMoE from one CPU generator, as an engine on the
     CPU (the plain path) and one on the card, each with its injector."""
@@ -859,11 +959,10 @@ def test_cuda_compiled_chunk_non_moe_equals_eager(arch):
     state = compiled.acquire(b, slots)
     ref = {}
     for part, c in rc.items():
-        names = [f.name for f in dataclasses.fields(c)]
         ref[part] = dataclasses.replace(
-            c, **{f: getattr(c, f).clone() for f in names})
-        for f in names:
-            getattr(state.caches[part], f).copy_(getattr(c, f))
+            c, **{f: x.clone() for f, x in cache_tensors(c)})
+        for f, x in cache_tensors(c):
+            getattr(state.caches[part], f).copy_(x)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     host = dict(done=np.array([False, True, False, False]),
                 n_emitted=np.ones(b, np.int32),
@@ -897,9 +996,9 @@ def test_cuda_compiled_chunk_non_moe_equals_eager(arch):
         assert torch.equal(out.done, dn) and \
             torch.equal(out.n_emitted, emitted)
         for part, cache in ref.items():
-            for f in dataclasses.fields(cache):
-                assert torch.equal(getattr(state.caches[part], f.name),
-                                   getattr(cache, f.name)), (part, f.name)
+            for f, x in cache_tensors(cache):
+                assert torch.equal(getattr(state.caches[part], f), x), \
+                    (part, f)
         tok = out.tokens[-1].clone()
         host.update(done=out.done.cpu().numpy(),
                     n_emitted=out.n_emitted.cpu().numpy())
@@ -1148,8 +1247,8 @@ def test_cuda_compiled_decode_many_equals_eager(mode):
     cm = eng._decode_many
     state = cm.acquire(b, slots, caches=rc)
     def ptrs(caches):
-        return {getattr(c, f.name).untyped_storage().data_ptr()
-                for c in caches.values() for f in dataclasses.fields(c)}
+        return {x.untyped_storage().data_ptr()
+                for c in caches.values() for _, x in cache_tensors(c)}
 
     assert not ptrs(rc) & ptrs(state.caches)
     kw, eager_kw = {}, {}

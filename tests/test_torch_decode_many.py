@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.models.config import DyMoEPolicy, ModelConfig
+from repro_torch.models.kv_cache import cache_tensors
 from repro_torch.models.model import decode_many, init_params, prefill
 from repro_torch.serving import DyMoEEngine, EngineConfig, Request
 
@@ -51,8 +52,8 @@ def _requests(n=4):
 
 
 def _ptrs(caches):
-    return {getattr(c, f.name).untyped_storage().data_ptr()
-            for c in caches.values() for f in dataclasses.fields(c)}
+    return {x.untyped_storage().data_ptr()
+            for c in caches.values() for _, x in cache_tensors(c)}
 
 
 def test_key_protocol_equals_eager(params):
@@ -68,8 +69,7 @@ def test_key_protocol_equals_eager(params):
     logits, rc, _ = prefill(eng.params, cfg, prompt, qparams=eng.qparams,
                             cache_slots=24)
     ref = {"layers": dataclasses.replace(rc["layers"], **{
-        f.name: getattr(rc["layers"], f.name).clone()
-        for f in dataclasses.fields(rc["layers"])})}
+        f: x.clone() for f, x in cache_tensors(rc["layers"])})}
     state = cm.acquire(1, 24, caches=rc)
     assert not _ptrs(rc) & _ptrs(state.caches)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -14,7 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_bridge import jit_run, n, numpy_init, port, port_cfg, t
+from _torch_bridge import jit_run, n, numpy_init, port, port_caches, \
+    port_cfg, t
 from repro.configs import get_config as jget_config
 from repro.models import decode_many_batched as jdecode_many_batched
 from repro.models import init_params as jinit_params
@@ -22,7 +23,6 @@ from repro.models import prefill as jprefill
 from repro.models import quantize_model as jquantize_model
 from repro.models.layers import mlp as jmlp
 from repro.models.layers.rotary import sinusoidal_embedding as jsinusoidal
-from repro_torch.models.kv_cache import KVCache
 from repro_torch.models.layers import mlp as tmlp
 from repro_torch.models.layers.rotary import sinusoidal_embedding
 from repro_torch.models.model import _layer_tier_flags, \
@@ -108,11 +108,6 @@ def _setup(arch, low_bits=2):
     return cfg, params, qp, port_cfg(cfg), port(params), port(qp)
 
 
-def _port_kv(kv):
-    return KVCache(k=t(kv.k), v=t(kv.v), positions=t(kv.positions),
-                   length=t(kv.length), offset=t(kv.offset))
-
-
 def _check_kv(tc, jc):
     for f in ("positions", "length", "offset"):
         np.testing.assert_array_equal(n(getattr(tc, f)),
@@ -158,7 +153,7 @@ def test_prefill_and_decode_many_batched_match(arch, low_bits):
         done=jnp.asarray(done), qparams=qp, live_cap=2,
         **{k: jnp.asarray(v) for k, v in kw.items()}))
     tt, tc2, ti2, td, te = decode_many_batched(
-        tparams, tcfg, t(tok0), {"layers": _port_kv(jc["layers"])},
+        tparams, tcfg, t(tok0), port_caches(jc),
         num_steps=STEPS, done=t(done), qparams=tqp, live_cap=2,
         **{k: t(v) for k, v in kw.items()})
     np.testing.assert_array_equal(n(tt), np.asarray(jt))

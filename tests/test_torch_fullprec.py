@@ -22,7 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_bridge import jit_run, n, numpy_init, port, port_cfg, t
+from _torch_bridge import jit_run, n, numpy_init, port, port_caches, \
+    port_cfg, t
 from _torch_serving import outcome
 from repro.configs import get_config as jget_config
 from repro.models import init_params as jinit_params
@@ -34,7 +35,7 @@ from repro.models.model import decode_step as jdecode_step
 from repro.serving import DyMoEEngine as JEngine
 from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import Request as JRequest
-from repro_torch.models.kv_cache import KVCache, SSMCache
+from repro_torch.models.kv_cache import cache_tensors
 from repro_torch.models.model import decode_step, prefill
 from repro_torch.serving import DyMoEEngine, EngineConfig, Request
 
@@ -62,24 +63,16 @@ CFGS = {"tiny_moe": lambda: _disabled(_tiny()),
             jget_config("falcon_mamba_7b").reduced())}
 
 
-def _port_cache(c):
-    if hasattr(c, "ssm_state"):
-        return SSMCache(*(t(getattr(c, f.name))
-                          for f in dataclasses.fields(SSMCache)))
-    return KVCache(*(t(getattr(c, f.name))
-                     for f in dataclasses.fields(KVCache)))
-
-
 def _check_caches(tc, jc):
     assert set(tc) == set(jc)
     for part in jc:
-        for f in dataclasses.fields(tc[part]):
-            got = n(getattr(tc[part], f.name))
-            want = np.asarray(getattr(jc[part], f.name))
+        for f, x in cache_tensors(tc[part]):
+            got = n(x)
+            want = np.asarray(getattr(jc[part], f))
             if np.issubdtype(want.dtype, np.floating):
-                np.testing.assert_allclose(got, want, **TOL, err_msg=f.name)
+                np.testing.assert_allclose(got, want, **TOL, err_msg=f)
             else:
-                np.testing.assert_array_equal(got, want, err_msg=f.name)
+                np.testing.assert_array_equal(got, want, err_msg=f)
 
 
 def _check_info(ti, ji):
@@ -153,7 +146,7 @@ def test_disabled_policy_runs_full_precision(name):
                                    live_rows=t(np.array([True, False,
                                                          True])))))
     for key, kw in steps:
-        caches = {k: _port_cache(v) for k, v in jc.items()}
+        caches = port_caches(jc)
         sl, sc, si = decode_step(tparams, tcfg, t(tok0), caches,
                                  qparams=tqp, **kw)
         jsl, jsc, jsi = want[key]

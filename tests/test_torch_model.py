@@ -14,7 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_bridge import jit_run, n, numpy_init, port, port_cfg, t
+from _torch_bridge import jit_run, n, numpy_init, port, port_caches, \
+    port_cfg, t
 from repro.configs import get_config as jget_config
 from repro.models import decode_many_batched as jdecode_many_batched
 from repro.models import init_params as jinit_params
@@ -22,7 +23,6 @@ from repro.models import prefill as jprefill
 from repro.models import quantize_model as jquantize_model
 from repro.models.config import DyMoEPolicy, ModelConfig
 from repro.models.layers.moe import _capacity
-from repro_torch.models.kv_cache import KVCache
 from repro_torch.models.model import decode_many_batched, prefill
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -61,12 +61,6 @@ def _setup(name):
     params = numpy_init(lambda: jinit_params(cfg, jax.random.PRNGKey(0)))
     qp = jquantize_model(params, cfg)
     return cfg, params, qp, port_cfg(cfg), port(params), port(qp)
-
-
-def _port_caches(c):
-    kv = c["layers"]
-    return {"layers": KVCache(k=t(kv.k), v=t(kv.v), positions=t(kv.positions),
-                              length=t(kv.length), offset=t(kv.offset))}
 
 
 def _check_caches(tc, jc):
@@ -110,7 +104,7 @@ def test_decode_many_batched_matches(name):
     kw = dict(num_steps=STEPS, n_emitted=np.ones(b, np.int32),
               limits=np.array([10, 10, 10, 4], np.int32),
               eos_tokens=np.full(b, -1, np.int32))
-    tcaches = _port_caches(caches)
+    tcaches = port_caches(caches)
     jt, jc, ji, jd, je = jit_run(lambda: jdecode_many_batched(
         params, cfg, jnp.asarray(tok0), caches, done=jnp.asarray(done),
         qparams=qp, live_cap=2, **{k: jnp.asarray(v) if k != "num_steps"

@@ -43,6 +43,7 @@ from repro.models.layers.moe import _capacity
 from repro.serving import DyMoEEngine as JEngine
 from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import Request as JRequest
+from repro_torch.models.kv_cache import cache_tensors
 from repro_torch.models.model import prefill
 from repro_torch.serving import ContinuousBatchingScheduler, DyMoEEngine, \
     EngineConfig, Request
@@ -110,10 +111,9 @@ def _check(out, jl, jc, ji):
                                   np.asarray(jnp.argmax(jl, axis=-1)))
     np.testing.assert_allclose(n(out.logits), np.asarray(jl), **TOL)
     assert sorted(out.caches) == sorted(jc)
-    pairs = [(f"{part}.{f.name}", getattr(c, f.name),
-              getattr(jc[part], f.name))
+    pairs = [(f"{part}.{f}", x, getattr(jc[part], f))
              for part, c in out.caches.items()
-             for f in dataclasses.fields(c)]
+             for f, x in cache_tensors(c)]
     pairs += [(f.name, getattr(out.info, f.name), getattr(ji, f.name))
               for f in dataclasses.fields(out.info)]
     for name, got, want in pairs:
@@ -275,7 +275,7 @@ def test_same_length_admissions_on_ssm_each_get_their_caches(monkeypatch):
 
 def _snapshot(session):
     return [t.clone() for c in session._state.caches.values()
-            for t in (getattr(c, f.name) for f in dataclasses.fields(c))]
+            for _, t in cache_tensors(c)]
 
 
 def _serve_two_boundaries(pair, which, faults=(), on_start=None):

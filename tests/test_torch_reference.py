@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_bridge import jit_run, n, t
+from _torch_bridge import jit_run, n, port_caches, t
 from _torch_serving import plain
 from repro.models import prefill as jprefill
 from repro.models.model import decode_many as jdecode_many
@@ -29,7 +29,7 @@ from repro_torch.models.model import decode_many, decode_step
 from repro_torch.serving import DyMoEEngine, EngineConfig, Request
 from repro_torch.serving.sampler import PRNGKey
 from test_torch_model import STEPS, TOL, _check_caches, _check_info, \
-    _port_caches, _setup
+    _setup
 
 NAMES = ["tiny-4/2", "tiny-4/0"]
 
@@ -42,7 +42,7 @@ def test_decode_step_shared_critical_matches(name):
     logits, caches, _ = jit_run(lambda: jprefill(
         params, cfg, jnp.asarray(prompt), qparams=qp, cache_slots=12))
     tok0 = np.asarray(jnp.argmax(logits, axis=-1), np.int32)
-    tcaches = _port_caches(caches)
+    tcaches = port_caches(caches)
     jl, jc, ji = jit_run(lambda: jdecode_step(
         params, cfg, jnp.asarray(tok0), caches, qparams=qp))
     tl, tc, ti = decode_step(tparams, tcfg, t(tok0), tcaches, qparams=tqp)
@@ -67,7 +67,7 @@ def test_decode_many_matches(name, sampled):
     kw = dict(rng_key=jax.random.PRNGKey(7), temperature=0.8, top_k=5) \
         if sampled else {}
     tkw = dict(kw, rng_key=PRNGKey(7)) if sampled else {}
-    tcaches = _port_caches(caches)
+    tcaches = port_caches(caches)
     jt, jc, ji = jit_run(lambda: jdecode_many(
         params, cfg, jnp.asarray(tok0), caches, num_steps=STEPS,
         start_step=3, qparams=qp, **kw))

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import jit_run, n, numpy_init, port, port_cfg, t
+from _torch_bridge import jit_run, n, numpy_init, port, port_cache, \
+    port_caches, port_cfg, t
 from repro.configs import get_config as jget_config
 from repro.models import decode_many_batched as jdecode_many_batched
 from repro.models import init_params as jinit_params
@@ -25,7 +26,7 @@ from repro.models import quantize_model as jquantize_model
 from repro.models.kv_cache import SSMCache as JSSMCache
 from repro.models.layers import ssm as jssm
 from repro.quant.qtensor import MixedPrecisionWeights as JMixed
-from repro_torch.models.kv_cache import KVCache, SSMCache
+from repro_torch.models.kv_cache import SSMCache
 from repro_torch.models.layers import ssm as tssm
 from repro_torch.models.model import decode_many_batched, prefill
 
@@ -68,11 +69,6 @@ def _layer(arch, low_bits):
     return cfg, p, q
 
 
-def _port_ssm(c):
-    return SSMCache(conv_state=t(c.conv_state), ssm_state=t(c.ssm_state),
-                    length=t(c.length))
-
-
 def _check_ssm(tc, jc):
     np.testing.assert_array_equal(n(tc.length), np.asarray(jc.length))
     for f in ("conv_state", "ssm_state"):
@@ -105,7 +101,7 @@ def test_mamba_prefill_and_decode_match(arch, proj):
                        c0.ssm_state.shape), jnp.float32))
     x = rng.standard_normal((b, 9, cfg.d_model)).astype(np.float32)
     jo, jc = jit_run(lambda: jssm.mamba_prefill(jp, cfg, jnp.asarray(x), c0))
-    to, tc = tssm.mamba_prefill(tp, tcfg, t(x), _port_ssm(c0))
+    to, tc = tssm.mamba_prefill(tp, tcfg, t(x), port_cache(c0))
     np.testing.assert_allclose(n(to), np.asarray(jo), **TOL)
     _check_ssm(tc, jc)
     jdecode = jax.jit(lambda x1, c: jssm.mamba_decode(jp, cfg, x1, c))
@@ -153,16 +149,6 @@ def _setup(cfg):
     return params, qp, port_cfg(cfg), port(params), port(qp)
 
 
-def _port_caches(c):
-    out = {"layers": _port_ssm(c["layers"])}
-    if "shared" in c:
-        kv = c["shared"]
-        out["shared"] = KVCache(k=t(kv.k), v=t(kv.v),
-                                positions=t(kv.positions),
-                                length=t(kv.length), offset=t(kv.offset))
-    return out
-
-
 def _check_caches(tc, jc):
     _check_ssm(tc["layers"], jc["layers"])
     assert set(tc) == set(jc)
@@ -206,7 +192,7 @@ def test_prefill_and_decode_many_batched_match(name, cfg_fn):
         params, cfg, jnp.asarray(tok0), jc, num_steps=steps,
         done=jnp.asarray(done), qparams=qp, live_cap=2,
         **{k: jnp.asarray(v) for k, v in kw.items()}))
-    tc_in = _port_caches(jc)
+    tc_in = port_caches(jc)
     dead_before = tc_in["layers"].ssm_state[:, 1].clone()
     tt, tc2, _, td, te = decode_many_batched(
         tparams, tcfg, t(tok0), tc_in, num_steps=steps, done=t(done),

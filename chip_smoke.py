@@ -76,6 +76,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``generate_batch`` (ring positions after every admission; K1 48 a
      decode step, K2 48 a solo admission, exactly); then full-width
      qwen3_0p6b with the window, 2 × (9,000 + 48), K2 84 a step;
+  4c. pipeline — the pipelined telemetry replay (``pipeline:`` line;
+     ``_pipeline_phase``) on the serve phase's engine: its 8 requests
+     inline and pipelined in turns (I P P I, twice), tokens and modeled
+     numbers bitwise equal, K1/K2 exact, walls, replay seconds, blocked
+     seconds and the replay's overlap with the dispatch thread's device
+     work; a ``delay`` fault with one job in flight, a ``replay.chunk``
+     raise's invariants, a 2-replica router inline and pipelined; syncs
+     by thread (the replay worker makes none);
+  4d. dispatch_shards — the data-local MoE dispatch
+     (``dispatch_shards:`` line; ``_dispatch_shards_phase``): reduced f32
+     OLMoE at D 2 card == CPU; full-width OLMoE-1B-7B at D 4 on the serve
+     phase's weights, the prefill graph gate on a 512-token solo
+     admission and exactly 48 K2 launches a replay; K2 at the folded
+     shape against its plain version (a K2 case);
   5. archs — full-width qwen3_0p6b (28 layers), zamba2_1p2b (38 layers,
      7 shared-attention sites) and falcon_mamba_7b (64 layers), "4/2":
      a 512-token eager prefill on the new engine, then 6 ragged
@@ -746,7 +760,10 @@ def _reference_session(cfg, params, dev):
                 1, cfg.vocab_size, n)], max_new_tokens=m,
                 request_id=f"r{i}")
 
-        s = eng.serve(num_slots=2, slots_len=64, policy="edf")
+        # inline replay: which handles a pipelined replay fault takes down
+        # depends on timing, so the card == CPU parity runs the serial mode
+        s = eng.serve(num_slots=2, slots_len=64, policy="edf",
+                      pipeline=False)
         hs = [s.submit(req(i, n, 24)) for i, n in enumerate((9, 17, 5, 12))]
         for _ in range(2):               # slots busy, queue deep
             s.step()
@@ -833,13 +850,25 @@ def _reference_archs(dev):
 # ------------------------------------------------------------------ serve
 
 
+def _serve_requests(cfg) -> list:
+    """The serve phase's 8 requests: prompts of 64-512 tokens, 16-48 new
+    tokens, from a seeded numpy generator."""
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, cfg.vocab_size, int(rng.integers(64, 513)))],
+        max_new_tokens=int(rng.integers(16, 49))) for _ in range(8)]
+
+
 def _serve_phase(dev):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
     from repro_torch.models.model import init_params
-    from repro_torch.serving import DyMoEEngine, EngineConfig, Request
+    from repro_torch.serving import DyMoEEngine, EngineConfig
 
     cfg = get_config("olmoe_1b_7b")
     L = cfg.num_layers
@@ -853,10 +882,7 @@ def _serve_phase(dev):
           f"init+quantize {time.perf_counter() - t0:.1f}s, "
           f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    rng = np.random.default_rng(0)
-    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
-        1, cfg.vocab_size, int(rng.integers(64, 513)))],
-        max_new_tokens=int(rng.integers(16, 49))) for _ in range(8)]
+    reqs = _serve_requests(cfg)
     solo_req = reqs[3]
 
     torch.cuda.reset_peak_memory_stats()
@@ -982,6 +1008,335 @@ def _serve_phase(dev):
     print("serve: " + json.dumps(summary), flush=True)
     print("graph: " + json.dumps(graph), flush=True)
     return launches, engine
+
+
+def _thread_syncs(records) -> dict:
+    """``(thread, file:line) -> count`` of the host syncs that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reported, from the
+    ``(thread name, file, line, message)`` records of ``_sync_recorder``
+    (not its one-time notice that the mode is a prototype)."""
+    return dict(Counter(f"{t} {Path(f).name}:{n}" for t, f, n, m in records
+                        if "synchroniz" in m and "prototype" not in m))
+
+
+def _sync_recorder(records):
+    """A ``warnings.showwarning`` that keeps the thread a warning came
+    from: the worker's syncs, if any, are told from the dispatch
+    thread's."""
+    import threading
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        records.append((threading.current_thread().name, filename, lineno,
+                        str(message)))
+    return show
+
+
+def _pipeline_phase(engine) -> dict:
+    """The pipelined telemetry replay (``pipeline=True``, a ``ReplayStream``
+    worker) on the serve phase's full-width OLMoE-1B-7B, its graph keys
+    met again by two uncounted warm runs: the serve phase's 8 requests on
+    4 slots, inline (I) and pipelined (P) in turns, I P P I twice, each on
+    a fresh session.
+    Tokens and modeled TTFT/TPOT (and cache stats, weight bytes) must be
+    equal bitwise across all 8 runs, and each run's K1/K2 launches exact
+    (3 x L x (decode steps + batched waves) and 3 x L x solo waves). Per
+    run: the wall, the jobs' own replay seconds, the dispatch thread's
+    seconds blocked in a pipelined submit, and how many of the replay
+    seconds fall inside the dispatch thread's device work (its chunks and
+    admission waves, launch through the boundary fetch: the waits a worker
+    can use). Then a ``delay`` of 250 ms (longer than a chunk) on every
+    chunk replay with ``max_inflight_chunks=1`` (numbers unchanged, the
+    blocked seconds shown), a ``replay.chunk`` raise on the first chunk of 4 requests in
+    flight (all 4 resolve with ``ReplayError``, one replay fault, status
+    "degraded", inline from then on; 2 requests served after the recovery
+    equal a fresh inline session's, tokens and modeled numbers from a cold
+    orchestrator), and a 2-replica ``ClusterRouter`` inline and pipelined
+    (placements, tokens and modeled numbers equal). All of it under
+    ``set_sync_debug_mode("warn")``, syncs counted by thread and source
+    line: the worker ("dymoe-replay") must make none. Prints the
+    ``pipeline:`` line."""
+    import torch
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.serving import ClusterRouter, \
+        ContinuousBatchingScheduler, FaultInjector, FaultSpec, ReplayError, \
+        SchedulerConfig
+
+    cfg, L = engine.cfg, engine.cfg.num_layers
+    reqs = _serve_requests(cfg)
+    t_phase = time.perf_counter()
+
+    def key(out):
+        return [(r.tokens, r.ttft_s, r.tpot_s, r.cache_stats,
+                 r.prefill_weight_bytes, r.decode_weight_bytes_per_tok)
+                for r in out]
+
+    def serve(pipeline, scfg=SchedulerConfig(), faults=None, warm=False):
+        s = ContinuousBatchingScheduler(engine, num_slots=4, scfg=scfg,
+                                        faults=faults)
+        work, jobs = [], []
+
+        def spans(fn, into):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    into.append((t0, time.perf_counter()))
+            return timed
+
+        s._run_chunk = spans(s._run_chunk, work)
+        s._admit_wave = spans(s._admit_wave, work)
+        s._run_replay = spans(s._run_replay, jobs)
+        km.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = s.run(reqs, pipeline=pipeline)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = dict(s.stats)
+        k1 = km.LAUNCHES["expert_quant_matmul_grouped"]
+        k2 = km.LAUNCHES["expert_quant_matmul"]
+        if warm:
+            return out, st
+        assert k1 == 3 * L * (st["decode_steps"] + st["waves_batched"]), \
+            (k1, st)
+        assert k2 == 3 * L * st["waves_solo"], (k2, st)
+        assert st["compiles"] == st["prefill_compiles"] == 0, st
+        replay_spans = sum(b - a for a, b in jobs)
+        overlap = sum(max(0.0, min(b1, b2) - max(a1, a2))
+                      for a1, b1 in jobs for a2, b2 in work)
+        return out, dict(
+            mode="P" if pipeline else "I", wall_s=wall,
+            replay_s=st["replay_s"], replay_blocked_s=st["replay_blocked_s"],
+            replay_jobs=st["replay_jobs"], replay_span_s=replay_spans,
+            device_work_s=sum(b - a for a, b in work),
+            replay_in_device_work_s=overlap,
+            replay_in_device_work_share=overlap / max(replay_spans, 1e-12),
+            launches=dict(km.LAUNCHES))
+
+    records = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = _sync_recorder(records)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            # the phases since the serve phase may have dropped its keys:
+            # one run meets them again (a prefill key captures at its
+            # second call), uncounted
+            for _ in range(2):
+                want = key(serve(False, warm=True)[0])
+            runs = []
+            for pipeline in (False, True, True, False) * 2:
+                out, rec = serve(pipeline)
+                assert key(out) == want, \
+                    f"{rec['mode']} run {len(runs)}: tokens or modeled " \
+                    "numbers differ from the warm inline run's"
+                runs.append(rec)
+            syncs_ab = _thread_syncs(records)
+            # ---- delay: a slow replay, one job in the queue
+            delay = FaultInjector([FaultSpec(site="replay.chunk",
+                                             kind="delay", delay_s=0.25,
+                                             times=10 ** 6)])
+            out, slow = serve(True, SchedulerConfig(max_inflight_chunks=1),
+                              delay)
+            assert key(out) == want, "delay fault changed a number"
+            slow["delays"] = len(delay.fired)
+            # ---- raise on the first chunk's replay, 4 requests in flight
+            faults = FaultInjector([FaultSpec(site="replay.chunk", at=0)])
+            s = ContinuousBatchingScheduler(engine, num_slots=4,
+                                            faults=faults)
+            s._ensure_started(slots_len=1024, pipeline=True)
+            first = [s.submit(r) for r in reqs[:4]]
+            while s.step():
+                pass
+            s.flush()
+            second = [s.submit(r) for r in reqs[4:6]]
+            while s.step():
+                pass
+            s.flush()
+            hl = s.health()
+            inline_after = not s._stream.pipelined
+            s.close()
+            clean = ContinuousBatchingScheduler(engine, num_slots=4)
+            clean._ensure_started(slots_len=1024, pipeline=False)
+            fresh = [clean.submit(r) for r in reqs[4:6]]
+            while clean.step():
+                pass
+            clean.close()
+            assert all(h.done for h in first + second)
+            assert all(isinstance(h.error, ReplayError) for h in first), \
+                [type(h.error).__name__ for h in first]
+            assert hl.replay_faults == 1 and hl.status == "degraded", hl
+            assert inline_after
+            assert key([h.result(drive=False) for h in second]) == \
+                key([h.result(drive=False) for h in fresh]), \
+                "after recovery != a fresh session"
+            # ---- two replicas over the engine, sync mode
+            routed = {}
+            for pipeline in (False, True):
+                with ClusterRouter.replicate(
+                        engine, 2, num_slots=2, slots_len=1024,
+                        pipeline=pipeline) as router:
+                    hs = [router.submit(r) for r in reqs]
+                    res = [h.result() for h in hs]
+                    routed[pipeline] = ([h.replica for h in hs], key(res))
+            assert routed[True] == routed[False], "pipelined router != inline"
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = _thread_syncs(records)
+    worker = {k: v for k, v in syncs.items() if k.startswith("dymoe-replay")}
+    assert not worker, f"the replay worker synchronized: {worker}"
+
+    def med(mode, field):
+        xs = sorted(r[field] for r in runs if r["mode"] == mode)
+        return (xs[1] + xs[2]) / 2
+
+    summary = dict(
+        runs=runs,
+        wall_median_s={m: med(m, "wall_s") for m in "IP"},
+        pipelined_over_inline_wall=med("P", "wall_s") / med("I", "wall_s"),
+        replay_median_s={m: med(m, "replay_s") for m in "IP"},
+        replay_in_device_work_share_p=med("P", "replay_in_device_work_share"),
+        tokens_and_modeled_equal=True, syncs_by_thread_ab=syncs_ab,
+        worker_syncs=0, delay=slow,
+        fault=dict(first=[type(h.error).__name__ for h in first],
+                   replay_faults=hl.replay_faults, status=hl.status,
+                   inline_after=inline_after,
+                   after_recovery_equals_fresh=True),
+        router=dict(placements=routed[True][0], equal=True),
+        phase_s=time.perf_counter() - t_phase)
+    print("pipeline: " + json.dumps(summary), flush=True)
+    return runs[1]["launches"]
+
+
+def _dispatch_shards_phase(dev, engine) -> tuple:
+    """The data-local MoE dispatch (``moe_dispatch_shards``): (a) reduced
+    f32 OLMoE with D = 2, the card against the CPU: ``generate_batch`` on
+    one slot (every admission a solo prefill of two token groups) and
+    ``generate_reference``, tokens and modeled numbers equal, K2 exact;
+    (b) full-width OLMoE-1B-7B "4/2" with D = 4 on the serve phase's
+    params and packed store: the prefill graph gate on a 512-token solo
+    admission (eager == capture == replay bitwise), then one replay
+    counted: exactly 48 K2 launches (three a layer: the 4 groups' capacity
+    buffers folded into one) and no K1; (c) K2 at that folded shape (64
+    experts, M = 4 x ``_capacity(cfg, 128)`` rows of a real dispatch of
+    layer 0) against its plain version, timed as a K2 case. Prints the
+    ``dispatch_shards:`` line; returns ({path: launches}, the K2 case)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.models.layers import moe as tmoe
+    from repro_torch.models.model import _index_tree, init_params
+    from repro_torch.quant.quantize import dequantize_tensor
+    from repro_torch.serving import DyMoEEngine, EngineConfig, Request
+
+    t_phase = time.perf_counter()
+    # ---- (a) reduced f32, D = 2: card == CPU
+    base = dataclasses.replace(get_config("olmoe_1b_7b").reduced(),
+                               moe_dispatch_shards=2)
+    params = init_params(base, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt_tokens=[int(v) for v in rng.integers(
+        1, base.vocab_size, s)], max_new_tokens=m)
+        for s, m in ((10, 6), (18, 9), (6, 5), (14, 7))]
+
+    def key(out):
+        return [(r.tokens, r.ttft_s, r.tpot_s, r.cache_stats,
+                 r.prefill_weight_bytes, r.decode_weight_bytes_per_tok)
+                for r in out]
+
+    cpu = DyMoEEngine(base, params, device="cpu")
+    gpu = DyMoEEngine(base, params, device=dev)
+    want = key(cpu.generate_batch(reqs, num_slots=1))
+    km.reset_launch_counts()
+    got = key(gpu.generate_batch(reqs, num_slots=1))
+    reduced_launches = dict(km.LAUNCHES)
+    st = gpu.last_stats
+    assert got == want, "reduced D=2: card != CPU"
+    assert st["waves_solo"] == len(reqs) and reduced_launches[
+        "expert_quant_matmul"] == 3 * base.num_layers * len(reqs), \
+        (reduced_launches, st)
+    assert key([gpu.generate_reference(reqs[1])]) == \
+        key([cpu.generate_reference(reqs[1])]), \
+        "reduced D=2 generate_reference: card != CPU"
+    del cpu, gpu
+
+    # ---- (b) full width, D = 4, on the serve phase's weights
+    cfg4 = dataclasses.replace(engine.cfg, moe_dispatch_shards=4)
+    L = cfg4.num_layers
+    eng4 = DyMoEEngine(cfg4, engine.params, EngineConfig(decode_chunk=16),
+                       device=dev, qparams=engine.qparams)
+    solo = np.random.default_rng(11).integers(1, cfg4.vocab_size, (1, 512))
+    gate = _prefill_gate(eng4, "olmoe_1b_7b solo 4/2 D=4", solo, {}, 1024)
+    assert gate["launch_error"] is None, gate["launch_error"]
+    km.reset_launch_counts()                 # the path starts here
+    eng4._prefill(solo, cache_slots=1024)
+    torch.cuda.synchronize()
+    launches = dict(km.LAUNCHES)             # ... and ends here
+    assert launches == {"expert_quant_matmul": 3 * L,
+                        "expert_quant_matmul_grouped": 0}, launches
+    assert gate["launches_per_replay"] == {"expert_quant_matmul": 3 * L}, \
+        gate["launches_per_replay"]
+    del eng4
+
+    # ---- (c) K2 at the folded shape, on a real dispatch of layer 0
+    lp = _index_tree(engine.params["layers"], 0)["moe"]
+    qw = {n: q.index(0) for n, q in engine.qparams["layers"]["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn((512, cfg4.d_model), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    t = 512 // 4
+    buf = torch.cat([tmoe._dispatch(lp, cfg4, x[i * t:(i + 1) * t], None).buf
+                     for i in range(4)], dim=1)        # (E, 4 C_d, dm)
+    e, m, k = buf.shape
+    assert m == 4 * tmoe._capacity(cfg4, t), buf.shape
+    mp = qw["w_gate"]
+    crit_h = (np.random.default_rng(31).random(e) < 0.5).astype(np.int32)
+    crit = torch.from_numpy(crit_h).to(dev)
+    gs = cfg4.dymoe.group_size
+    args = (buf, mp.high.packed, mp.high.scales, mp.low.packed, mp.low.scales,
+            crit)
+    kw = dict(hi_bits=mp.high.bits, lo_bits=mp.low.bits, group_size=gs)
+    plain = km.PLAIN["expert_quant_matmul"]
+    got32 = km.expert_quant_matmul_cuda(*args, out_dtype=torch.float32, **kw)
+    ref32 = plain(*args, out_dtype=torch.float32, **kw)
+    got_ = km.expert_quant_matmul_cuda(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = _check(got32, ref32, got_, ref)
+    n = mp.high.packed.shape[1]
+    w_sel = torch.where(
+        crit.bool()[:, None, None],
+        dequantize_tensor(mp.high.packed, mp.high.scales, mp.high.bits, gs,
+                          torch.bfloat16),
+        dequantize_tensor(mp.low.packed, mp.low.scales, mp.low.bits, gs,
+                          torch.bfloat16))
+    n_hi = int(crit_h.sum())
+
+    def qbytes(q, experts):
+        return experts * (q.packed[0].numel() + q.scales[0].numel() * 4)
+
+    nbytes = (qbytes(mp.high, n_hi) + qbytes(mp.low, e - n_hi)
+              + e * m * k * 2 + e * m * n * 2)
+    case = _time_case(f"gate_up 4/2 folded D=4 M={m}",
+                      lambda: km.expert_quant_matmul_cuda(*args, **kw),
+                      lambda: plain(*args, **kw),
+                      lambda: torch.bmm(buf, w_sel), err, nbytes,
+                      2.0 * e * m * k * n)
+    del w_sel
+    print("dispatch_shards: " + json.dumps(dict(
+        reduced=dict(shards=2, requests=len(reqs), card_equals_cpu=True,
+                     launches=reduced_launches),
+        full=dict(shards=4, gate=gate, launches=launches),
+        k2_folded=dict(case=case["case"], max_abs_err=err, ms=case["ms"],
+                       plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                       library_ms=case["library_ms"]),
+        phase_s=time.perf_counter() - t_phase)), flush=True)
+    return {"dispatch_shards_reduced": reduced_launches,
+            "dispatch_shards": launches}, case
 
 
 def _session_phase(engine) -> dict:
@@ -3066,6 +3421,10 @@ def main() -> int:
                "generate_reference": _reference_full(engine)}
     olmoe = _prefill_olmoe(engine)
     by_path.update(_window_phase(engine))
+    by_path["pipeline"] = _pipeline_phase(engine)
+    shard_paths, folded = _dispatch_shards_phase(dev, engine)
+    by_path.update(shard_paths)
+    records["expert_quant_matmul"].append(folded)
     del engine
     arch_paths, archs = _serve_archs(dev)
     by_path.update(arch_paths)

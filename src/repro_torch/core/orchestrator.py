@@ -33,8 +33,8 @@ model's forward) or by a harness in simulation.
 clock, a DMA tail and a shared LRU cache, so the ORDER of replay calls IS
 the modeled timeline: callers must replay telemetry in the same order the
 modeled device would have executed it (the serving scheduler replays
-admissions and decode chunks inline, in dispatch order, on its one
-thread). Replaying from two threads
+admissions and decode chunks in dispatch order, on one thread: its
+``ReplayStream`` worker, or inline on the dispatch thread). Replaying from two threads
 concurrently would silently interleave the clock and the cache's
 recency order; both entry points carry a cheap reentrancy guard that
 fails loudly instead.

@@ -9,6 +9,9 @@ packed-expert matmuls, and gathered back weighted by their gates.
   * ``moe_apply`` — one shared Critical mask (the solo admission prefill):
     three ``expert_quant_matmul`` (K2) launches per layer; without a mask,
     the full-precision SwiGLU over the float expert weights (DyMoE off).
+  * ``moe_apply_sharded`` — the data-local dispatch
+    (``cfg.moe_dispatch_shards``): ``moe_apply`` on each of D token groups,
+    their capacity buffers folded into one, so still three K2 launches.
   * ``moe_apply_rows`` — decode, every row with its own Critical mask: one
     combined hi/lo capacity buffer per expert and three
     ``expert_quant_matmul_grouped`` (K1) launches per layer.
@@ -37,8 +40,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.quant.mixed import mixed_precision_matmul
 from repro_torch.quant.qtensor import MixedPrecisionWeights
 
-__all__ = ["moe_apply", "moe_apply_rows", "moe_apply_prefill_rows",
-           "quantize_moe", "MoEStats"]
+__all__ = ["moe_apply", "moe_apply_sharded", "moe_apply_rows",
+           "moe_apply_prefill_rows", "quantize_moe", "MoEStats"]
 
 
 @dataclasses.dataclass
@@ -148,24 +151,32 @@ def _rep(x: torch.Tensor, k: int) -> torch.Tensor:
         x.shape[0] * k, *x.shape[1:])
 
 
-def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
-              critical_mask: Optional[torch.Tensor] = None,
-              qweights: Optional[dict] = None,
-              hh_mask: Optional[torch.Tensor] = None,
-              token_valid: Optional[torch.Tensor] = None,
-              ) -> Tuple[torch.Tensor, MoEStats]:
-    """The MoE layer on flattened tokens x (T, dm) with one Critical mask
-    (E,) over ``qweights``; ``critical_mask=None`` runs the float expert
-    weights (full precision). ``token_valid`` (T,) False marks padding: no
-    slot, zero output, no routing statistics. Returns (y (T, dm),
-    MoEStats)."""
+@dataclasses.dataclass
+class _Routed:
+    """One token group's routing and its (E, C, dm) capacity buffer."""
+
+    logits: torch.Tensor
+    probs: torch.Tensor
+    gates: torch.Tensor
+    idx: torch.Tensor
+    flat_e: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    valid_rep: Optional[torch.Tensor]
+    buf: torch.Tensor
+
+
+def _dispatch(p, cfg: ModelConfig, x: torch.Tensor,
+              token_valid: Optional[torch.Tensor]) -> _Routed:
+    """Route x (T, dm) top-k and give each (token, k) pair a slot of its
+    expert's capacity ``_capacity(cfg, T)`` by a running count."""
     t, dm = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     c = _capacity(cfg, t)
     logits, probs, gates, idx = _route(p, cfg, x)
-
     flat_e = idx.reshape(-1)                                  # (T*k,)
     oh = _one_hot(flat_e, e, torch.int64)                     # (T*k, E)
+    valid_rep = None
     if token_valid is not None:
         valid_rep = _rep(token_valid.to(torch.bool), k)
         oh = oh * valid_rep[:, None]
@@ -178,33 +189,49 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
     tok = _rep(torch.arange(t, device=x.device), k)
     xb = torch.where(keep[:, None], x[tok], torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
-    buf = _scatter((e, c, dm), x.dtype, x.device, flat_e, slot, xb)
+    return _Routed(logits, probs, gates, idx, flat_e, slot, keep, valid_rep,
+                   _scatter((e, c, dm), x.dtype, x.device, flat_e, slot, xb))
+
+
+def _experts(p, buf: torch.Tensor, critical_mask: Optional[torch.Tensor],
+             qweights: Optional[dict]) -> torch.Tensor:
+    """The routed experts over a capacity buffer (E, M, dm): three K2
+    launches at the precision ``critical_mask`` selects, or the float
+    SwiGLU without a mask."""
     if critical_mask is not None:
         assert qweights is not None
-        yb = _expert_ffn_quantized(qweights, critical_mask, buf)  # (E,C,dm)
-    else:
-        yb = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf)
+        return _expert_ffn_quantized(qweights, critical_mask, buf)
+    return _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf)
 
-    ye = torch.where(keep[:, None], yb[flat_e, slot],
+
+def _combine(p, cfg: ModelConfig, x: torch.Tensor, r: _Routed,
+             yb: torch.Tensor, hh_mask: Optional[torch.Tensor],
+             token_valid: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, MoEStats]:
+    """Gather each kept pair's expert output back to its token, weighted
+    by its gate (plus the shared experts), and the group's statistics."""
+    t, dm = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    ye = torch.where(r.keep[:, None], yb[r.flat_e, r.slot],
                      torch.zeros((), dtype=yb.dtype, device=x.device))
-    ye = ye * gates.reshape(-1, 1).to(x.dtype)                # cast order
+    ye = ye * r.gates.reshape(-1, 1).to(x.dtype)              # cast order
     y = ye.reshape(t, k, dm).sum(dim=1)
     if cfg.num_shared_experts:
         y = y + _shared_experts(p, x)
 
-    onehot_top = _one_hot(idx, e, torch.float32)              # (T, k, E)
-    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    onehot_top = _one_hot(r.idx, e, torch.float32)            # (T, k, E)
+    lse2 = torch.logsumexp(r.logits, dim=-1) ** 2
     if token_valid is not None:
         tv = token_valid.to(torch.float32)
         onehot_top = onehot_top * tv[:, None, None]
         n_valid = torch.clamp(tv.sum(), min=1.0)
-        frac_probs = torch.einsum("te,t->e", probs, tv) / n_valid
+        frac_probs = torch.einsum("te,t->e", r.probs, tv) / n_valid
         z_loss = (lse2 * tv).sum() / n_valid
-        dropped = 1.0 - keep.sum() / torch.clamp(valid_rep.sum(), min=1)
+        dropped = 1.0 - r.keep.sum() / torch.clamp(r.valid_rep.sum(), min=1)
     else:
-        frac_probs = probs.mean(dim=0)
+        frac_probs = r.probs.mean(dim=0)
         z_loss = lse2.mean()
-        dropped = 1.0 - keep.to(torch.float32).mean()
+        dropped = 1.0 - r.keep.to(torch.float32).mean()
     load = onehot_top.sum(dim=(0, 1))                         # (E,)
     frac_tokens = load / torch.clamp(load.sum(), min=1.0)
     lb_loss = e * (frac_tokens * frac_probs).sum()
@@ -212,11 +239,77 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
     if hh_mask is None:
         hh_mask = torch.zeros((t,), dtype=torch.float32, device=x.device)
     hh_load = torch.einsum("tke,t->e", onehot_top, hh_mask.to(torch.float32))
-    gate_sum = torch.einsum("tke,tk->e", onehot_top, gates.to(torch.float32))
+    gate_sum = torch.einsum("tke,tk->e", onehot_top,
+                            r.gates.to(torch.float32))
     gate_mean = gate_sum / torch.clamp(load, min=1.0)
-    return y, MoEStats(router_logits=logits, expert_load=load,
+    return y, MoEStats(router_logits=r.logits, expert_load=load,
                        expert_hh_load=hh_load, gate_mean=gate_mean,
                        aux_loss=aux, dropped_frac=dropped)
+
+
+def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
+              critical_mask: Optional[torch.Tensor] = None,
+              qweights: Optional[dict] = None,
+              hh_mask: Optional[torch.Tensor] = None,
+              token_valid: Optional[torch.Tensor] = None,
+              ) -> Tuple[torch.Tensor, MoEStats]:
+    """The MoE layer on flattened tokens x (T, dm) with one Critical mask
+    (E,) over ``qweights``; ``critical_mask=None`` runs the float expert
+    weights (full precision). ``token_valid`` (T,) False marks padding: no
+    slot, zero output, no routing statistics. Returns (y (T, dm),
+    MoEStats)."""
+    r = _dispatch(p, cfg, x, token_valid)
+    yb = _experts(p, r.buf, critical_mask, qweights)          # (E, C, dm)
+    return _combine(p, cfg, x, r, yb, hh_mask, token_valid)
+
+
+def moe_apply_sharded(p, cfg: ModelConfig, x: torch.Tensor, *,
+                      hh_mask: Optional[torch.Tensor] = None,
+                      critical_mask: Optional[torch.Tensor] = None,
+                      qweights: Optional[dict] = None,
+                      token_valid: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, MoEStats]:
+    """Data-local MoE dispatch: the T tokens split into D =
+    ``cfg.moe_dispatch_shards`` contiguous groups, each routed as its own
+    :func:`moe_apply` with capacity ``_capacity(cfg, T / D)``, its own
+    ``hh_mask`` and ``token_valid`` rows and the one shared
+    ``critical_mask``. Falls back to :func:`moe_apply` when D <= 1 or D
+    does not divide T.
+
+    The D groups' (E, C_d, dm) buffers are folded into ONE (E, D·C_d, dm)
+    buffer, so each expert matmul stays one K2 launch (three a layer), as
+    the JAX package's ``vmap`` over its kernel is one call; a row's
+    output does not depend on the rows beside it. Statistics merge as the
+    JAX package's do: loads summed, gate means, aux losses and dropped
+    shares averaged over the groups, router logits back to (T, E).
+    ``cfg.moe_dispatch_axes`` names the mesh axes the groups would be
+    pinned to; on one device it has no effect."""
+    d = cfg.moe_dispatch_shards
+    t = x.shape[0]
+    if d <= 1 or t % d != 0:
+        return moe_apply(p, cfg, x, hh_mask=hh_mask,
+                         critical_mask=critical_mask, qweights=qweights,
+                         token_valid=token_valid)
+    xs = x.reshape(d, t // d, -1)
+    hh = hh_mask.reshape(d, t // d) if hh_mask is not None else None
+    tv = token_valid.reshape(d, t // d) if token_valid is not None else None
+    routed = [_dispatch(p, cfg, xs[i], None if tv is None else tv[i])
+              for i in range(d)]
+    c = routed[0].buf.shape[1]
+    yb = _experts(p, torch.cat([r.buf for r in routed], dim=1),
+                  critical_mask, qweights)                    # (E, D·C, dm)
+    outs = [_combine(p, cfg, xs[i], r, yb[:, i * c:(i + 1) * c],
+                     None if hh is None else hh[i],
+                     None if tv is None else tv[i])
+            for i, r in enumerate(routed)]
+    st = [o[1] for o in outs]
+    return torch.cat([o[0] for o in outs]), MoEStats(
+        router_logits=torch.cat([s.router_logits for s in st]),
+        expert_load=torch.stack([s.expert_load for s in st]).sum(0),
+        expert_hh_load=torch.stack([s.expert_hh_load for s in st]).sum(0),
+        gate_mean=torch.stack([s.gate_mean for s in st]).mean(0),
+        aux_loss=torch.stack([s.aux_loss for s in st]).mean(),
+        dropped_frac=torch.stack([s.dropped_frac for s in st]).mean())
 
 
 def moe_apply_rows(p, cfg: ModelConfig, x: torch.Tensor,

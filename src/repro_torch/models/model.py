@@ -35,6 +35,13 @@ DyMoE on the inference paths:
     projections) runs from the packed codes of that tier's precision. No
     telemetry leaves: the replay prices them by the cost model alone.
 
+Every MoE site with one Critical mask (or none) goes through
+``moe_apply_sharded``: with ``cfg.moe_dispatch_shards`` D > 1 dividing the
+token count, D token groups of their own capacity, folded into one
+buffer (still three K2 launches). ``cfg.act_seq_shard`` is a sharding
+constraint on the residual stream in the JAX package, numerically the
+identity: on one device it changes nothing here.
+
 Caches are written in place (see ``kv_cache.py`` and ``layers/ssm.py``):
 {"layers": KVCache or SSMCache with a leading L, "shared": KVCache with a
 leading n_sites (hybrid only)}.
@@ -59,8 +66,8 @@ from repro_torch.models.kv_cache import KVCache, fill_kv_cache, init_kv_cache
 from repro_torch.models.layers.attention import attention_decode, \
     attention_train
 from repro_torch.models.layers.mlp import init_mlp, mlp, mlp_quantized
-from repro_torch.models.layers.moe import moe_apply, \
-    moe_apply_prefill_rows, moe_apply_rows
+from repro_torch.models.layers.moe import moe_apply_prefill_rows, \
+    moe_apply_rows, moe_apply_sharded
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rotary import sinusoidal_embedding
 from repro_torch.models.layers.ssm import init_mamba, init_ssm_cache, \
@@ -75,13 +82,6 @@ __all__ = ["init_params", "quantize_model", "forward", "loss_fn",
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe_dispatch_shards > 1 or cfg.act_seq_shard:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded MoE dispatch and the sequence-sharded "
-            "residual are not ported yet")
 
 
 def _index_tree(tree, i):
@@ -165,7 +165,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``jax.random``: tests bring JAX-made parameters across with
     ``repro_torch.params``.)"""
     cfg.validate()
-    _check_supported(cfg)
     device = resolve_device(generator.device if device is None else device)
     dt = _dtype(cfg)
     draw = _Draw(generator, device, dt)
@@ -202,7 +201,6 @@ def quantize_model(params, cfg: ModelConfig) -> Dict[str, Any]:
     analogue), with the leading L dim kept. Quantized LAYER BY LAYER on the
     weights' device: the full-depth f32 temporary of an OLMoE expert matrix
     would be 8.6 GB."""
-    _check_supported(cfg)
     kind, pol = cfg.block_kinds()[0], cfg.dymoe
     if kind == "attn_moe":
         group, names = "moe", ("w_gate", "w_up", "w_down")
@@ -383,9 +381,7 @@ def _train_block(params, cfg: ModelConfig, kind: str, shared: bool,
     if kind == "attn_dense":
         return x + mlp(lp["mlp"], cfg, h), aux
     b, s, _ = h.shape
-    # moe_apply_sharded with moe_dispatch_shards <= 1 (the only case
-    # ported) is moe_apply over the float experts
-    y, stats = moe_apply(lp["moe"], cfg, h.reshape(b * s, -1))
+    y, stats = moe_apply_sharded(lp["moe"], cfg, h.reshape(b * s, -1))
     return x + y.reshape(b, s, -1), aux + stats.aux_loss
 
 
@@ -396,7 +392,6 @@ def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     MoE router losses summed over the layers). ``cfg.remat == "block"``
     recomputes each block in the backward pass (``jax.checkpoint``'s
     counterpart, non-reentrant activation checkpointing)."""
-    _check_supported(cfg)
     x = _embed(params, cfg, tokens, embeds)
     kind = cfg.block_kinds()[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -526,7 +521,6 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     Returns (last-token logits (B, V) f32, caches {"layers": stacked
     KVCache or SSMCache, "shared": the hybrid's per-site KVCache stack},
     DyMoEInfo — its leaves None for non-MoE archs)."""
-    _check_supported(cfg)
     kind = cfg.block_kinds()[0]
     hybrid = bool(cfg.shared_attn_every)
     src = tokens if tokens is not None else embeds
@@ -643,7 +637,8 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
             # the telemetry is per row
             oh_r = oh.reshape(b, s, k_tok, e)
             load_rows = oh_r.sum(dim=(1, 2))                     # (B, E)
-            y, st = moe_apply(lp["moe"], cfg, hflat, token_valid=vflat)
+            y, st = moe_apply_sharded(lp["moe"], cfg, hflat,
+                                      token_valid=vflat)
             critical = torch.ones((b, e), dtype=torch.bool, device=x.device)
             active, load = load_rows > 0, load_rows
             hh_load = torch.zeros_like(load_rows)
@@ -672,8 +667,9 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
                 imp = prefill_expert_importance(
                     torch.einsum("tke,t->e", oh, hh), oh.sum(dim=(0, 1)))
                 critical = select_critical(imp, t_l[l])
-            y, st = moe_apply(lp["moe"], cfg, hflat, critical_mask=critical,
-                              qweights=qm, hh_mask=hh, token_valid=vflat)
+            y, st = moe_apply_sharded(lp["moe"], cfg, hflat,
+                                      critical_mask=critical, qweights=qm,
+                                      hh_mask=hh, token_valid=vflat)
             if critical is None:
                 critical = torch.ones((e,), dtype=torch.bool,
                                       device=x.device)
@@ -714,7 +710,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     to the sliding window when one is configured (``device`` None means
     CUDA); an SSM state does not depend on ``seq_len``, the hybrid's
     shared-site KV caches do."""
-    _check_supported(cfg)
     device = resolve_device(device)
     dt = _dtype(cfg)
     slots = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
@@ -745,9 +740,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
     ``per_row_moe=False`` (the single-sequence reference path): the
     gate-guided Critical set (Eq. 3) comes from the batch-mean gate and
-    experts run through :func:`moe_apply` with that one mask — three K2
-    launches a layer through ``quant/mixed.py``; telemetry leaves are
-    (L, E).
+    experts run through :func:`moe_apply_sharded` with that one mask —
+    three K2 launches a layer through ``quant/mixed.py``; telemetry leaves
+    are (L, E).
 
     ``per_row_moe=True`` (continuous batching): every row picks its own
     Critical set and experts run through the fused :func:`moe_apply_rows`
@@ -759,7 +754,6 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     and their telemetry leaves are None. Without ``qparams``, or with the
     policy disabled, every block runs its float weights (see the module
     docstring)."""
-    _check_supported(cfg)
     if not per_row_moe and (live_rows is not None
                             or moe_capacity is not None):
         raise ValueError("live_rows / moe_capacity need per_row_moe=True")
@@ -830,7 +824,7 @@ def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
         elif per_row_moe:
             # full precision: the rows run as one batch (no live mask, as
             # in the reference); only the telemetry is per row
-            y, stats = moe_apply(lp["moe"], cfg, hflat)
+            y, stats = moe_apply_sharded(lp["moe"], cfg, hflat)
             _, top = stable_topk(stats.router_logits, k_tok)
             active = torch.nn.functional.one_hot(top, e).sum(dim=1) > 0
             gate_mean = stats.gate_mean[None].expand(active.shape)
@@ -839,8 +833,8 @@ def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
             # Eq. (3): gate-guided importance of the batch-mean gate
             critical = select_critical(imp.mean(dim=0), t_l[l]) \
                 if dymoe_on else None
-            y, stats = moe_apply(lp["moe"], cfg, hflat,
-                                 critical_mask=critical, qweights=qm)
+            y, stats = moe_apply_sharded(lp["moe"], cfg, hflat,
+                                         critical_mask=critical, qweights=qm)
             active, gate_mean = stats.expert_load > 0, stats.gate_mean
             if critical is None:
                 critical = torch.ones((e,), dtype=torch.bool,

@@ -4,7 +4,7 @@ taxonomy with its injector and retry helpers, the SLO policy layer, and
 the multi-replica tier (``cluster``) over one shared engine."""
 from repro_torch.serving.cost_model import EdgeCostModel, EdgeProfile
 from repro_torch.serving.engine import DyMoEEngine, EngineConfig, \
-    GenerationResult
+    GenerationResult, ReplayStream
 from repro_torch.serving.faults import AdmissionError, DeadlineExceeded, \
     DispatchError, FaultInjector, FaultSpec, InjectedFault, NO_FAULTS, \
     QueueFull, ReplayError, ServingError, SessionClosed, SessionHealth, \
@@ -21,7 +21,7 @@ from repro_torch.serving.cluster import ClusterHandle, ClusterHealth, \
     ClusterRouter, Replica
 
 __all__ = ["EdgeProfile", "EdgeCostModel", "DyMoEEngine", "EngineConfig",
-           "GenerationResult", "Request", "RequestHandle",
+           "GenerationResult", "ReplayStream", "Request", "RequestHandle",
            "SamplingParams", "TokenChunk", "sample_token",
            "sample_token_rows", "ContinuousBatchingScheduler",
            "SchedulerConfig",

@@ -30,12 +30,10 @@ Topology::
                      (one lock over each         and compiled programs
                       unit of device work)       shared across replicas
 
-Two differences from the JAX package's tier:
+Each session replays its telemetry on its own ``ReplayStream`` worker
+(``pipeline=True``, the default, as in the JAX package) or inline
+(``pipeline=False``). One difference from the JAX package's tier:
 
-  * **The replay is inline** (the port's session has no ``ReplayStream``
-    worker), so there is no ``pipeline``: ``pipeline=True`` is refused. A
-    replay fault still ends in ``status="degraded"``, so the quarantine,
-    drain and cold restart below apply unchanged.
   * **The engine is not thread-safe** (its compiled programs hand out
     fixed outputs that the next call overwrites, and its launch counters
     are process-wide): replicas on driver threads serialize their device

@@ -13,7 +13,9 @@ device work, so driver threads never see each other's outputs) while each
 session keeps its own orchestrator (modeled clock + expert cache) and
 fault/policy state — so per-request modeled numbers on a replica are
 exactly what a standalone session serving the same subsequence reports.
-The replay is inline, so there is no ``pipeline`` knob.
+Each session replays on its own worker thread (``pipeline=True``, the
+default) or inline (``pipeline=False``); a cold restart closes the old
+session, and with it its worker.
 """
 from __future__ import annotations
 
@@ -26,16 +28,6 @@ from repro_torch.serving.faults import SessionClosed, SessionHealth
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
 __all__ = ["Replica"]
-
-
-def _refuse_pipeline(pipeline: Optional[bool]) -> None:
-    """The port's replay runs inline on the driving thread: there is no
-    replay worker to pipeline, and asking for one is an error, not a
-    silent no-op."""
-    if pipeline:
-        raise NotImplementedError(
-            "pipeline=True: the port's session replays telemetry inline "
-            "(no ReplayStream worker); pass pipeline=None or False")
 
 
 def _carry_counters(prior: SessionHealth, current: SessionHealth,
@@ -108,7 +100,7 @@ class _Driver(threading.Thread):
 
 class Replica:
     """A router-managed serving session: sticky home of every request
-    placed on it. ``pipeline=True`` is refused (the replay is inline).
+    placed on it.
 
     ``threaded=True`` gives the replica its own :class:`_Driver`; with
     ``threaded=False`` the ROUTER's round-robin ``step()`` drives it
@@ -124,7 +116,6 @@ class Replica:
                  pipeline: Optional[bool] = None,
                  max_queue: Optional[int] = None,
                  policy=None, faults=None, threaded: bool = False):
-        _refuse_pipeline(pipeline)
         self.index = index
         self.engine = engine
         self.restarts = 0
@@ -134,7 +125,8 @@ class Replica:
         self._retired: Optional[SessionHealth] = None  # summed, restarts
         self._faults = faults
         self._knobs = dict(num_slots=num_slots, slots_len=slots_len,
-                           max_queue=max_queue, policy=policy)
+                           pipeline=pipeline, max_queue=max_queue,
+                           policy=policy)
         # guards session swap (cold restart) against concurrent submit
         self._lock = threading.Lock()
         self.session = self._new_session()
@@ -148,7 +140,7 @@ class Replica:
         k = self._knobs
         s = ContinuousBatchingScheduler(
             self.engine, num_slots=k["num_slots"], faults=self._faults)
-        s._ensure_started(slots_len=k["slots_len"],
+        s._ensure_started(slots_len=k["slots_len"], pipeline=k["pipeline"],
                           max_queue=k["max_queue"], policy=k["policy"])
         return s
 

@@ -16,7 +16,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from repro_torch.serving.faults import QueueFull, SessionClosed, SessionHealth
 from repro_torch.serving.request import Request, _STREAM_END
-from repro_torch.serving.cluster.replica import Replica, _refuse_pipeline
+from repro_torch.serving.cluster.replica import Replica
 
 __all__ = ["ClusterRouter", "ClusterHandle", "ClusterHealth",
            "PLACEMENTS"]
@@ -195,8 +195,7 @@ class ClusterRouter:
     Construct over explicit engines (``ClusterRouter([eng0, eng1])``) or
     replicate one engine N ways with :meth:`replicate` (replicas share
     weights, the packed store and the compiled programs; each gets its
-    own session and orchestrator). ``pipeline=True`` is refused: the
-    port's replay is inline.
+    own session, replay worker and orchestrator).
 
     ``threaded=True`` starts one driver thread per replica (the
     throughput mode: replicas decode concurrently); ``threaded=False``
@@ -214,7 +213,6 @@ class ClusterRouter:
                  auto_restart: bool = True):
         if not engines:
             raise ValueError("ClusterRouter needs at least one engine")
-        _refuse_pipeline(pipeline)
         if placement not in PLACEMENTS:
             raise ValueError(f"unknown placement {placement!r}; "
                              f"one of {sorted(PLACEMENTS)}")

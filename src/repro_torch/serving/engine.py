@@ -17,10 +17,13 @@ co-design:
 Both halves are served by the step-driven continuous-batching scheduler,
 an OPEN session (``serve`` / ``submit`` / ``step`` / ``health``, with
 ``handle.stream()`` / ``cancel()`` / ``result()``, typed faults and their
-recovery ladders, and the SLO policy layer), which replays each admission
-wave's and each decode chunk's telemetry inline, on the dispatch thread,
-right after the boundary's one host sync. Its prefills and decode chunks
-run through the engine's compiled programs (``serving/compiled.py``):
+recovery ladders, and the SLO policy layer), which submits each admission
+wave's and each decode chunk's telemetry replay, right after the
+boundary's one host sync, to a :class:`ReplayStream`: by default
+(``pipeline=True``) one worker thread replays it while the dispatch
+thread runs the next chunk; ``pipeline=False`` replays inline, the serial
+mode, with the same tokens and bitwise the same modeled numbers. Its
+prefills and decode chunks run through the engine's compiled programs (``serving/compiled.py``):
 CUDA graphs, one per key — a prefill per prompt shape, ``cache_slots``
 and ``row_local``, as the reference jits it, captured when the key
 recurs; a decode chunk per key of decode states the engine owns across
@@ -43,7 +46,8 @@ The engine's compiled programs are not thread-safe, so the engine has one
 readout of its outputs, a decode chunk through its readout — holds it.
 Sessions over one engine (the multi-replica tier, ``serving/cluster``)
 may then be driven from several threads: their device work serializes,
-their host work (the telemetry replay) does not.
+their host work (the telemetry replay, on each session's worker) does
+not.
 Requests carry per-request sampling parameters
 (temperature / top-k / seed) with counter-derived PRNG streams, so a
 request's tokens are the same solo and in a batch. Ablation rows of paper
@@ -56,9 +60,10 @@ falls back from one to the other.
 from __future__ import annotations
 
 import dataclasses
+import queue as _queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +72,7 @@ from repro_torch.core.orchestrator import DynamicExpertOrchestrator, \
     OrchestratorConfig, StepTiming
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import _check_supported, quantize_model
+from repro_torch.models.model import quantize_model
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
 from repro_torch.serving.cost_model import EdgeCostModel, EdgeProfile, \
     expert_bytes
@@ -77,7 +82,103 @@ from repro_torch.serving.request import Request, RequestHandle
 from repro_torch.serving.sampler import fold_in, raw_key_data, \
     resolve_sampling, sample_token, sample_token_rows
 
-__all__ = ["EngineConfig", "DyMoEEngine", "GenerationResult"]
+__all__ = ["EngineConfig", "DyMoEEngine", "GenerationResult",
+           "ReplayStream"]
+
+
+class ReplayStream:
+    """FIFO stream of host-side telemetry-replay jobs.
+
+    The pipelined session submits one job a wave and a chunk, after the
+    boundary's host sync, and ONE worker thread runs them in submission
+    order while the next chunk runs on the card. One worker and FIFO order
+    are load-bearing: the shared orchestrator advances a modeled clock and
+    an LRU cache, so replays must run in the serial order for the modeled
+    TTFT/TPOT to stay bitwise those of ``pipelined=False``. A job holds
+    only finished host memory (numpy arrays and pinned host copies the
+    boundary's sync completed); the worker never touches the device.
+
+    ``pipelined=False`` runs every job inline at :meth:`submit` (the
+    serial mode). ``maxsize`` bounds the queue, so a slow replay
+    backpressures the dispatch thread: :meth:`submit` blocks while the
+    queue is full.
+
+    A job that raises POISONS the stream for good: the exception is
+    re-raised on the submitting thread at the next :meth:`submit` or
+    :meth:`drain`, every job still queued (or submitted later) is skipped,
+    and later calls keep failing with a poisoned-stream error.
+    """
+
+    _STOP = object()
+
+    def __init__(self, pipelined: bool, maxsize: int = 4):
+        self._pipelined = pipelined
+        self._exc: Optional[BaseException] = None
+        self._poisoned = False   # sticky: survives the _exc hand-off
+        if pipelined:
+            self._q: _queue.Queue = _queue.Queue(maxsize=max(1, maxsize))
+            self._thread = threading.Thread(
+                target=self._loop, name="dymoe-replay", daemon=True)
+            self._thread.start()
+
+    @property
+    def pipelined(self) -> bool:
+        return self._pipelined
+
+    @property
+    def poisoned(self) -> bool:
+        """A job failed: queued and later jobs are skipped and no further
+        finalize will run. A waiter that cannot call submit()/drain() (a
+        stream consumer that does not drive) polls this to bail out."""
+        return self._poisoned or self._exc is not None
+
+    def _loop(self) -> None:
+        while True:
+            job = self._q.get()
+            try:
+                if job is self._STOP:
+                    return
+                if not self._poisoned:
+                    job()
+            except BaseException as e:  # noqa: BLE001 — re-raised at submit
+                self._poisoned = True
+                self._exc = e
+            finally:
+                self._q.task_done()
+
+    def submit(self, job: Callable[[], None]) -> None:
+        self._reraise()
+        if not self._pipelined:
+            try:
+                job()
+            except BaseException:
+                self._poisoned = True
+                raise
+            return
+        self._q.put(job)
+
+    def drain(self) -> None:
+        """Block until every submitted job has run (or been skipped after
+        a failure), then surface any worker exception."""
+        if self._pipelined:
+            self._q.join()
+        self._reraise()
+
+    def close(self) -> None:
+        """Stop the worker once the jobs queued before it have run (or
+        been skipped); a no-op inline or when already closed."""
+        if self._pipelined and self._thread.is_alive():
+            self._q.put(self._STOP)
+            self._thread.join()
+
+    def _reraise(self) -> None:
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+        if self._poisoned:
+            raise RuntimeError(
+                "ReplayStream is poisoned by an earlier job failure; its "
+                "orchestrator state is not trustworthy")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +251,6 @@ class DyMoEEngine:
         # with ``use_dymoe=False``.
         assert engine_cfg.decode_chunk >= 1, engine_cfg.decode_chunk
         cfg.validate()
-        _check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = engine_cfg
@@ -180,7 +280,9 @@ class DyMoEEngine:
         self._decode_many = CompiledDecodeMany(self)
         # the last batch call's counts (ContinuousBatchingScheduler.stats):
         # chunks, decode steps, batched and solo admission waves, replay
-        # jobs and their host seconds, compiled-chunk and prefill compiles
+        # jobs and their own host seconds (on whichever thread ran them),
+        # the dispatch thread's seconds blocked on a full replay queue,
+        # compiled-chunk and prefill compiles
         self.last_stats: dict = {}
         self._session = None   # the engine-owned open serving session
 
@@ -263,13 +365,16 @@ class DyMoEEngine:
 
     # ------------------------------------------------- step-driven API
     def serve(self, num_slots: Optional[int] = None, *,
+              pipeline: Optional[bool] = None,
               slots_len: Optional[int] = None,
               max_queue: Optional[int] = None, policy=None):
         """Open (and remember) a step-driven serving session — the open
         counterpart of ``generate_batch`` — and return it;
         :meth:`submit` / :meth:`step` / :meth:`health` delegate to it.
 
-        ``num_slots`` device slots (default 4); ``slots_len`` the per-slot
+        ``pipeline`` replays telemetry on the session's worker thread
+        (default: ``SchedulerConfig.pipeline``, True); False replays it
+        inline. ``num_slots`` device slots (default 4); ``slots_len`` the per-slot
         cache length (default the config's sliding window, else
         ``cfg.max_seq_len``; rounded up to a power of two, but never above
         the window), which a request's ``prompt_len + max_new_tokens``
@@ -278,17 +383,19 @@ class DyMoEEngine:
         ``"fifo"`` (default), ``"edf"`` or a ``SchedulingPolicy``
         (:mod:`repro_torch.serving.policy`).
 
-        An open engine-owned session is retired first: its handles still
-        queued or in flight resolve with a typed ``SessionClosed`` and its
-        decode state goes back to the engine — drain it yourself before
-        re-serving if you want their results."""
+        An open engine-owned session is retired first: its submitted
+        replay jobs run, its worker stops, its handles still queued or in
+        flight resolve with a typed ``SessionClosed`` and its decode state
+        goes back to the engine — drain it yourself before re-serving if
+        you want their results."""
         from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
         if self._session is not None and not self._session.closed:
+            self._session.flush()
             self._session.close()
         session = ContinuousBatchingScheduler(self, num_slots=num_slots)
-        session._ensure_started(slots_len=slots_len, max_queue=max_queue,
-                                policy=policy)
+        session._ensure_started(slots_len=slots_len, pipeline=pipeline,
+                                max_queue=max_queue, policy=policy)
         self._session = session
         return session
 
@@ -319,10 +426,12 @@ class DyMoEEngine:
 
     # -------------------------------------------------------------- API
     def generate(self, request: Request, rng_key=None) -> GenerationResult:
-        """Serve one request through a fresh single-slot session; its
+        """Serve one request through a fresh single-slot session with
+        inline replay (serial, as the reference's ``generate``); its
         admission is the solo prefill. Its tokens equal its row in a
         ``generate_batch``."""
-        return self._run([request], num_slots=1, rng_keys=[rng_key])[0]
+        return self._run([request], num_slots=1, rng_keys=[rng_key],
+                         pipeline=False)[0]
 
     def generate_reference(self, request: Request, rng_key=None
                            ) -> GenerationResult:
@@ -420,12 +529,19 @@ class DyMoEEngine:
 
     def generate_batch(self, requests: Sequence[Request], rng_key=None, *,
                        num_slots: Optional[int] = None,
-                       static: bool = False) -> List[GenerationResult]:
+                       static: bool = False,
+                       pipeline: Optional[bool] = None,
+                       ) -> List[GenerationResult]:
         """Continuous batching over ``num_slots`` device slots (default
         min(len(requests), 4)): ragged prompts, per-request
         ``max_new_tokens`` / ``eos_token`` / sampling parameters, eviction
         and admission at every chunk boundary, real per-request modeled
         TTFT/TPOT. Results come back in submission order.
+
+        ``pipeline`` replays the telemetry on the session's worker thread
+        while the next chunk runs (default: ``SchedulerConfig.pipeline``,
+        True); ``pipeline=False`` is the serial mode, with the same tokens
+        and bitwise the same modeled numbers.
 
         ``static=True`` is the lockstep baseline instead: one batch for
         the whole call (ragged prompts right-aligned), decode until every
@@ -442,7 +558,8 @@ class DyMoEEngine:
                         for i, r in enumerate(requests)]
         if static:
             return self._generate_batch_static(requests, rng_keys=rng_keys)
-        return self._run(requests, num_slots=num_slots, rng_keys=rng_keys)
+        return self._run(requests, num_slots=num_slots, rng_keys=rng_keys,
+                         pipeline=pipeline)
 
     def _generate_batch_static(self, requests: Sequence[Request], *,
                                rng_keys: Optional[Sequence] = None
@@ -531,9 +648,9 @@ class DyMoEEngine:
                 wall_s=wall))
         return results
 
-    def _run(self, requests, num_slots, rng_keys):
+    def _run(self, requests, num_slots, rng_keys, pipeline):
         from repro_torch.serving.scheduler import ContinuousBatchingScheduler
         session = ContinuousBatchingScheduler(self, num_slots=num_slots)
-        out = session.run(requests, rng_keys=rng_keys)
+        out = session.run(requests, rng_keys=rng_keys, pipeline=pipeline)
         self.last_stats = dict(session.stats)
         return out

@@ -7,7 +7,8 @@ The step-driven serving lifecycle (see
     submit(Request) -> RequestHandle      # validated, queued
       -> admission wave at a chunk boundary (one ragged row-local prefill)
       -> decode chunks with per-row counter-derived PRNG sampling
-      -> telemetry replay (inline, at the boundary) emits TokenChunk events
+      -> telemetry replay (the session's replay worker, in FIFO order,
+         or inline with ``pipeline=False``) emits TokenChunk events
       -> handle.result() / handle.stream() / handle.cancel()
 
 ``SamplingParams`` is validated at construction — a malformed request
@@ -153,8 +154,9 @@ class RequestHandle:
         :class:`~repro_torch.serving.faults.ServingError` here; inspect
         :attr:`error` to check without raising.
       * :meth:`stream` — iterator of :class:`TokenChunk` events, delivered
-        as each replay unit runs (inline, at the chunk boundary that
-        fetched its tokens). The iterator simply ENDS when the request
+        as each replay unit runs (on the session's replay worker, or
+        inline at the chunk boundary that fetched its tokens with
+        ``pipeline=False``). The iterator simply ENDS when the request
         resolves — with a result or a typed error.
       * :meth:`cancel` — frees the slot at the next chunk boundary; the
         result becomes partial (``result().cancelled``).
@@ -162,8 +164,9 @@ class RequestHandle:
     Every submitted handle RESOLVES — result or typed error — under every
     fault the session tolerates; ``done`` is True either way.
 
-    The event queue is written by the session's driving thread and read
-    here. Only ONE thread may drive ``session.step()``: iterate
+    The event queue is written by the session's replay (its worker thread
+    when pipelined) and read here. Only ONE thread may drive
+    ``session.step()``: iterate
     ``stream()`` (or call ``result()``) with the default ``drive=True``
     from that driving thread, or with ``drive=False`` from a separate
     consumer thread that only waits while someone else drives.
@@ -225,15 +228,21 @@ class RequestHandle:
     def result(self, *, drive: bool = True):
         """Block until this request finalizes and return its
         ``GenerationResult``. With ``drive=True`` (the default) this drives
-        ``session.step()`` itself until the handle resolves; with
-        ``drive=False`` it only WAITS for another thread's driving."""
+        ``session.step()`` / ``session.flush()`` itself until the replay
+        finalizes the handle; with ``drive=False`` it only WAITS for
+        another thread's driving (bailing out if the session's replay
+        stream poisons: no finalize can come then)."""
         while not self._finished.is_set():
             if not drive:
+                self._raise_if_poisoned()
                 self._finished.wait(timeout=0.05)
-            elif not self._session.step() and not self._finished.is_set():
-                raise RuntimeError(
-                    f"{self.request_id} cannot make progress: the session "
-                    "is idle but the request never finalized")
+                continue
+            if not self._session.step():
+                self._session.flush()   # replay queue -> finalize
+                if not self._finished.is_set():
+                    raise RuntimeError(
+                        f"{self.request_id} cannot make progress: the "
+                        "session is idle but the request never finalized")
         if self._error is not None:
             raise self._error
         return self._result
@@ -259,21 +268,33 @@ class RequestHandle:
                         return   # sentinel consumed (e.g. second call)
                     continue
                 if not drive:
+                    self._raise_if_poisoned()
                     try:   # wait for the driving thread's replay
                         ev = self._events.get(timeout=0.05)
                     except _queue.Empty:
                         continue
-                elif not self._session.step() and \
-                        not self._finished.is_set() and self._events.empty():
-                    raise RuntimeError(
-                        f"{self.request_id} cannot make progress: the "
-                        "session is idle but the request never finalized")
+                elif not self._session.step():
+                    self._session.flush()   # replay queue -> events
+                    if not self._finished.is_set() and self._events.empty():
+                        raise RuntimeError(
+                            f"{self.request_id} cannot make progress: the "
+                            "session is idle but the request never "
+                            "finalized")
+                    continue
                 else:
                     continue
             if ev is _STREAM_END:
                 self._ended = True
                 return
             yield ev
+
+    def _raise_if_poisoned(self) -> None:
+        stream = getattr(self._session, "_stream", None)
+        if stream is not None and stream.poisoned:
+            raise RuntimeError(
+                f"{self.request_id}: the session's replay stream is "
+                "poisoned by an earlier job failure; this request will "
+                "never finalize")
 
     # ------------------------------------------- scheduler-facing hooks
     def _push_event(self, ev: TokenChunk) -> None:

@@ -44,20 +44,36 @@ stream BEFORE the boundary's one blocking fetch, so that fetch's stream
 sync also completes them. The replay, run after the fetch, reads
 finished host memory.
 
-**Replay** runs inline on the dispatch thread, wave by wave and chunk by
-chunk, through ONE shared orchestrator per session (requests share the
-edge device's expert cache, as they would share its VRAM): the JAX
-package's ``pipeline=False`` mode, its own parity mode. A request's
-``GenerationResult`` is finalized, and its stream events pushed, by the
-replay of its telemetry; its wall clocks stop at the host sync that
-fetched its last token.
+**Replay** runs through ONE shared orchestrator per session (requests
+share the edge device's expert cache, as they would share its VRAM), wave
+by wave and chunk by chunk in dispatch order. Each wave's and chunk's
+replay is a job submitted after its boundary sync to the session's
+:class:`~repro_torch.serving.engine.ReplayStream`; the job holds only
+host memory (the fetched tokens and the telemetry's pinned copies, which
+that sync completed), never a CUDA tensor. With ``pipeline=True`` (the
+default, as in the JAX package) ONE worker thread runs the jobs in FIFO
+order while the dispatch thread goes on to the next chunk::
+
+      device   ─[ chunk N ]──────[ chunk N+1 ]────[ chunk N+2 ]─→
+      dispatch ──┤ sync, evict, admit, dispatch ├──┤ sync ... ├──→
+                     │ submit replay job N (FIFO)
+      worker   ────[ replay N-1 ]──────[ replay N ]────────────→
+
+FIFO over one orchestrator is the serial order, so the modeled TTFT/TPOT
+are bitwise those of ``pipeline=False``, which runs every job inline at
+its boundary (the serial mode). A full queue (``max_inflight_chunks``)
+blocks the dispatch thread at its submit, after the engine's lock is let
+go. A request's ``GenerationResult`` is finalized, and its stream events
+pushed, by the replay of its telemetry; its wall clocks stop at the host
+sync that fetched its last token.
 
 **One engine, many sessions.** Sessions over one engine (the replicas of
 ``serving/cluster``) may be driven from different threads. The engine's
 compiled programs are not thread-safe, so each unit of device work holds
 the engine's ``lock``: an admission wave from its prefill through the
 injection of its rows, a decode chunk from its dispatch through its
-readout. The replay runs after the lock is let go.
+readout. The replay is submitted after the lock is let go, and the
+worker never takes it (it takes only the session's own ``_lock``).
 
 **Decode state.** The slot batch's KV caches belong to the engine, because
 the compiled chunk's graphs bind their addresses: a session holds one of
@@ -98,6 +114,7 @@ from repro_torch.core.orchestrator import StepTiming
 from repro_torch.models.kv_cache import SSMCache
 from repro_torch.models.layers.moe import _capacity
 from repro_torch.serving.compiled import slot_bucket
+from repro_torch.serving.engine import ReplayStream
 from repro_torch.serving.faults import NO_FAULTS, AdmissionError, \
     DeadlineExceeded, DispatchError, InjectedFault, QueueFull, \
     ReplayError, SessionClosed, SessionHealth
@@ -159,6 +176,10 @@ def _numpy(tensors):
 class SchedulerConfig:
     num_slots: int = 4            # concurrent device slots (decode batch)
     max_chunks: Optional[int] = None  # run() safety valve; None = auto
+    pipeline: bool = True         # replay on a worker, overlapping decode
+    # replay-queue bound: a slow host replay blocks the dispatch thread's
+    # submit instead of piling up telemetry
+    max_inflight_chunks: int = 4
     # per-slot cache length for OPEN sessions (submit/step); None defaults
     # to sliding_window or cfg.max_seq_len (rounded to a power of two but
     # never above the window, see ``slot_bucket``). run() sizes it to its
@@ -212,7 +233,10 @@ class ContinuousBatchingScheduler:
     ``decode_steps`` (every step of every chunk), ``waves_batched`` (ragged
     row-local admission prefills of more than one request),
     ``waves_solo`` (solo admission prefills), ``replay_jobs`` (one per
-    wave and per chunk), ``replay_s`` (their summed host seconds), and
+    wave and per chunk), ``replay_s`` (their own summed host seconds, on
+    whichever thread ran them), ``replay_blocked_s`` (the dispatch
+    thread's seconds in a pipelined submit, blocked while the queue was
+    full), and
     ``compiles`` / ``compile_s`` (compiled-chunk keys first met in this
     session — a CUDA graph capture each on the card — and the seconds
     their warm-up and capture took), and ``prefill_compiles`` /
@@ -225,13 +249,18 @@ class ContinuousBatchingScheduler:
 
       * **Replay fault** (a replay raises — ``replay.prefill``,
         ``replay.chunk``, or the expert cache's ``cache.blob.corrupt``):
-        the job's own handles resolve with :class:`ReplayError`; replays
-        submitted later in the same step skip-fail theirs; at the next
+        the job's own handles resolve with :class:`ReplayError`; jobs
+        queued behind it, or submitted before the next step, skip-fail
+        theirs (the ``_replay_epoch`` turns them stale); at the next
         :meth:`step` every still-in-flight request fails with
         ``ReplayError`` too (the shared orchestrator's clock and cache
-        died mid-update), the slots are freed and a FRESH orchestrator is
-        built. Queued requests serve normally afterwards, their modeled
-        numbers from a cold cache; ``health().status`` is ``"degraded"``.
+        died mid-update), the slots are freed, a FRESH orchestrator is
+        built and the session replays inline from then on
+        (``pipeline=False``). Queued requests serve normally afterwards,
+        their modeled numbers from a cold cache; ``health().status`` is
+        ``"degraded"``. Which in-flight requests a pipelined fault takes
+        down depends on how far the dispatch thread had got when the
+        worker failed.
       * **Dispatch fault** (``device.dispatch``): retried with a halved
         chunk down to one step, then with half the live rows deferred per
         retry (frozen for this chunk, dispatched next boundary); a 1-step
@@ -254,8 +283,8 @@ class ContinuousBatchingScheduler:
         resume with identical tokens, and its stream never repeats one.
       * **Pressure degradation** (EDF): the ladder's host-side
         ``DegradeOverride`` rungs change only the modeled accounting.
-      * **Close**: every still-unresolved handle resolves with
-        :class:`SessionClosed`.
+      * **Close**: replay jobs already submitted run first; every
+        still-unresolved handle then resolves with :class:`SessionClosed`.
     """
 
     def __init__(self, engine, num_slots: Optional[int] = None,
@@ -273,6 +302,7 @@ class ContinuousBatchingScheduler:
         self._lock = threading.Lock()
         self.stats = dict(chunks=0, decode_steps=0, waves_batched=0,
                           waves_solo=0, replay_jobs=0, replay_s=0.0,
+                          replay_blocked_s=0.0,
                           compiles=0, compile_s=0.0, prefill_compiles=0,
                           prefill_compile_s=0.0)
         # fault-tolerance state — lives on the instance from birth so
@@ -280,6 +310,7 @@ class ContinuousBatchingScheduler:
         self._health = SessionHealth()
         self._degraded = False
         self._replay_broken = False  # a replay raised; recovery pending
+        self._replay_epoch = 0       # bumps turn queued jobs into no-ops
         self._last_fault: Optional[BaseException] = None
         self._max_queue = scfg.max_queue
         self._faults = faults or getattr(engine, "faults", None) or NO_FAULTS
@@ -291,6 +322,7 @@ class ContinuousBatchingScheduler:
     # --------------------------------------------------------- lifecycle
     def _ensure_started(self, *, num_slots: Optional[int] = None,
                         slots_len: Optional[int] = None,
+                        pipeline: Optional[bool] = None,
                         max_queue: Optional[int] = None,
                         policy: Union[str, SchedulingPolicy, None] = None
                         ) -> None:
@@ -301,6 +333,8 @@ class ContinuousBatchingScheduler:
             self._max_queue = max_queue
         if policy is not None:
             self._policy = make_policy(policy)
+        if pipeline is None:
+            pipeline = self.scfg.pipeline
         self._b = max(1, num_slots or self._num_slots or self.scfg.num_slots)
         self._slots_len = slot_bucket(
             slots_len or self.scfg.slots_len or cfg.sliding_window
@@ -324,17 +358,21 @@ class ContinuousBatchingScheduler:
         self._temps = np.zeros(b, np.float32)
         self._topks = np.zeros(b, np.int64)
         self._keys = np.zeros((b, 2), np.int64)
+        self._stream = ReplayStream(pipelined=pipeline,
+                                    maxsize=self.scfg.max_inflight_chunks)
         self._started = True
 
     def flush(self) -> None:
-        """Every job a step submitted has run: replay is inline, so this
-        returns at once (the JAX package's session drains its replay
-        stream here)."""
+        """Block until every submitted replay job has run — every request
+        whose device work is complete has been finalized."""
+        if self._started:
+            self._stream.drain()
 
     def drain(self, *, cancel_queued: bool = True) -> None:
         """Graceful shutdown: optionally cancel still-queued requests,
-        then drive :meth:`step` until every in-flight request resolves.
-        The session stays open (:meth:`close` tears it down)."""
+        drive :meth:`step` until every in-flight request resolves, then
+        :meth:`flush` the replay stream. The session stays open
+        (:meth:`close` tears it down)."""
         if not self._started:
             return
         if cancel_queued:
@@ -344,14 +382,22 @@ class ContinuousBatchingScheduler:
                 h.cancel()
         while self.step():
             pass
+        self.flush()
 
     def close(self) -> None:
-        """End the session: its decode state goes back to the engine for a
+        """End the session: replay jobs already submitted run (requests
+        whose device work completed finalize normally) and the replay
+        worker stops, its decode state goes back to the engine for a
         later session, and EVERY handle still unresolved — queued, in
         flight, or lost to a fault — resolves with a typed
         :class:`SessionClosed`, so no ``result(drive=False)`` /
         ``stream(drive=False)`` waiter is left blocked."""
         if self._started and not self.closed:
+            try:
+                self._stream.drain()
+            except Exception:       # noqa: BLE001 — teardown never blocks
+                pass                # on a poisoned stream
+            self._stream.close()
             with self.engine.lock:
                 self.engine._decode_batched.release(self._state)
             self._state = None
@@ -553,8 +599,10 @@ class ContinuousBatchingScheduler:
         self._pressure_rung = rung
         self._health.pressure_rung = rung
         self._health.rung_transitions += 1
-        # skipped while a replay fault is pending: _recover_replay then
-        # installs the current rung on the fresh orchestrator
+        # rides the replay stream, so it lands in serial order between the
+        # replays; epoch-guarded like every job: after a replay fault the
+        # stale install is skipped and _recover_replay installs the
+        # current rung on the fresh orchestrator
         self._submit_replay(partial(self._orch.set_degrade,
                                     pol.ladder.override_for(rung)), [])
 
@@ -970,37 +1018,41 @@ class ContinuousBatchingScheduler:
 
     # ------------------------------------------- replay fault tolerance
     def _timed(self, replay, handles, *args) -> None:
-        """One telemetry replay (a wave's or a chunk's), counted and
-        timed."""
+        """Submit one telemetry replay (a wave's or a chunk's), counted;
+        its own seconds are added where it runs, and the seconds a
+        pipelined submit blocked on a full queue apart from them."""
         t0 = time.perf_counter()
-        self._submit_replay(partial(replay, *args), handles)
+        self._submit_replay(partial(replay, *args), handles, timed=True)
         self.stats["replay_jobs"] += 1
-        self.stats["replay_s"] += time.perf_counter() - t0
+        if self._stream.pipelined:
+            self.stats["replay_blocked_s"] += time.perf_counter() - t0
 
-    def _submit_replay(self, fn, handles) -> None:
-        """Run one replay job inline, wrapped so a failure resolves the
-        job's OWN handles (those ``fn`` would have finalized) with a typed
-        :class:`ReplayError` and marks the session for recovery, instead
-        of propagating. While a recovery is pending, jobs are skipped and
-        their handles fail the same way: their telemetry would replay
-        against a clock and cache that died mid-update."""
-        if self._replay_broken:
+    def _submit_replay(self, fn, handles, timed: bool = False) -> None:
+        """Submit one replay job to the stream, WRAPPED so a failure can
+        never poison it: a job that raises resolves its OWN handles (those
+        ``fn`` would have finalized) with a typed :class:`ReplayError` and
+        marks the session for recovery instead."""
+        self._stream.submit(partial(self._run_replay, self._replay_epoch,
+                                    fn, handles, timed))
+
+    def _run_replay(self, epoch, fn, handles, timed) -> None:
+        # the replay stream's context (its worker thread when pipelined)
+        if self._replay_broken or epoch != self._replay_epoch:
+            # a job from before a replay fault: its telemetry would replay
+            # against a clock and cache that died mid-update — skip-fail
+            # its requests instead of running it
             err = self._replay_error()
             for h in handles:
                 h._finish_error(err)
             return
+        t0 = time.perf_counter()
         try:
             fn()
         except Exception as exc:   # noqa: BLE001 — translated to typed
-            self._last_fault = exc
-            self._replay_broken = True
-            self._degraded = True
-            self._health.replay_faults += 1
-            self._health.last_fault = repr(exc)
-            err = self._replay_error()
-            err.__cause__ = exc
-            for h in handles:
-                h._finish_error(err)
+            self._on_replay_failure(exc, handles)
+        finally:
+            if timed:
+                self.stats["replay_s"] += time.perf_counter() - t0
 
     def _replay_error(self) -> ReplayError:
         return ReplayError(
@@ -1008,12 +1060,29 @@ class ContinuousBatchingScheduler:
             "its device tokens may exist but its modeled accounting is "
             f"lost (cause: {self._last_fault!r})")
 
+    def _on_replay_failure(self, exc: BaseException, handles) -> None:
+        # the replay's half of a fault; _recover_replay (the driving
+        # thread, next step()) completes it
+        with self._lock:
+            self._last_fault = exc
+            self._replay_broken = True
+            self._replay_epoch += 1   # queued jobs become stale no-ops
+            self._degraded = True
+            self._health.replay_faults += 1
+            self._health.last_fault = repr(exc)
+        err = self._replay_error()
+        err.__cause__ = exc
+        for h in handles:
+            h._finish_error(err)
+
     def _recover_replay(self) -> bool:
-        """The rest of a replay-fault recovery, at the top of the next
-        :meth:`step`: every in-flight request fails with
-        :class:`ReplayError` and its slot is freed, and a FRESH
-        orchestrator (at the current pressure rung) replaces the broken
-        one. Queued requests are untouched."""
+        """The driving thread's half of a replay-fault recovery, at the top
+        of the next :meth:`step`: every in-flight request fails with
+        :class:`ReplayError` and its slot is freed, a FRESH orchestrator
+        (at the current pressure rung) replaces the broken one, and the
+        session replays inline from then on (``pipeline=False``): the old
+        worker skip-fails the stale jobs it still holds, then stops.
+        Queued requests are untouched."""
         if not self._replay_broken:
             return False
         err = self._replay_error()
@@ -1021,15 +1090,26 @@ class ContinuousBatchingScheduler:
         for r in range(self._b):
             st = self._states[r]
             if st is not None:
-                st.handle._finish_error(err)   # idempotent
+                st.handle._finish_error(err)   # idempotent: the worker
+                #                                may have failed it first
                 self._states[r] = None
                 self._done[r] = True
                 progress = True
         self._orch = self.engine._make_orchestrator()  # fresh clock+cache
         if self._orch is not None and self._policy.ladder is not None:
+            # a queued set_degrade died with the old stream (stale
+            # epoch): put the fresh orchestrator on the CURRENT rung
             self._orch.set_degrade(
                 self._policy.ladder.override_for(self._pressure_rung))
-        self._replay_broken = False
+        old = self._stream
+        with self._lock:
+            # bump AGAIN: whatever was submitted between the fault and now
+            # is stale, so the old worker drains it without touching the
+            # fresh orchestrator
+            self._replay_epoch += 1
+            self._replay_broken = False
+        self._stream = ReplayStream(pipelined=False)   # inline from now on
+        old.close()   # fast: stale jobs skip-fail, then the worker exits
         return progress
 
     # ------------------------------------------------------------ replay
@@ -1134,16 +1214,20 @@ class ContinuousBatchingScheduler:
 
     # --------------------------------------------------------------- run
     def run(self, requests: Sequence[Request], *,
+            pipeline: Optional[bool] = None,
             rng_keys: Optional[Sequence] = None) -> List:
-        """Submit every request, step until idle, close, return the
-        results in submission order (a request that failed under a fault
-        raises its typed error here). ``rng_keys`` optionally gives
-        request i an explicit PRNG root (overriding its seed)."""
+        """Submit every request, step until idle, :meth:`flush` the replay
+        stream, close, return the results in submission order (a request
+        that failed under a fault raises its typed error here).
+        ``pipeline`` overrides ``SchedulerConfig.pipeline``; ``rng_keys``
+        optionally gives request i an explicit PRNG root (overriding its
+        seed)."""
         if not requests:
             return []
         b = self._num_slots or min(len(requests), self.scfg.num_slots)
         self._ensure_started(num_slots=max(1, min(b, len(requests))),
-                             slots_len=self._slot_budget(requests))
+                             slots_len=self._slot_budget(requests),
+                             pipeline=pipeline)
         handles = [self.submit(r, rng_key=rng_keys[i] if rng_keys else None)
                    for i, r in enumerate(requests)]
         max_chunks = self.scfg.max_chunks or (
@@ -1153,6 +1237,7 @@ class ContinuousBatchingScheduler:
             while self.step():
                 assert self.stats["chunks"] <= max_chunks, \
                     f"scheduler made no progress after {max_chunks} chunks"
+            self.flush()
         finally:
             self.close()
         assert all(h.done for h in handles)

@@ -1,7 +1,8 @@
 """Helpers the port's open-session parity tests share: one tiny MoE (the
 JAX package's ``tests/test_faults.py`` fixture, 2 layers, d_model 64, 4
-experts top-2) served by the JAX engine (``pipeline=False``, its inline
-replay) and by the port's engine on the CPU, from the same numpy-made
+experts top-2) served by the JAX engine and by the port's engine on the
+CPU (both ``pipeline=False``, the inline replay, unless a test asks for
+the pipelined worker), from the same numpy-made
 params; and the outcome of every handle as plain values, so the two
 sessions compare with ``==`` (tokens, typed-error classes, result flags
 and modeled numbers exactly; NaN stands for itself)."""
@@ -48,16 +49,16 @@ class Pair:
             profile=EdgeProfile().with_vram(16),
             decode_chunk=decode_chunk), device="cpu")
 
-    def serve(self, which, faults=(), seed=0, **kw):
+    def serve(self, which, faults=(), seed=0, pipeline=False, **kw):
         eng = getattr(self, which)
         if which == "jax":
             eng.faults = JInjector([JSpec(site=s, **k) for s, k in faults],
                                    seed=seed) if faults else None
-            return eng.serve(pipeline=False, **kw)
+            return eng.serve(pipeline=pipeline, **kw)
         eng.faults = FaultInjector([FaultSpec(site=s, **k)
                                     for s, k in faults],
                                    seed=seed) if faults else None
-        return eng.serve(**kw)
+        return eng.serve(pipeline=pipeline, **kw)
 
 
 def request_cls(which):

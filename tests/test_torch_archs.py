@@ -1,5 +1,5 @@
 """Port parity for the non-MoE architectures end to end: every one of the
-12 ``ARCH_IDS`` is served (``_check_supported`` refuses none of their
+12 ``ARCH_IDS`` is served (the engine refuses none of their
 ``.reduced()`` configs), and on ``qwen3_0p6b`` (dense), ``zamba2_1p2b``
 (Mamba2 + shared attention), ``falcon_mamba_7b`` (Mamba1) and
 ``musicgen_medium`` (GELU, sinusoidal positions) ``.reduced()`` the port's

@@ -13,8 +13,12 @@ over the session, so its cases need few device steps.
     for request, placements included;
   * ``QueueFull`` reroutes before it surfaces; stream and cancel are
     sticky; merged health; a replay fault drains and cold-restarts its
-    replica, sync and threaded, every handle resolving;
-  * ``pipeline=True`` is refused (the port's replay is inline).
+    replica, sync and threaded, every handle resolving.
+
+The routers here run the session's default, the pipelined replay (the
+JAX router of the parity case replays inline: the modeled numbers are the
+same either way); ``tests/test_torch_pipeline.py`` holds a pipelined
+router to the JAX package's pipelined one.
 
 Tolerance: none — tokens and modeled numbers are compared with ``==``.
 """
@@ -260,11 +264,6 @@ def test_cluster_health_merges_counters(engine):
     assert health.merged.submitted == sum(
         s.submitted for s in health.replicas)
     assert router.health().status == "closed"
-
-
-def test_pipeline_is_refused(engine):
-    with pytest.raises(NotImplementedError, match="inline"):
-        ClusterRouter.replicate(engine, 2, pipeline=True)
 
 
 # ------------------------------------------------ replica fault + restart

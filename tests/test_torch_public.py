@@ -36,7 +36,7 @@ from repro_torch.quant import MixedPrecisionWeights, QuantizedTensor, \
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 # reference names the port does not have yet -> the ROADMAP item porting it
-NOT_PORTED = {"serving": {"ReplayStream": "§1 item 1, the pipelined replay"}}
+NOT_PORTED = {}
 
 
 @pytest.mark.parametrize("pkg", ["core", "quant", "models", "serving",

@@ -97,13 +97,14 @@ def test_loss_and_grads_match_reference(arch, monkeypatch):
         return y, st
 
     def trecord(*a, **kw):
-        y, st = moe_apply(*a, **kw)
+        y, st = tmoe_sharded(*a, **kw)
         tloads.append(n(st.expert_load))
         return y, st
 
-    moe_sharded, moe_apply = jmodel.moe_apply_sharded, tmodel.moe_apply
+    moe_sharded, tmoe_sharded = (jmodel.moe_apply_sharded,
+                                 tmodel.moe_apply_sharded)
     monkeypatch.setattr(jmodel, "moe_apply_sharded", jrecord)
-    monkeypatch.setattr(tmodel, "moe_apply", trecord)
+    monkeypatch.setattr(tmodel, "moe_apply_sharded", trecord)
     (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
         lambda p, bt: jmodel.loss_fn(p, cfg, bt), has_aux=True))(
             params, {k: jnp.asarray(v) for k, v in batch.items()})

@@ -46,8 +46,8 @@ from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import Request as JRequest
 from repro_torch.models.kv_cache import fill_kv_cache, init_kv_cache, \
     update_kv_cache
-from repro_torch.models.model import _check_supported, \
-    decode_many_batched, decode_step, init_decode_state, prefill
+from repro_torch.models.model import decode_many_batched, decode_step, \
+    init_decode_state, prefill
 from repro_torch.serving import DyMoEEngine, EngineConfig, Request
 
 W = 8
@@ -121,19 +121,28 @@ def test_ring_fill_refusals():
         assert st["shared"].index(0).ring == ring
 
 
-@pytest.mark.parametrize("over,refused", [
-    (dict(sliding_window=W), False), (dict(moe_dispatch_shards=2), True),
-    (dict(act_seq_shard=True), True)])
-def test_check_supported_refuses_only_sharding(over, refused):
-    """A window is served; sharded MoE dispatch and the sequence-sharded
-    residual are still refused (ROADMAP §1 item 2)."""
-    cfg = dataclasses.replace(port_cfg(jget_config("olmoe_1b_7b").reduced()),
-                              **over)
-    if refused:
-        with pytest.raises(NotImplementedError):
-            _check_supported(cfg)
-    else:
-        _check_supported(cfg)
+@pytest.mark.parametrize("over", [
+    dict(sliding_window=W), dict(moe_dispatch_shards=2),
+    dict(act_seq_shard=True)],
+    ids=["window", "dispatch_shards", "act_seq_shard"])
+def test_check_supported_refuses_only_sharding(over):
+    """Nothing the JAX package serves on one device is refused any more: a
+    window, the data-local MoE dispatch (2 token groups of 10) and the
+    sequence-sharded residual each prefill a 20-token prompt ("4/2") to
+    the JAX package's logits and telemetry."""
+    cfg = dataclasses.replace(jget_config("olmoe_1b_7b").reduced(), **over)
+    params = numpy_init(lambda: jinit_params(cfg, jax.random.PRNGKey(0)))
+    jqp, tqp = quantized_pair(params, cfg)
+    prompt = np.random.default_rng(7).integers(1, cfg.vocab_size, (1, 20))
+    slots = cfg.sliding_window or 24
+    jl, _, ji = jit_run(lambda: jprefill(params, cfg, jnp.asarray(prompt),
+                                         qparams=jqp, cache_slots=slots))
+    tl, _, ti = prefill(port(params), port_cfg(cfg), t(prompt), qparams=tqp,
+                        cache_slots=slots)
+    np.testing.assert_allclose(n(tl), np.asarray(jl), **TOL)
+    for f in ("critical_masks", "active_masks", "expert_load"):
+        np.testing.assert_array_equal(n(getattr(ti, f)),
+                                      np.asarray(getattr(ji, f)), err_msg=f)
 
 
 # ------------------------------------------------- prefill and decode chunk

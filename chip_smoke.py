@@ -125,7 +125,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      checkpoint restores bit for bit, and engines on the restored and on
      the in-memory weights serve 4 requests ("4/2") to the same tokens
      with K1 and K2 launched (``train_skew:``: each layer's expert-load
-     skew at init and after training).
+     skew at init and after training);
+  8. expert_parallel — serving over a (1, 4) mesh of ``torch.distributed``
+     ranks that share the one card over gloo (``expert_parallel:`` line;
+     ``_expert_parallel_phase``): reduced f32 qwen2_moe_a2p7b expert- and
+     tensor-parallel, every rank's tokens, replay masks and modeled
+     TTFT/TPOT equal to the one-rank CPU run; full-width OLMoE-1B-7B
+     ("4/2") through the launcher's ``--full --expert-parallel`` loop in
+     f32 (tokens equal to the one-rank run) and bf16 (rows matching
+     reported), each rank's routed store exactly 1/4 of the one-rank
+     store and its K1/K2 launches equal to the one-rank run's; per rank:
+     peak memory, eager ms a decode step, collectives a step and their
+     seconds.
 
 The ``prefill_graph:`` line holds the six full-width prefill gates: the
 compiled prefill's eager protocol (``graphs=False``) against the
@@ -3358,6 +3369,263 @@ def _train_phase(dev) -> dict:
     return launches
 
 
+EP_RANKS = 4
+# the full-width loop of the expert_parallel phase: the launcher's flow
+EP_ARGV = ["--full", "--requests", "3", "--num-slots", "2", "--prompt-len",
+           "64", "--max-new", "8"]
+
+
+def _ep_requests() -> list:
+    """The reduced gate's requests: four ragged prompts (12-21 tokens),
+    4-7 new tokens, through 2 slots."""
+    from repro_torch.serving import Request
+    return [Request(prompt_tokens=list(range(1 + i, 13 + 4 * i)),
+                    max_new_tokens=4 + i, request_id=f"req-{i}")
+            for i in range(4)]
+
+
+def _ep_served(engine, reqs) -> dict:
+    """``generate_batch`` over 2 slots and one ``generate``: every
+    request's tokens and modeled TTFT/TPOT, and each replay's Critical and
+    active masks (in replay order)."""
+    import numpy as np
+
+    masks, inner = [], engine._replay
+
+    def rec(crit, active, pred, **kw):
+        masks.append((np.asarray(crit, bool).tolist(),
+                      np.asarray(active, bool).tolist()))
+        return inner(crit, active, pred, **kw)
+
+    engine._replay = rec
+    try:
+        res = engine.generate_batch(reqs, num_slots=2) + [
+            engine.generate(reqs[-1])]
+    finally:
+        engine._replay = inner
+    return dict(rows=[(r.tokens, r.ttft_s, r.tpot_s) for r in res],
+                masks=masks)
+
+
+def _routed_bytes(engine) -> int:
+    """Bytes of the routed experts' packed store this process holds (its
+    block of each split leaf)."""
+    total = 0
+    for mp in engine.qparams["layers"]["moe"].values():
+        for qt in (mp.high, mp.low):
+            if qt is None:
+                continue
+            for t in (qt.packed, qt.scales):
+                t = getattr(t, "local", t)
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _ep_get_config(launcher, dtype: str):
+    """``launcher.get_config`` with the config's dtype set to ``dtype``."""
+    import dataclasses
+
+    real = launcher.get_config
+    return lambda name: dataclasses.replace(real(name), dtype=dtype)
+
+
+class _TimedChunks:
+    """``engine._decode_batched`` with each decode chunk timed (host clock
+    between two synchronizes) and, over a mesh, its collectives counted;
+    everything else delegated."""
+
+    def __init__(self, inner, mesh):
+        self._inner, self._mesh = inner, mesh
+        self.s, self.steps, self.collectives, self.collective_s = \
+            0.0, 0, 0, 0.0
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def __call__(self, state, tokens, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        m = self._mesh
+        c0, s0 = (m.collectives, m.collective_s) if m else (0, 0.0)
+        t0 = time.perf_counter()
+        out = self._inner(state, tokens, **kw)
+        torch.cuda.synchronize()
+        self.s += time.perf_counter() - t0
+        self.steps += kw["num_steps"]
+        if m:
+            self.collectives += m.collectives - c0
+            self.collective_s += m.collective_s - s0
+        return out
+
+
+def _ep_full(launcher, args, engine, mesh=None) -> dict:
+    """The launcher's open loop on ``engine`` (its output kept out of this
+    script's), counted: K1/K2 launches from 0, tokens, the decode chunks'
+    seconds and steps (graph replays on one rank, eager over a mesh) and
+    — over a mesh — their collectives. On one rank a warm run first
+    captures the keys (a capture's warm-up step launches K1)."""
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+
+    if mesh is None:
+        _launcher_run(launcher, args, engine)
+    chunks = engine._decode_batched = _TimedChunks(engine._decode_batched,
+                                                   mesh)
+    km.reset_launch_counts()                   # the path starts here
+    report, handles, wall, _ = _launcher_run(launcher, args, engine)
+    launches = dict(km.LAUNCHES)               # ... and ends here
+    engine._decode_batched = chunks._inner
+    steps = max(chunks.steps, 1)
+    return dict(tokens=[h.result().tokens for h in handles],
+                n_devices=report["n_devices"],
+                expert_parallel=report["expert_parallel"], wall_s=wall,
+                launches=launches, routed_bytes=_routed_bytes(engine),
+                decode_steps=chunks.steps,
+                ms_per_step=chunks.s / steps * 1e3,
+                collectives_per_step=chunks.collectives / steps,
+                collective_s=chunks.collective_s,
+                collective_share=(chunks.collective_s / chunks.s
+                                  if chunks.s else None))
+
+
+def _ep_rank(rank: int, device, cfg, reqs) -> dict:
+    """One of ``EP_RANKS`` gloo ranks sharing the card: the reduced gate
+    (expert- and tensor-parallel engines on this rank's shards of weights
+    drawn as the parent draws them), then the launcher's ``--full
+    --expert-parallel`` flow in f32 and in bf16."""
+    import gc
+
+    import torch
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.models.model import init_sharded
+    from repro_torch.serving import DyMoEEngine, EdgeProfile, EngineConfig
+
+    mesh = make_sim_mesh(EP_RANKS)
+    out = dict(rank=rank)
+    for ep in (True, False):
+        gen = torch.Generator(device=device).manual_seed(0)
+        p, q = init_sharded(cfg, gen, mesh, expert_parallel=ep,
+                            device=device)
+        eng = DyMoEEngine(cfg, p, EngineConfig(
+            profile=EdgeProfile().with_vram(12), decode_chunk=4),
+            device=device, qparams=q, mesh=mesh, expert_parallel=ep)
+        out["reduced_" + ("ep" if ep else "tp")] = _ep_served(eng, reqs)
+        del eng, p, q
+    real = launcher.get_config
+    for dtype in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launcher.get_config = _ep_get_config(launcher, dtype)
+        try:
+            args = launcher.parse_args(EP_ARGV + [
+                "--expert-parallel", "--device", str(device)])
+            t0 = time.perf_counter()
+            engine = launcher.build_engine(args, mesh)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        finally:
+            launcher.get_config = real
+        run = _ep_full(launcher, args, engine, mesh)
+        run.update(build_s=build_s, compiles=engine._decode_batched.compiles
+                   + engine._prefill.compiles,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out[dtype] = run
+        del engine
+    return out
+
+
+def _expert_parallel_phase(dev) -> dict:
+    """Expert-parallel serving over a (1, 4) mesh of gloo ranks sharing
+    the one card (``expert_parallel:`` line), against one-rank runs of
+    the same weights. Reduced gate: f32 qwen2_moe_a2p7b (4 experts, 1
+    shared) expert- and tensor-parallel — every rank's tokens, replay
+    masks and modeled TTFT/TPOT equal the one-rank CPU run's. Full width:
+    olmoe_1b_7b "4/2" (16 layers, 64 experts: 16 a rank) through the
+    launcher's ``--full --expert-parallel`` open loop, in f32 (tokens
+    gated equal to the one-rank run of the same requests) and bf16 (the
+    match count reported: bf16 tokens depend on the batch); each rank's
+    routed store exactly 1/4 of the one-rank store and its K1/K2 launches
+    equal the one-rank run's. Returns the launch counts of rank 0's bf16
+    run (the serving dtype)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, EdgeProfile, EngineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2_moe_a2p7b").reduced()
+    reqs = _ep_requests()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    cpu = DyMoEEngine(cfg, params, EngineConfig(
+        profile=EdgeProfile().with_vram(12), decode_chunk=4), device="cpu")
+    want = _ep_served(cpu, reqs)
+    del cpu, params
+    one = {}
+    real = launcher.get_config
+    for dtype in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        launcher.get_config = _ep_get_config(launcher, dtype)
+        try:
+            args = launcher.parse_args(EP_ARGV + ["--device", str(dev)])
+            engine = launcher.build_engine(args)
+        finally:
+            launcher.get_config = real
+        one[dtype] = _ep_full(launcher, args, engine)
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_ep_rank, EP_RANKS, cfg, reqs, device=str(dev),
+                  timeout_s=300.0)
+    ranks_s = time.perf_counter() - t0
+    per_rank, bf16_match = [], []
+    for r in ranks:
+        for mode in ("reduced_ep", "reduced_tp"):
+            assert r[mode] == want, (r["rank"], mode)
+        for dtype in ("float32", "bfloat16"):
+            run, ref = r[dtype], one[dtype]
+            assert run["n_devices"] == EP_RANKS and run["expert_parallel"]
+            assert run["routed_bytes"] * EP_RANKS == ref["routed_bytes"], \
+                (dtype, run["routed_bytes"], ref["routed_bytes"])
+            assert run["launches"] == ref["launches"], \
+                (dtype, run["launches"], ref["launches"])
+            assert run["launches"]["expert_quant_matmul_grouped"] > 0
+            assert run["launches"]["expert_quant_matmul"] > 0
+            assert run["compiles"] == 0
+        assert r["float32"]["tokens"] == one["float32"]["tokens"], r["rank"]
+        bf16_match.append(sum(a == b for a, b in zip(
+            r["bfloat16"]["tokens"], one["bfloat16"]["tokens"])))
+        per_rank.append(dict(rank=r["rank"], **{
+            dtype: {k: r[dtype][k] for k in (
+                "routed_bytes", "peak_gib", "launches", "build_s", "wall_s",
+                "decode_steps", "ms_per_step", "collectives_per_step",
+                "collective_s", "collective_share")}
+            for dtype in ("float32", "bfloat16")}))
+    summary = dict(
+        ranks=EP_RANKS, backend="gloo", reduced=dict(
+            config="qwen2_moe_a2p7b reduced f32", modes=["ep", "tp"],
+            requests=len(reqs), equal=True),
+        one_rank={d: {k: one[d][k] for k in ("routed_bytes", "launches",
+                                             "wall_s", "decode_steps",
+                                             "ms_per_step")} for d in one},
+        f32_tokens_equal=True,
+        bf16_tokens_match=f"{min(bf16_match)}/{len(one['bfloat16']['tokens'])}",
+        per_rank=per_rank, ranks_s=ranks_s,
+        phase_s=time.perf_counter() - t_phase)
+    print("expert_parallel: " + json.dumps(summary), flush=True)
+    return ranks[0]["bfloat16"]["launches"]
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py  (takes no arguments; runs "
@@ -3437,6 +3705,7 @@ def main() -> int:
     frontend_paths, _ = _frontend_phase(dev)
     by_path.update(frontend_paths)
     by_path["train_serve"] = _train_phase(dev)
+    by_path["expert_parallel"] = _expert_parallel_phase(dev)
 
     kernels = []
     for name, (source, replaces, library) in KERNELS.items():

@@ -29,10 +29,24 @@ counters:
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \\
       --replicas 2 --device cpu
 
-``--expert-parallel`` (expert-parallel sharding over a mesh) is not ported
-and raises. Weights are random, drawn from a ``torch.Generator`` seeded
-with 0 (the reference draws its own with ``jax.random.PRNGKey(0)``; the two
-cannot agree, so parity tests carry JAX-made weights across with
+Expert parallelism (``--expert-parallel``): the model is served sharded
+over a (1, n) mesh of ranks — routed expert stores split over E, the
+other weights split as ``sharding/partition.py`` rules, KV slots over the
+model axis — every rank running the same program (SPMD over
+``torch.distributed``). Under ``torchrun`` it uses the world torchrun
+gives it; otherwise it spawns 4 ranks on ``--device`` (the reference's
+"best-effort 4 simulated host devices"): gloo on the CPU or on one shared
+card, NCCL when each rank has a card of its own. Each rank draws only its
+own shards (``models.model.init_sharded``); rank 0 prints the report,
+with ``expert_parallel: true`` and ``n_devices`` the world size. A
+replica tier over a mesh runs its replicas on the calling thread.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --expert-parallel \
+      --requests 4 --device cpu
+
+Weights are random, drawn from a ``torch.Generator`` seeded with 0 (the
+reference draws its own with ``jax.random.PRNGKey(0)``; the two cannot
+agree, so parity tests carry JAX-made weights across with
 ``repro_torch.params.from_reference``).
 """
 from __future__ import annotations
@@ -40,15 +54,18 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import init_world, make_sim_mesh, spawn
 from repro_torch.models.config import DyMoEPolicy
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, init_sharded
 from repro_torch.serving import ClusterRouter, DyMoEEngine, EngineConfig, \
     Request, SamplingParams, submit_with_retry
 from repro_torch.serving.cost_model import EdgeProfile
@@ -97,8 +114,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "— N sessions over one shared engine, least-"
                          "loaded placement, one driver thread per replica")
     ap.add_argument("--expert-parallel", action="store_true",
-                    help="expert-parallel sharding over a mesh: not ported "
-                         "(raises)")
+                    help="load the model sharded over a (1, n) mesh of "
+                         "ranks: routed expert stores split over E, KV "
+                         "slots over the model axis (under torchrun its "
+                         "world; else 4 ranks spawned on --device)")
     ap.add_argument("--device", default=None,
                     help="torch device; default CUDA (raises without it)")
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -108,15 +127,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build_engine(args: argparse.Namespace) -> DyMoEEngine:
+def build_engine(args: argparse.Namespace, mesh=None) -> DyMoEEngine:
     """The launcher's engine: the config (reduced unless ``--full``) under
     the ``--mode`` policy, random weights from a generator seeded with 0,
-    on ``--device``."""
-    if args.expert_parallel:
-        raise NotImplementedError(
-            "--expert-parallel: expert-parallel sharding over a mesh "
-            "(moe_apply_sharded, sharding/partition.py) is not ported to "
-            "the PyTorch package yet; see ROADMAP.md")
+    on ``--device``; with ``mesh``, this rank's expert-parallel shards of
+    the same weights."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -126,12 +141,20 @@ def build_engine(args: argparse.Namespace) -> DyMoEEngine:
         low_bits=0 if args.mode == "4/0" else 2,
         retention=args.retention))
     gen = torch.Generator(device=device).manual_seed(0)
-    return DyMoEEngine(cfg, init_params(cfg, gen, device), EngineConfig(
+    ecfg = EngineConfig(
         profile=EdgeProfile().with_vram(args.vram_gb),
         use_dymoe=args.mode != "off",
         enable_cache=not args.no_cache,
         enable_prefetch=not args.no_prefetch,
-        enable_dyquant=args.mode != "off"), device=device)
+        enable_dyquant=args.mode != "off")
+    if mesh is None:
+        return DyMoEEngine(cfg, init_params(cfg, gen, device), ecfg,
+                           device=device)
+    params, qparams = init_sharded(cfg, gen, mesh, expert_parallel=True,
+                                   device=device,
+                                   quantize=args.mode != "off")
+    return DyMoEEngine(cfg, params, ecfg, device=device, qparams=qparams,
+                       mesh=mesh, expert_parallel=True)
 
 
 def _request(args: argparse.Namespace, i: int, priority: int = 0) -> Request:
@@ -152,8 +175,11 @@ def run(args: argparse.Namespace, engine: DyMoEEngine
     the request handles — or, one-shot, the ``GenerationResult`` — for a
     caller that checks full token lists, and the closed session: the
     ``ClusterRouter`` whose replicas keep what their driver threads
-    caught in ``last_error``, the engine's session, or None one-shot)."""
+    caught in ``last_error``, the engine's session, or None one-shot).
+    Over a mesh only rank 0 prints."""
     cfg = engine.cfg
+    mesh = engine.mesh
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     if args.requests <= 1:
         res = engine.generate(_request(args, 0))
         return dict(
@@ -165,11 +191,14 @@ def run(args: argparse.Namespace, engine: DyMoEEngine
 
     # ---- open serving loop: staggered submissions + streamed tokens
     slots_len = args.prompt_len + args.max_new + args.requests
+    # driver threads, one a replica — but not over a mesh of several
+    # ranks, whose replicas step in one order on the calling thread
+    threaded = args.replicas > 1 and not engine.eager
     if args.replicas > 1:
         session = ClusterRouter.replicate(
             engine, args.replicas, num_slots=args.num_slots,
             slots_len=slots_len, max_queue=args.max_queue,
-            policy=args.policy, threaded=True)
+            policy=args.policy, threaded=threaded)
     else:
         session = engine.serve(num_slots=args.num_slots,
                                slots_len=slots_len,
@@ -182,27 +211,27 @@ def run(args: argparse.Namespace, engine: DyMoEEngine
             handles.append(submit_with_retry(session, _request(args, i),
                                              drive=True))
         for _ in range(2):       # the engine is already decoding...
-            if args.replicas > 1:
+            if threaded:
                 time.sleep(0.02)   # ...on the per-replica driver threads
             else:
-                engine.step()
+                session.step()
         # ...the burst arrives — under --policy edf with --priority > 0
         # it admits first and may preempt the busy bulk slots
         for i in range(n_first, args.requests):
             handles.append(submit_with_retry(
                 session, _request(args, i, priority=args.priority),
                 drive=True))
-        print(f"# streaming {handles[-1].request_id} "
-              f"(submitted mid-run, admitted into a freed slot):")
+        say(f"# streaming {handles[-1].request_id} "
+            f"(submitted mid-run, admitted into a freed slot):")
         for ev in handles[-1].stream():
-            print(f"  {ev.phase:8s} +{len(ev.tokens):2d} tok "
+            say(f"  {ev.phase:8s} +{len(ev.tokens):2d} tok "
                   f"modeled {ev.modeled_s * 1e3:8.3f} ms  {ev.tokens}")
         session.drain(cancel_queued=False)   # resolve every handle
     except KeyboardInterrupt:
         # graceful Ctrl-C: finish what's in flight, cancel what's still
         # queued, then report — a second Ctrl-C interrupts the drain too
-        print("\n# Ctrl-C: draining in-flight requests "
-              "(Ctrl-C again to abort the drain)...")
+        say("\n# Ctrl-C: draining in-flight requests "
+            "(Ctrl-C again to abort the drain)...")
         session.drain()
     finally:
         health = session.health()
@@ -224,7 +253,11 @@ def run(args: argparse.Namespace, engine: DyMoEEngine
                     preempted=r.preempted,
                     tokens=r.tokens[:8])
 
-    n_devices = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if mesh is not None:
+        n_devices = mesh.size      # the ranks the model is sharded over
+    else:
+        n_devices = (torch.cuda.device_count() if torch.cuda.is_available()
+                     else 0)
     return dict(
         arch=cfg.name, mode=args.mode, vram_gb=args.vram_gb,
         num_slots=args.num_slots, max_queue=args.max_queue,
@@ -236,11 +269,38 @@ def run(args: argparse.Namespace, engine: DyMoEEngine
         requests=[row(h) for h in handles]), handles, session
 
 
+def _rank_main(rank: int, device: torch.device, argv: List[str]) -> dict:
+    """One spawned rank of ``--expert-parallel``: the launcher on this
+    rank's device."""
+    return main(list(argv) + ["--device", str(device)])
+
+
+def _join_torchrun(device: Optional[str]) -> torch.device:
+    """Join the world torchrun describes in the environment; returns this
+    rank's device (``launch.mesh.init_world``'s choice of backend)."""
+    return init_world(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                      "env://", device or "cuda")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Parse ``argv``, serve, print the JSON report and return it."""
+    """Parse ``argv``, serve, print the JSON report and return it (over a
+    mesh: rank 0 prints; every rank returns its report)."""
+    argv = list(argv) if argv is not None else None
     args = parse_args(argv)
-    report, _, _ = run(args, build_engine(args))
-    print(json.dumps(report, indent=2))
+    mesh = None
+    if args.expert_parallel:
+        if not dist.is_initialized():
+            if "WORLD_SIZE" not in os.environ:
+                # no world: spawn the reference's 4 simulated devices
+                import sys
+                argv = sys.argv[1:] if argv is None else argv
+                return spawn(_rank_main, 4, argv,
+                             device=args.device or "cuda")[0]
+            args.device = str(_join_torchrun(args.device))
+        mesh = make_sim_mesh(dist.get_world_size())
+    report, _, _ = run(args, build_engine(args, mesh))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(report, indent=2))
     return report
 
 

@@ -35,6 +35,13 @@ class KVCache:
     lands in slot ``(length + offset) % S_slots`` instead of the last
     slot. Stacked caches carry a leading layer dim on every tensor;
     :meth:`index` views layer l.
+
+    ``shards`` / ``shard`` (static) say the slots are split over that many
+    ranks of a mesh's "model" axis (``sharding/partition.py``'s
+    ``cache_shardings``): this cache holds the block ``shard`` of the
+    ``shards × S_slots`` slots, and a write lands on the rank that owns its
+    slot. A split cache's prefill lays every row out LEFT-aligned (offset
+    0): a right-aligned row would have to be rolled across ranks.
     """
 
     k: torch.Tensor
@@ -44,11 +51,18 @@ class KVCache:
     offset: torch.Tensor
     ring: bool = dataclasses.field(default=False,
                                    metadata=dict(static=True))
+    shards: int = dataclasses.field(default=1, metadata=dict(static=True))
+    shard: int = dataclasses.field(default=0, metadata=dict(static=True))
 
     def index(self, i) -> "KVCache":
         return KVCache(k=self.k[i], v=self.v[i], positions=self.positions[i],
                        length=self.length[i], offset=self.offset[i],
-                       ring=self.ring)
+                       ring=self.ring, shards=self.shards, shard=self.shard)
+
+    def slot_block(self) -> Tuple[int, int]:
+        """(first global slot of this block, global slot count)."""
+        n = self.k.shape[-2]
+        return self.shard * n, self.shards * n
 
 
 @dataclasses.dataclass
@@ -77,11 +91,14 @@ def cache_tensors(cache) -> List[Tuple[str, torch.Tensor]]:
 
 def init_kv_cache(batch: int, num_kv_heads: int, slots: int, head_dim: int,
                   dtype=torch.bfloat16, device=None,
-                  layers: Optional[int] = None, ring: bool = False
-                  ) -> KVCache:
+                  layers: Optional[int] = None, ring: bool = False,
+                  shards: int = 1, shard: int = 0) -> KVCache:
     """Empty cache; ``layers`` adds the leading stacked layer dim;
-    ``ring`` makes the slots a sliding window."""
+    ``ring`` makes the slots a sliding window; ``shards`` > 1 keeps only
+    block ``shard`` of the ``slots`` (see :class:`KVCache`)."""
     lead = () if layers is None else (layers,)
+    assert slots % shards == 0, (slots, shards)
+    slots //= shards
     return KVCache(
         k=torch.zeros(lead + (batch, num_kv_heads, slots, head_dim),
                       dtype=dtype, device=device),
@@ -93,7 +110,7 @@ def init_kv_cache(batch: int, num_kv_heads: int, slots: int, head_dim: int,
                            device=device),
         offset=torch.zeros(lead + (batch,), dtype=torch.int32,
                            device=device),
-        ring=ring,
+        ring=ring, shards=shards, shard=shard,
     )
 
 
@@ -106,8 +123,11 @@ def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     As in the JAX package the masking happens at the write site (the old
     slot values are written back), so no row index is read on the host.
     A ring cache writes slot ``frontier % slots``; a full one clamps at
-    its last slot."""
-    b, _, slots, _ = cache.k.shape
+    its last slot. A split cache (``shards`` > 1) writes only the rows
+    whose slot lies in its block (the others write their old values
+    back); every block advances ``length``."""
+    b = cache.k.shape[0]
+    lo, slots = cache.slot_block()
     pos = cache.length                                   # (B,) int32
     frontier = pos + cache.offset
     slot = (frontier % slots if cache.ring
@@ -117,12 +137,18 @@ def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     vw = v_new[:, :, 0].to(cache.v.dtype)
     pw = pos
     length = cache.length + 1
+    write = None if live is None else live.to(torch.bool)
+    if cache.shards > 1:
+        n = cache.k.shape[-2]
+        own = (slot >= lo) & (slot < lo + n)
+        slot = torch.clamp(slot - lo, 0, n - 1)
+        write = own if write is None else own & write
+    if write is not None:
+        kw = torch.where(write[:, None, None], kw, cache.k[bidx, :, slot])
+        vw = torch.where(write[:, None, None], vw, cache.v[bidx, :, slot])
+        pw = torch.where(write, pos, cache.positions[bidx, slot])
     if live is not None:
-        lv = live.to(torch.bool)
-        kw = torch.where(lv[:, None, None], kw, cache.k[bidx, :, slot])
-        vw = torch.where(lv[:, None, None], vw, cache.v[bidx, :, slot])
-        pw = torch.where(lv, pos, cache.positions[bidx, slot])
-        length = torch.where(lv, length, cache.length)
+        length = torch.where(live.to(torch.bool), length, cache.length)
     cache.k[bidx, :, slot] = kw
     cache.v[bidx, :, slot] = vw
     cache.positions[bidx, slot] = pw
@@ -143,7 +169,13 @@ def fill_kv_cache(cache: KVCache, k_seq: torch.Tensor, v_seq: torch.Tensor,
     trailing ``slots`` keys, the key at absolute position p in slot
     p % slots, as :func:`update_kv_cache` lays them out, so decode
     continues seamlessly; its length is S. Ragged offsets are refused
-    there, as in the JAX package."""
+    there, as in the JAX package.
+
+    A split cache (``shards`` > 1) keeps its block of that layout, but
+    with every row LEFT-aligned (logical position j in global slot j,
+    offset 0; see :class:`KVCache`)."""
+    if cache.shards > 1:
+        return _fill_split(cache, k_seq, v_seq, lengths, offsets)
     b, _, s, _ = k_seq.shape
     slots = cache.k.shape[2]
     dev = cache.k.device
@@ -173,4 +205,46 @@ def fill_kv_cache(cache: KVCache, k_seq: torch.Tensor, v_seq: torch.Tensor,
     cache.positions.copy_(torch.where(filled, pos, torch.full_like(pos, -1)))
     cache.length.copy_(lengths)
     cache.offset.copy_(offsets)
+    return cache
+
+
+def _fill_split(cache: KVCache, k_seq: torch.Tensor, v_seq: torch.Tensor,
+                lengths: Optional[torch.Tensor],
+                offsets: Optional[torch.Tensor]) -> KVCache:
+    """:func:`fill_kv_cache` into this rank's block of a split cache."""
+    b, h, s, d = k_seq.shape
+    lo, slots = cache.slot_block()
+    n = cache.k.shape[2]
+    dev = cache.k.device
+    g = lo + torch.arange(n, dtype=torch.int64, device=dev)  # global slots
+    if s > slots:
+        assert cache.ring, (s, slots)
+        assert offsets is None, "ragged offsets unsupported for ring caches"
+        # the kept tail rolled by s % slots (fill_kv_cache's layout):
+        # global slot j holds position s - slots + (j - s % slots) % slots
+        pos = (s - slots) + (g - s % slots) % slots
+        cache.k.copy_(k_seq[:, :, pos])
+        cache.v.copy_(v_seq[:, :, pos])
+        cache.positions.copy_(pos.to(torch.int32)[None].expand(b, n))
+        cache.length.fill_(s)
+        cache.offset.zero_()
+        return cache
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    if offsets is None:
+        offsets = torch.zeros((b,), dtype=torch.int32, device=dev)
+    filled = g[None, :] < lengths[:, None]                     # (B, n)
+    src = torch.clamp(offsets[:, None].to(torch.int64) + g[None, :],
+                      max=s - 1)
+    idx = src[:, None, :, None].expand(b, h, n, d)
+    keep = filled[:, None, :, None]
+    zero = torch.zeros((), dtype=cache.k.dtype, device=dev)
+    cache.k.copy_(torch.where(keep, torch.gather(k_seq, 2, idx).to(
+        cache.k.dtype), zero))
+    cache.v.copy_(torch.where(keep, torch.gather(v_seq, 2, idx).to(
+        cache.v.dtype), zero))
+    cache.positions.copy_(torch.where(filled, g.to(torch.int32)[None, :],
+                                      torch.full_like(cache.positions, -1)))
+    cache.length.copy_(lengths)
+    cache.offset.zero_()
     return cache

@@ -9,6 +9,14 @@ attention einsums are the large matmuls the JAX package leaves to XLA).
 
 GQA runs in grouped layout (B, H_kv, G, S, D), so KV heads are never
 replicated. Shapes are batch-major: x (B, S, d_model).
+
+Under a mesh (``sharding/spmd.py``) the projections may be split: q, k and
+v come back whole on every rank through one gather, ``wo`` is a row split
+ended by a SUM. Prefill attention then runs whole on every rank (its Eq. 1
+mass is the one-device value); a decode step against a cache whose slots
+are split over the ranks is flash-decode: each rank's (max, sum, weighted
+V) over its own slots, gathered in one collective and combined (the MAX
+of the maxima, then the rescaled SUMs).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.kv_cache import KVCache, update_kv_cache
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rotary import apply_rope
+from repro_torch.sharding import spmd
 
 __all__ = ["attention_train", "attention_decode"]
 
@@ -35,11 +44,9 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
     """x: (B, S, dm) -> q (B,Hkv,G,S,D), k/v (B,Hkv,S,D), RoPE applied."""
     b, s, _ = x.shape
     h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = spmd.project_many(
+        x, [p["wq"], p["wk"], p["wv"]],
+        [p["bq"], p["bk"], p["bv"]] if cfg.qkv_bias else None)
     q = q.reshape(b, s, h, d).transpose(1, 2)            # (B, H, S, D)
     k = k.reshape(b, s, hk, d).transpose(1, 2)           # (B, Hkv, S, D)
     v = v.reshape(b, s, hk, d).transpose(1, 2)
@@ -110,16 +117,17 @@ def attention_train(p, cfg: ModelConfig, x: torch.Tensor, *,
             mass[:, :, lo:hi] += probs.sum(dim=(2, 3)) / (hk * g)
     out = torch.cat(outs, dim=3).reshape(b, hk * g, s, d)
     out = out.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
-    out = out @ p["wo"]
+    out = spmd.matmul(out, p["wo"])
     token_importance = mass.sum(dim=1) if want_token_importance else None
     return out, token_importance, (k, v)
 
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
-                     live: Optional[torch.Tensor] = None
+                     live: Optional[torch.Tensor] = None, mesh=None
                      ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode, x: (B, 1, dm). The cache is written in place;
-    ``live`` (B,) freezes finished rows' writes."""
+    ``live`` (B,) freezes finished rows' writes. A cache whose slots are
+    split over ``mesh``'s ranks is combined flash-decode style."""
     b = x.shape[0]
     positions = cache.length[:, None]    # (B, 1) position of the new token
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
@@ -135,9 +143,30 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
         valid &= cache.positions > (cur - cfg.sliding_window)
     logits = torch.where(valid[:, None, None, None, :], logits,
                          torch.full_like(logits, _NEG_INF))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqp,bkpd->bkgqd", probs.to(cdt),
-                       cache.v.to(cdt)).to(torch.float32)
+    if cache.shards > 1:
+        out = _split_softmax_v(mesh, logits, cache.v.to(cdt), cdt)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkgqp,bkpd->bkgqd", probs.to(cdt),
+                           cache.v.to(cdt)).to(torch.float32)
     out = out.reshape(b, cfg.num_heads, 1, cfg.head_dim)
     out = out.transpose(1, 2).reshape(b, 1, -1).to(x.dtype)
-    return out @ p["wo"], cache
+    return spmd.matmul(out, p["wo"]), cache
+
+
+def _split_softmax_v(mesh, logits: torch.Tensor, v: torch.Tensor,
+                     cdt) -> torch.Tensor:
+    """softmax(logits) @ v over slots split across ``mesh``'s ranks,
+    flash-decode style: each rank's (max, exp-sum, exp-weighted V) over
+    its own slots, gathered exactly through ONE collective and combined
+    alike on every rank (the rank maxima's MAX, then the rescaled SUMs).
+    Returns f32 (B, Hkv, G, 1, D)."""
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    pv = torch.einsum("bkgqp,bkpd->bkgqd", e.to(cdt), v).to(torch.float32)
+    parts = mesh.all_gather(torch.cat(
+        [pv, e.sum(dim=-1, keepdim=True), m], dim=-1)[None], 0)
+    # a rank with no valid slot has m = -1e30: its weight below is 0
+    w = torch.exp(parts[..., -1:] - parts[..., -1:].amax(dim=0))
+    return (parts[..., :-2] * w).sum(dim=0) / (parts[..., -2:-1] * w).sum(
+        dim=0)

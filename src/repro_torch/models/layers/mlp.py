@@ -5,6 +5,10 @@ On non-MoE architectures the dense FFN takes part in DyMoE's depth-aware
 precision schedule: ``mlp_quantized`` runs the FFN straight from the
 packed codes of the precision a per-layer criticality flag selects, each
 matmul one K2 launch through ``quant/mixed.py``'s 1-expert lift.
+
+Under a mesh (``sharding/spmd.py``) the float FFN is a Megatron pair (its
+input products stay local, one SUM ends ``w_down``) and the quantized one
+runs each K2 on its local N rows and gathers the output.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.mixed import mixed_precision_matmul
 from repro_torch.quant.qtensor import MixedPrecisionWeights
+from repro_torch.sharding import spmd
 
 __all__ = ["init_mlp", "mlp", "quantize_mlp", "mlp_quantized"]
 
@@ -38,7 +43,9 @@ def _act(cfg: ModelConfig, mm, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return _act(cfg, lambda name, h: h @ p[name], x) @ p["w_down"]
+    h = _act(cfg, lambda name, h: h @ spmd.local(p[name]), x)
+    h = spmd.to_down(h, p["w_up"], p["w_down"])
+    return spmd.from_down(h @ spmd.local(p["w_down"]), p["w_down"])
 
 
 def quantize_mlp(p, cfg: ModelConfig) -> dict:
@@ -57,7 +64,8 @@ def mlp_quantized(qp, cfg: ModelConfig, x: torch.Tensor,
     "x/0", zeros, so the residual passes the layer through."""
 
     def mm(name, h):
-        return mixed_precision_matmul(h, qp[name], critical,
+        return mixed_precision_matmul(h, spmd.local_mp(qp[name]), critical,
                                       skip_to_zero=True, out_dtype=x.dtype)
 
-    return mm("w_down", _act(cfg, mm, x))
+    h = spmd.to_down(_act(cfg, mm, x), qp["w_up"], qp["w_down"])
+    return spmd.from_down(mm("w_down", h), qp["w_down"])

@@ -18,6 +18,12 @@ packed-expert matmuls, and gathered back weighted by their gates.
   * ``moe_apply_prefill_rows`` — the batched admission wave: the same
     combined buffer at prefill shapes, with per-row solo capacities.
 
+Under a mesh (``sharding/spmd.py``) the routed stores may be split over
+E (expert-parallel: a rank runs its E/n experts, then the (E, M, dm)
+output is gathered exactly, so the combine is the one-device combine) or
+within each expert (the N of a quantized store, the d_ff of a float one);
+routing, slots and watermarks are computed whole on every rank.
+
 Parity traps handled here (each named where it is handled):
   * ties — router top-k through :func:`stable_topk`;
   * capacities — ``_capacity`` is host Python-float arithmetic;
@@ -39,6 +45,8 @@ from repro_torch.core.importance import stable_topk
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.mixed import mixed_precision_matmul
 from repro_torch.quant.qtensor import MixedPrecisionWeights
+from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import Shard
 
 __all__ = ["moe_apply", "moe_apply_sharded", "moe_apply_rows",
            "moe_apply_prefill_rows", "quantize_moe", "MoEStats"]
@@ -97,12 +105,48 @@ def _swiglu(mm, xb: torch.Tensor) -> torch.Tensor:
     return mm("w_down", h)
 
 
-def _expert_ffn(w_gate: torch.Tensor, w_up: torch.Tensor,
-                w_down: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+def _expert_block(w):
+    """(mesh, first expert, end) of this rank's experts when the routed
+    store ``w`` (float (E, K, N) or quantized) is split over E
+    (expert-parallel), else None."""
+    if isinstance(w, MixedPrecisionWeights):
+        if spmd.mp_split(w) != "e":
+            return None
+        w = w.high.packed
+    elif not isinstance(w, Shard) or w.dim != w.local.dim() - 3:
+        return None
+    lo, hi = w.block()
+    return w.mesh, lo, hi
+
+
+def _expert_swiglu(ws: dict, xb: torch.Tensor, mm) -> torch.Tensor:
+    """SwiGLU over the capacity buffer ``xb`` (E, M, dm) through the routed
+    stores ``ws`` (float or quantized), whole or split over a mesh:
+    ``mm(name, h, e0, e1)`` runs ``h``, the buffer of experts [e0, e1),
+    through this rank's block of ``ws[name]``.
+
+    Expert-parallel, each rank runs only its E/n experts and the (E, M,
+    dm) output is assembled by an exact gather, so the combine that
+    follows is the one-device combine. Split within the experts (N of a
+    quantized store, d_ff of a float one), every rank runs every expert on
+    its columns, gathered (or, for the float pair, summed) as
+    ``sharding/spmd.py`` sets out. Whole stores run as on one device."""
+    blk = _expert_block(ws["w_gate"])
+    if blk is not None:
+        mesh, lo, hi = blk
+        y = _swiglu(lambda name, h: mm(name, h, lo, hi), xb[lo:hi])
+        return mesh.all_gather(y.contiguous(), 0)
+    e = xb.shape[0]
+    h = F.silu(mm("w_gate", xb, 0, e)) * mm("w_up", xb, 0, e)
+    h = spmd.to_down(h, ws["w_up"], ws["w_down"])
+    return spmd.from_down(mm("w_down", h, 0, e), ws["w_down"])
+
+
+def _expert_ffn(p, xb: torch.Tensor) -> torch.Tensor:
     """Full-precision SwiGLU, (E, C, dm) -> (E, C, dm): the JAX package
     computes it outside any Pallas kernel, as these batched products."""
-    h = F.silu(torch.bmm(xb, w_gate)) * torch.bmm(xb, w_up)
-    return torch.bmm(h, w_down)
+    return _expert_swiglu(p, xb, lambda name, h, lo, hi: torch.bmm(
+        h, spmd.local(p[name])))
 
 
 def _expert_ffn_fixed(qweights: dict, prec: str,
@@ -110,8 +154,10 @@ def _expert_ffn_fixed(qweights: dict, prec: str,
     """SwiGLU with every expert at one fixed precision — the two-dispatch
     oracle of the fused path."""
     from repro_torch.kernels.quant_matmul.ops import expert_quant_matmul_fixed
-    return _swiglu(lambda name, h: expert_quant_matmul_fixed(
-        h, getattr(qweights[name], prec), out_dtype=xb.dtype), xb)
+    return _expert_swiglu(qweights, xb, lambda name, h, lo, hi:
+                          expert_quant_matmul_fixed(
+                              h, getattr(spmd.local_mp(qweights[name]),
+                                         prec), out_dtype=xb.dtype))
 
 
 def _expert_ffn_grouped(qweights: dict, xb: torch.Tensor,
@@ -121,23 +167,33 @@ def _expert_ffn_grouped(qweights: dict, xb: torch.Tensor,
     ``[cap_hi, M)``, skipping rows past the (E, 2) watermarks."""
     from repro_torch.kernels.quant_matmul.ops import \
         expert_quant_matmul_grouped
-    return _swiglu(lambda name, h: expert_quant_matmul_grouped(
-        h, qweights[name], counts, cap_hi=cap_hi, out_dtype=xb.dtype), xb)
+    return _expert_swiglu(qweights, xb, lambda name, h, lo, hi:
+                          expert_quant_matmul_grouped(
+                              h, spmd.local_mp(qweights[name]),
+                              counts[lo:hi], cap_hi=cap_hi,
+                              out_dtype=xb.dtype))
 
 
 def _expert_ffn_quantized(qw: dict, critical: torch.Tensor,
                           xb: torch.Tensor) -> torch.Tensor:
     """SwiGLU at the precision ``critical`` (E,) selects: three K2
     launches; "4/0" zeroes sub-critical experts inside the kernel."""
-    return _swiglu(lambda name, h: mixed_precision_matmul(
-        h, qw[name], critical, skip_to_zero=True, out_dtype=xb.dtype), xb)
+    return _expert_swiglu(qw, xb, lambda name, h, lo, hi:
+                          mixed_precision_matmul(
+                              h, spmd.local_mp(qw[name]), critical[lo:hi],
+                              skip_to_zero=True, out_dtype=xb.dtype))
 
 
 def _shared_experts(p, x: torch.Tensor) -> torch.Tensor:
-    """Always-active shared experts (Qwen2-MoE): (T, dm) -> (T, dm)."""
-    hs = F.silu(torch.einsum("td,edf->etf", x, p["shared_w_gate"]))
-    hs = hs * torch.einsum("td,edf->etf", x, p["shared_w_up"])
-    return torch.einsum("etf,efd->td", hs, p["shared_w_down"])
+    """Always-active shared experts (Qwen2-MoE): (T, dm) -> (T, dm); under
+    a mesh a Megatron pair over d_ff (one SUM)."""
+    up, down = p["shared_w_up"], p["shared_w_down"]
+    hs = F.silu(torch.einsum("td,edf->etf", x,
+                             spmd.local(p["shared_w_gate"])))
+    hs = hs * torch.einsum("td,edf->etf", x, spmd.local(up))
+    hs = spmd.to_down(hs, up, down)
+    return spmd.from_down(
+        torch.einsum("etf,efd->td", hs, spmd.local(down)), down)
 
 
 def _one_hot(idx: torch.Tensor, e: int, dtype) -> torch.Tensor:
@@ -201,7 +257,7 @@ def _experts(p, buf: torch.Tensor, critical_mask: Optional[torch.Tensor],
     if critical_mask is not None:
         assert qweights is not None
         return _expert_ffn_quantized(qweights, critical_mask, buf)
-    return _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf)
+    return _expert_ffn(p, buf)
 
 
 def _combine(p, cfg: ModelConfig, x: torch.Tensor, r: _Routed,
@@ -283,7 +339,8 @@ def moe_apply_sharded(p, cfg: ModelConfig, x: torch.Tensor, *,
     JAX package's do: loads summed, gate means, aux losses and dropped
     shares averaged over the groups, router logits back to (T, E).
     ``cfg.moe_dispatch_axes`` names the mesh axes the groups would be
-    pinned to; on one device it has no effect."""
+    pinned to: it has no effect on one device, and a mesh refuses it
+    (``models/model.py::_check_mesh``, the next slice)."""
     d = cfg.moe_dispatch_shards
     t = x.shape[0]
     if d <= 1 or t % d != 0:

@@ -45,6 +45,14 @@ identity: on one device it changes nothing here.
 Caches are written in place (see ``kv_cache.py`` and ``layers/ssm.py``):
 {"layers": KVCache or SSMCache with a leading L, "shared": KVCache with a
 leading n_sites (hybrid only)}.
+
+``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) runs the inference
+paths as one program on every rank of the mesh, over params and stores
+that ``sharding/partition.py`` split (``Shard`` leaves) and KV caches whose
+slots are split over "model" (``sharding/spmd.py`` places the
+collectives). This slice covers MoE and dense attention models on meshes
+whose every axis but "model" is 1; SSM and hybrid blocks, a data axis
+above 1 and ``cfg.moe_dispatch_axes`` raise under a mesh.
 """
 from __future__ import annotations
 
@@ -73,9 +81,11 @@ from repro_torch.models.layers.rotary import sinusoidal_embedding
 from repro_torch.models.layers.ssm import init_mamba, init_ssm_cache, \
     mamba_decode, mamba_prefill
 from repro_torch.quant.qtensor import MixedPrecisionWeights
+from repro_torch.sharding import spmd
 from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "quantize_model", "forward", "loss_fn",
+__all__ = ["init_params", "init_sharded", "quantize_model", "forward",
+           "loss_fn",
            "train_step_fn", "prefill", "decode_step", "decode_many",
            "decode_many_batched", "init_decode_state", "DyMoEInfo"]
 
@@ -166,8 +176,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``repro_torch.params``.)"""
     cfg.validate()
     device = resolve_device(generator.device if device is None else device)
-    dt = _dtype(cfg)
-    draw = _Draw(generator, device, dt)
+    return _init_tree(cfg, _Draw(generator, device, _dtype(cfg)))
+
+
+def _init_tree(cfg: ModelConfig, draw: _Draw) -> Dict[str, Any]:
+    """The params tree of :func:`init_params`, leaves from ``draw``."""
     L, dm, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
     kind = cfg.block_kinds()[0]
     lead = (L,)
@@ -223,6 +236,104 @@ def quantize_model(params, cfg: ModelConfig) -> Dict[str, Any]:
     return {"layers": {group: out}}
 
 
+class _Lazy:
+    """A leaf ``init_params`` asked for, not drawn yet: its shape, dtype
+    and draw (see :func:`init_sharded`)."""
+
+    def __init__(self, shape, dtype, sample):
+        self.shape, self.dtype, self.sample = tuple(shape), dtype, sample
+
+
+class _LazyDraw(_Draw):
+    """``init_params``' draws recorded in call order instead of made."""
+
+    def __init__(self, generator, device, dtype):
+        super().__init__(generator, device, dtype)
+        self.order: List[_Lazy] = []
+
+    def _fill(self, shape, dtype, sample):
+        self.order.append(_Lazy(shape, dtype or self.dtype, sample))
+        return self.order[-1]
+
+
+def init_sharded(cfg: ModelConfig, generator: torch.Generator, mesh, *,
+                 expert_parallel: bool = False, device=None,
+                 quantize: bool = True):
+    """This rank's shards of ``init_params(cfg, generator, device)`` and,
+    with ``quantize``, of ``quantize_model`` of them — equal to what
+    ``shard_tree`` keeps of the whole trees under ``param_shardings``
+    (``expert_parallel`` as there) — without building either whole: the
+    leaves are drawn in ``init_params``' order and a stacked one a layer
+    at a time, as it draws them; a rank keeps its block of each layer and
+    quantizes each layer of the DyMoE store's weights whole before it
+    keeps its block. Returns (params, qparams or None). Attention
+    architectures only, as every mesh of this slice."""
+    from repro_torch.sharding.partition import Shard, _block, _spec_for, \
+        _split_dim, param_shardings, shard_tree, tree_specs
+
+    _check_mesh(cfg, mesh)
+    cfg.validate()
+    device = resolve_device(generator.device if device is None else device)
+    draw = _LazyDraw(generator, device, _dtype(cfg))
+    lazy = _init_tree(cfg, draw)
+    paths = {}
+    tree_specs(lazy, lambda path, leaf: paths.setdefault(id(leaf), path))
+    pol = cfg.dymoe
+    group = "moe" if cfg.block_kinds()[0] == "attn_moe" else "mlp"
+    stacks: Dict[Any, Any] = {}
+
+    def keep(key, path: str, t: torch.Tensor, l: int, n: int) -> None:
+        """Layer ``l`` of the n-layer leaf at ``path``: this rank's block
+        of ``t``, into its stack."""
+        d = _split_dim(_spec_for(path, (n,) + tuple(t.shape), mesh,
+                                 expert_parallel), mesh)
+        blk = t if d is None else _block(t, d - 1, mesh)
+        if key not in stacks:
+            buf = blk.new_empty((n,) + tuple(blk.shape))
+            stacks[key] = buf if d is None else Shard(buf, d, mesh)
+        stack = stacks[key]
+        (stack.local if isinstance(stack, Shard) else stack)[l].copy_(blk)
+
+    made, qmade = {}, {}
+    for leaf in draw.order:
+        path = paths[id(leaf)]
+        if len(leaf.shape) <= 2:   # drawn whole, split by shard_tree below
+            made[id(leaf)] = leaf.sample(leaf.shape).to(leaf.dtype)
+            continue
+        n = leaf.shape[0]
+        name = path.rsplit("/", 1)[1]
+        quantized = quantize and path == f"/layers/{group}/{name}" \
+            and name.startswith("w_")
+        for l in range(n):
+            t = leaf.sample(leaf.shape[1:]).to(leaf.dtype)
+            keep(id(leaf), path, t, l, n)
+            if quantized:
+                mp = MixedPrecisionWeights.build(t, pol.high_bits,
+                                                 pol.low_bits or None,
+                                                 pol.group_size)
+                for prec, qt in (("high", mp.high), ("low", mp.low)):
+                    for f in ("packed", "scales") if qt else ():
+                        keep((name, prec, f), f"{path}/{prec}.{f}",
+                             getattr(qt, f), l, n)
+        made[id(leaf)] = stacks.pop(id(leaf))
+        if quantized:
+            qmade[name] = MixedPrecisionWeights(*(
+                None if qt is None else dataclasses.replace(
+                    qt, packed=stacks.pop((name, prec, "packed")),
+                    scales=stacks.pop((name, prec, "scales")))
+                for prec, qt in (("high", mp.high), ("low", mp.low))))
+
+    # (the leaves init_params filled outright, norms and biases, are real)
+    params = tree_specs(lazy, lambda path, leaf: made.get(id(leaf), leaf))
+    params = shard_tree(params, param_shardings(
+        params, mesh, expert_parallel=expert_parallel), mesh)
+    qparams = None
+    if quantize:
+        qparams = {"layers": {group: {
+            n: qmade[n] for n in lazy["layers"][group] if n in qmade}}}
+    return params, qparams
+
+
 def _alloc_stacked(mp: MixedPrecisionWeights,
                    n: int) -> MixedPrecisionWeights:
     def alloc(qt):
@@ -252,7 +363,7 @@ def _embed(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     frontend; sinusoidal positions added where the config uses them, from
     ``positions`` (B, S) (each row's own offsets in a ragged batch)."""
     x = (embeds.to(_dtype(cfg)) if embeds is not None
-         else params["embed"][tokens])
+         else spmd.embed(params["embed"], tokens))
     if cfg.pos_emb == "sinusoidal":
         b, s, dm = x.shape
         if positions is None:
@@ -263,8 +374,35 @@ def _embed(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
 
 
 def _lm_head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w).to(torch.float32)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return spmd.lm_head(x, w, cfg.tie_embeddings).to(torch.float32)
+
+
+def _check_mesh(cfg: ModelConfig, mesh) -> None:
+    """What this slice runs under a mesh (see the module docstring)."""
+    if mesh is None or mesh.size == 1:
+        return
+    nxt = "the next slice of the port (ROADMAP.md)"
+    if cfg.block_kinds()[0] not in ("attn_dense", "attn_moe") \
+            or cfg.shared_attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: SSM and hybrid blocks under a mesh are {nxt}")
+    if mesh.size != mesh.model_size:
+        raise NotImplementedError(
+            f"a {mesh.shape} mesh: a data or pod axis above 1 is {nxt}")
+    if cfg.moe_dispatch_axes:
+        raise NotImplementedError(
+            f"moe_dispatch_axes={cfg.moe_dispatch_axes} under a mesh is "
+            f"{nxt}")
+
+
+def _kv_split(mesh, slots: int) -> dict:
+    """``init_kv_cache``'s ``shards`` / ``shard`` for ``slots`` over
+    ``mesh``: split over "model" when it divides them (the guard of
+    ``cache_shardings``), else whole on every rank."""
+    if mesh is None or mesh.model_size == 1 or slots % mesh.model_size:
+        return {}
+    return dict(shards=mesh.model_size, shard=mesh.model_rank)
 
 
 def _t_l_array(cfg: ModelConfig) -> List[int]:
@@ -498,6 +636,7 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
             lengths: Optional[torch.Tensor] = None,
             row_local: bool = False,
             row_capacities: Optional[torch.Tensor] = None,
+            mesh=None,
             ) -> Tuple[torch.Tensor, Dict[str, Any], DyMoEInfo]:
     """Prefill, under DyMoE mixed precision when ``qparams`` is given and
     the policy is enabled (else at full precision). tokens: (B, S) int, or
@@ -516,11 +655,14 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     on its neighbours; MoE telemetry comes back (L, B, E).
     ``row_capacities`` (B,) pins each row's capacity to the host
     ``_capacity`` value. A no-op for non-MoE archs, whose rows are
-    independent already.
+    independent already. ``mesh``: run as one rank of it (module
+    docstring); the caches' slots are split over "model" where it divides
+    them.
 
     Returns (last-token logits (B, V) f32, caches {"layers": stacked
     KVCache or SSMCache, "shared": the hybrid's per-site KVCache stack},
     DyMoEInfo — its leaves None for non-MoE archs)."""
+    _check_mesh(cfg, mesh)
     kind = cfg.block_kinds()[0]
     hybrid = bool(cfg.shared_attn_every)
     src = tokens if tokens is not None else embeds
@@ -547,7 +689,8 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     else:
         caches = {"layers": init_kv_cache(b, cfg.num_kv_heads, slots,
                                           cfg.head_dim, dt, dev,
-                                          layers=cfg.num_layers, ring=ring)}
+                                          layers=cfg.num_layers, ring=ring,
+                                          **_kv_split(mesh, slots))}
     if hybrid:
         caches["shared"] = init_kv_cache(b, cfg.num_kv_heads, slots,
                                          cfg.head_dim, dt, dev,
@@ -705,11 +848,14 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
-                      device=None) -> Dict[str, Any]:
+                      device=None, mesh=None) -> Dict[str, Any]:
     """Fresh stacked caches sized for ``seq_len`` context, ring-buffered
     to the sliding window when one is configured (``device`` None means
     CUDA); an SSM state does not depend on ``seq_len``, the hybrid's
-    shared-site KV caches do."""
+    shared-site KV caches do. Under ``mesh`` a rank allocates only its
+    block of the slots where "model" divides them (``cache_shardings``'
+    layout)."""
+    _check_mesh(cfg, mesh)
     device = resolve_device(device)
     dt = _dtype(cfg)
     slots = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
@@ -721,7 +867,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     else:
         caches = {"layers": init_kv_cache(batch, cfg.num_kv_heads, slots,
                                           cfg.head_dim, dt, device,
-                                          layers=cfg.num_layers, ring=ring)}
+                                          layers=cfg.num_layers, ring=ring,
+                                          **_kv_split(mesh, slots))}
     if cfg.shared_attn_every:
         caches["shared"] = init_kv_cache(batch, cfg.num_kv_heads, slots,
                                          cfg.head_dim, dt, device,
@@ -733,7 +880,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 caches: Dict[str, Any], *, qparams: Optional[dict] = None,
                 per_row_moe: bool = False,
                 live_rows: Optional[torch.Tensor] = None,
-                moe_capacity: Optional[int] = None,
+                moe_capacity: Optional[int] = None, mesh=None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any], DyMoEInfo]:
     """One decode step. tokens: (B,) int. Returns (logits (B, V) f32,
     caches (updated in place), DyMoEInfo).
@@ -753,7 +900,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     way: their FFN / SSM projections run K2 from the tier's packed codes,
     and their telemetry leaves are None. Without ``qparams``, or with the
     policy disabled, every block runs its float weights (see the module
-    docstring)."""
+    docstring). ``mesh``: run as one rank of it (module docstring)."""
+    _check_mesh(cfg, mesh)
     if not per_row_moe and (live_rows is not None
                             or moe_capacity is not None):
         raise ValueError("live_rows / moe_capacity need per_row_moe=True")
@@ -764,7 +912,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     if kind == "attn_moe":
         return _decode_moe(params, cfg, x, caches,
                            qparams if dymoe_on else None, per_row_moe,
-                           live_rows, moe_capacity)
+                           live_rows, moe_capacity, mesh)
     tier, shared = _layer_tier_flags(cfg), _shared_flags(cfg)
     site = _site_index(cfg)
     q = qparams["layers"] if dymoe_on else None
@@ -778,7 +926,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
         if kind == "attn_dense":
             a, _ = attention_decode(lp["attn"], cfg,
                                     rmsnorm(lp["norm1"], x, cfg.norm_eps),
-                                    cache, live=live_rows)
+                                    cache, live=live_rows, mesh=mesh)
             x = x + a
             x = x + _ffn(lp, q, cfg, l, tier[l],
                          rmsnorm(lp["norm2"], x, cfg.norm_eps))
@@ -793,7 +941,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
-                qparams: dict, per_row_moe: bool, live_rows, moe_capacity):
+                qparams: dict, per_row_moe: bool, live_rows, moe_capacity,
+                mesh):
     """The MoE layer stack of :func:`decode_step`; ``qparams`` None runs
     the experts at full precision (every expert Critical)."""
     dymoe_on = qparams is not None
@@ -807,7 +956,8 @@ def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
         qm = _index_tree(qparams["layers"]["moe"], l) if dymoe_on else None
         a, _ = attention_decode(lp["attn"], cfg,
                                 rmsnorm(lp["norm1"], x, cfg.norm_eps),
-                                caches["layers"].index(l), live=live_rows)
+                                caches["layers"].index(l), live=live_rows,
+                                mesh=mesh)
         x = x + a
         h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
         hflat = h.reshape(b, -1)
@@ -874,7 +1024,7 @@ def decode_many(params, cfg: ModelConfig, tokens: torch.Tensor,
                 caches: Dict[str, Any], *, num_steps: int,
                 start_step=0, qparams: Optional[dict] = None, rng_key=None,
                 temperature=0.0, top_k: int = 0, row_keys=None,
-                row_temperatures=None, row_top_ks=None,
+                row_temperatures=None, row_top_ks=None, mesh=None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any], DyMoEInfo]:
     """``num_steps`` decode steps of one batch with one shared Critical
     set a layer (``decode_step(per_row_moe=False)``) — the path of
@@ -916,7 +1066,7 @@ def decode_many(params, cfg: ModelConfig, tokens: torch.Tensor,
     toks, infos = [], []
     for i in range(num_steps):
         logits, caches, info = decode_step(params, cfg, tok, caches,
-                                           qparams=qparams)
+                                           qparams=qparams, mesh=mesh)
         if row_mode:
             tok = sample_token_rows(
                 logits, fold_in(row_keys, start_step + i),
@@ -950,7 +1100,7 @@ def decode_many_batched(params, cfg: ModelConfig, tokens: torch.Tensor,
                         qparams: dict, live_cap: Optional[int] = None,
                         rng_keys: Optional[torch.Tensor] = None,
                         temperatures: Optional[torch.Tensor] = None,
-                        top_ks: Optional[torch.Tensor] = None,
+                        top_ks: Optional[torch.Tensor] = None, mesh=None,
                         ) -> Tuple[torch.Tensor, Dict[str, Any],
                                    DyMoEInfo, torch.Tensor, torch.Tensor]:
     """Multi-step decode over a slot batch with a per-row done-mask — the
@@ -986,7 +1136,7 @@ def decode_many_batched(params, cfg: ModelConfig, tokens: torch.Tensor,
         live = ~dn
         logits, caches, info = decode_step(
             params, cfg, tok, caches, qparams=qparams, per_row_moe=True,
-            live_rows=live, moe_capacity=live_cap)
+            live_rows=live, moe_capacity=live_cap, mesh=mesh)
         if rng_keys is None:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # first max
         else:

@@ -39,7 +39,14 @@ Each session replays its telemetry on its own ``ReplayStream`` worker
     are process-wide): replicas on driver threads serialize their device
     work on the engine's ``lock``, each unit of work held until its
     outputs have been read or injected; their host work (the replay)
-    overlaps. Expert-parallel sharding over a mesh is not ported.
+    overlaps.
+  * **A sharded engine is one rank of an SPMD program** (the engine's
+    ``mesh``; the JAX package partitions with GSPMD instead): every rank
+    runs the same router, which must step its replicas in one order on
+    every rank, so over a mesh of several ranks the tier runs
+    ``threaded=False`` (``threaded=True`` raises) and a handle's
+    ``result`` / ``stream`` flush the replays before each decision to
+    step.
 
 Routing contract:
 

@@ -149,6 +149,12 @@ class ClusterHandle:
             return self._h.result(drive=False)
         idle = 0
         while not self._h.done:
+            if self._router.spmd:
+                # SPMD: decide from the state every rank reaches once its
+                # submitted replays have run (RequestHandle.result)
+                self._router.flush()
+                if self._h.done:
+                    break
             if self._router.step():
                 idle = 0
                 continue
@@ -168,6 +174,7 @@ class ClusterHandle:
             yield from self._h.stream(drive=False)
             return
         h = self._h
+        settled = False   # SPMD: replays flushed since the last step
         while True:
             try:
                 ev = h._events.get_nowait()
@@ -176,8 +183,13 @@ class ClusterHandle:
                     if h._ended:
                         return
                     continue     # trailing events still landing
+                if self._router.spmd and not settled:
+                    self._router.flush()
+                    settled = True
+                    continue
                 if not self._router.step():
                     self._router.flush()
+                settled = False
                 continue
             if ev is _STREAM_END:
                 h._ended = True
@@ -219,6 +231,17 @@ class ClusterRouter:
         if faults is not None and len(faults) != len(engines):
             raise ValueError("faults must align with engines "
                              f"({len(faults)} vs {len(engines)})")
+        # SPMD: every rank of a mesh runs this router, and their replicas
+        # must issue their device work in one order: rank 0's drivers
+        # would interleave differently from rank 1's
+        self.spmd = any(e.eager for e in engines)
+        if threaded and self.spmd:
+            raise ValueError(
+                "threaded=True over an engine sharded across a mesh of "
+                "several ranks: driver threads would order the replicas' "
+                "device work differently on each rank; use threaded=False "
+                "(the router then steps its replicas round-robin on the "
+                "calling thread, in one order on every rank)")
         self.threaded = threaded
         self.auto_restart = auto_restart
         self.closed = False

@@ -217,11 +217,13 @@ class DecodeState:
     by (num_steps, top_k, sampling mode))."""
 
     def __init__(self, cfg, num_slots: int, slots_len: int,
-                 device: torch.device, inputs: Dict[str, torch.Tensor]):
+                 device: torch.device, inputs: Dict[str, torch.Tensor],
+                 mesh=None):
         self.num_slots = num_slots
         self.slots_len = slots_len
+        # under a mesh, this rank's block of the KV slots only
         self.caches: Dict[str, Union[KVCache, SSMCache]] = \
-            init_decode_state(cfg, num_slots, slots_len, device)
+            init_decode_state(cfg, num_slots, slots_len, device, mesh=mesh)
         self.inputs = inputs
         self.entries: "OrderedDict[tuple, _Entry]" = OrderedDict()
         self._holder = None           # () -> the holder, or None
@@ -412,7 +414,9 @@ class _StatePool:
     """Engine-owned decode states and the one graph pool of their
     compiled entries: the state machinery :class:`CompiledDecodeChunk` and
     :class:`CompiledDecodeMany` share. ``graphs`` defaults to True on CUDA
-    and must be False on the CPU."""
+    and must be False on the CPU. ``eager`` (an engine over a mesh of more
+    than one rank) runs every call eagerly into fresh outputs: no entry,
+    no graph, no compile."""
 
     # decode states kept while nothing holds them
     max_idle_states = 4
@@ -423,8 +427,9 @@ class _StatePool:
         # engine and its graphs are freed when it is dropped)
         self._params, self._qparams = engine.params, engine.qparams
         self._cfg, self._device = engine.cfg, engine.device
+        self._mesh, self.eager = engine.mesh, engine.eager
         self._inputs = inputs
-        on_card = self._device.type == "cuda"
+        on_card = self._device.type == "cuda" and not self.eager
         self.graphs = on_card if graphs is None else graphs
         if self.graphs and not on_card:
             raise ValueError("CUDA graphs need the engine on a CUDA device")
@@ -446,7 +451,8 @@ class _StatePool:
                   None)
         if st is None:
             st = DecodeState(self._cfg, num_slots, slots_len, self._device,
-                             self._inputs(num_slots, self._device))
+                             self._inputs(num_slots, self._device),
+                             self._mesh)
         else:
             self._states.remove(st)
             st.reset()
@@ -514,6 +520,8 @@ class CompiledDecodeChunk(_StatePool):
         for name, values in host.items():
             _stage(ins[name], values)
         key = (num_steps, live_cap, sampled)
+        if self.eager:
+            return self._chunk(state, key)
         entry = state.entries.get(key)
         if not self.graphs:
             try:
@@ -552,7 +560,7 @@ class CompiledDecodeChunk(_StatePool):
             done=ins["done"] if done is None else done,
             n_emitted=ins["n_emitted"], limits=ins["limits"],
             eos_tokens=ins["eos_tokens"], qparams=self._qparams,
-            live_cap=live_cap, **kw)
+            live_cap=live_cap, mesh=self._mesh, **kw)
         return ChunkOut(toks, info, dn, emitted)
 
     def _capture(self, state: DecodeState, key) -> _Entry:
@@ -585,7 +593,8 @@ class CompiledPrefill:
     caller copies or injects what it keeps first, on the same stream.
     ``compiles`` counts the keys whose fixed outputs were set up at their
     second call (a capture on the card) and ``compile_s`` the captures'
-    seconds."""
+    seconds. ``eager`` as in :class:`_StatePool`: every call a plain
+    prefill into fresh outputs."""
 
     # keys kept (their static inputs and, once met twice, fixed outputs
     # and graphs); the least recently used beyond it is dropped
@@ -595,7 +604,8 @@ class CompiledPrefill:
         # the engine's model, not the engine (no reference cycle)
         self._params, self._qparams = engine.params, engine.qparams
         self._cfg, self._device = engine.cfg, engine.device
-        on_card = self._device.type == "cuda"
+        self._mesh, self.eager = engine.mesh, engine.eager
+        on_card = self._device.type == "cuda" and not self.eager
         self.graphs = on_card if graphs is None else graphs
         if self.graphs and not on_card:
             raise ValueError("CUDA graphs need the engine on a CUDA device")
@@ -638,7 +648,7 @@ class CompiledPrefill:
                cache_slots or (cfg.sliding_window or max(s, cfg.max_seq_len)),
                row_local, lengths is not None, row_capacities is not None,
                None if embeds is None else embeds.dtype)
-        entry = self._entries.get(key)
+        entry = None if self.eager else self._entries.get(key)
         ins = entry.inputs if entry is not None else self._inputs(key)
         if tokens is not None:
             _stage(ins["tokens"], tokens)
@@ -648,6 +658,8 @@ class CompiledPrefill:
                              ("row_capacities", row_capacities)):
             if values is not None:
                 _stage(ins[name], values)
+        if self.eager:
+            return self._prefill(key, ins)
         if entry is None:
             # the key's warm-up: one eager prefill, its outputs the call's
             out = self._prefill(key, ins)
@@ -686,7 +698,8 @@ class CompiledPrefill:
             self._params, self._cfg, ins.get("tokens"),
             embeds=ins.get("embeds"), qparams=self._qparams,
             cache_slots=key[2], lengths=ins.get("lengths"),
-            row_local=key[3], row_capacities=ins.get("row_capacities"))
+            row_local=key[3], row_capacities=ins.get("row_capacities"),
+            mesh=self._mesh)
         return PrefillOut(logits, caches, info)
 
 
@@ -756,6 +769,8 @@ class CompiledDecodeMany(_StatePool):
                               "decoding")
             mode, top_k = "greedy", 0
         key = (num_steps, top_k, mode)
+        if self.eager:
+            return self._many(state, key)
         entry = state.entries.get(key)
         if entry is None:
             # the key's warm-up: one eager call, its outputs the call's
@@ -785,5 +800,5 @@ class CompiledDecodeMany(_StatePool):
         toks, _, info = decode_many(
             self._params, self._cfg, ins["tokens"], state.caches,
             num_steps=num_steps, start_step=ins["start_step"],
-            qparams=self._qparams, **kw)
+            qparams=self._qparams, mesh=self._mesh, **kw)
         return ManyOut(toks, info)

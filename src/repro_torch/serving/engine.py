@@ -56,6 +56,18 @@ and "4/2" vs "4/0" through the config's policy).
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; it never
 falls back from one to the other.
+
+``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) makes the engine one
+rank of an SPMD program: every rank of the mesh builds the same engine and
+drives the same calls in the same order. Each rank keeps only its shards
+of the params and packed stores (``sharding/partition.py``'s rules;
+``expert_parallel=True`` splits the routed experts over E, E/n a rank) and
+of every decode state's KV slots (:meth:`DyMoEEngine.shard_decode_state`);
+the model code places the collectives (``sharding/spmd.py``). Over more
+than one rank the compiled programs run eagerly — gloo's collectives
+cannot be captured in a CUDA graph — and ``last_stats`` reports 0 compiles
+and the mesh's shape; the kernels launch as on one card. Host decisions
+that read the clock are rank 0's, broadcast (``serving/scheduler.py``).
 """
 from __future__ import annotations
 
@@ -241,7 +253,8 @@ def to_device(tree, device: torch.device):
 class DyMoEEngine:
     def __init__(self, cfg: ModelConfig, params,
                  engine_cfg: EngineConfig = EngineConfig(), faults=None, *,
-                 device=None, qparams=None):
+                 device=None, qparams=None, mesh=None,
+                 expert_parallel: bool = False):
         # ``faults``: optional repro_torch.serving.faults.FaultInjector
         # threaded through the serving hot path (the scheduler's dispatch,
         # admission, replay, preemption and rung sites and the expert
@@ -249,12 +262,20 @@ class DyMoEEngine:
         # ``qparams``: reuse an already-quantized packed store (a sibling
         # engine's) instead of quantizing again; ignored (and none made)
         # with ``use_dymoe=False``.
+        # ``mesh`` / ``expert_parallel``: serve as one rank of the mesh
+        # (module docstring). ``params`` / ``qparams`` may be whole (this
+        # rank keeps its shards of them) or this rank's shards already
+        # (``models.model.init_sharded``).
         assert engine_cfg.decode_chunk >= 1, engine_cfg.decode_chunk
         cfg.validate()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.faults = faults
+        self.mesh = mesh
+        self.expert_parallel = expert_parallel
+        if mesh is not None:
+            params, qparams = self._shard(params, qparams)
         self.params = to_device(params, self.device)
         if not engine_cfg.use_dymoe:
             self.qparams = None
@@ -287,6 +308,48 @@ class DyMoEEngine:
         self._session = None   # the engine-owned open serving session
 
     # ------------------------------------------------------------ system
+    def _shard(self, params, qparams):
+        """This rank's shards of ``params`` and of ``qparams`` (the packed
+        store quantized from the whole weights first, as the JAX package
+        quantizes before it places)."""
+        from repro_torch.models.model import _check_mesh
+        from repro_torch.sharding.partition import Shard, param_shardings, \
+            shard_tree
+        from repro_torch.tree import tree_leaves
+
+        _check_mesh(self.cfg, self.mesh)
+        if qparams is None and self.ecfg.use_dymoe:
+            if any(isinstance(w, Shard) for w in tree_leaves(params)):
+                raise ValueError("sharded params need their sharded "
+                                 "qparams (models.model.init_sharded)")
+            qparams = quantize_model(params, self.cfg)
+
+        def place(tree):
+            specs = param_shardings(tree, self.mesh,
+                                    expert_parallel=self.expert_parallel)
+            return shard_tree(tree, specs, self.mesh, self.device)
+
+        return place(params), (None if qparams is None else place(qparams))
+
+    @property
+    def eager(self) -> bool:
+        """Whether the compiled programs run eagerly: over a mesh of more
+        than one rank (its collectives cannot be captured)."""
+        return self.mesh is not None and self.mesh.distributed
+
+    def shard_decode_state(self, caches):
+        """Lay a decode-state tree of whole caches out on the engine's
+        mesh (``cache_shardings``: KV slots split over "model", batch over
+        "data"): this rank keeps its block. Identity on an unsharded
+        engine. The engine's own decode states are allocated so directly
+        (``init_decode_state(..., mesh=)``)."""
+        if self.mesh is None:
+            return caches
+        from repro_torch.sharding.partition import cache_shardings, \
+            shard_tree
+        return shard_tree(caches, cache_shardings(caches, self.mesh),
+                          self.mesh)
+
     def _make_orchestrator(self) -> Optional[DynamicExpertOrchestrator]:
         """The expert cache and clock of one session; None for a non-MoE
         config (no experts to cache: its replay is the cost model alone)."""
@@ -653,4 +716,6 @@ class DyMoEEngine:
         session = ContinuousBatchingScheduler(self, num_slots=num_slots)
         out = session.run(requests, rng_keys=rng_keys, pipeline=pipeline)
         self.last_stats = dict(session.stats)
+        if self.mesh is not None:
+            self.last_stats["mesh"] = dict(self.mesh.shape)
         return out

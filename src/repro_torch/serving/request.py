@@ -237,6 +237,13 @@ class RequestHandle:
                 self._raise_if_poisoned()
                 self._finished.wait(timeout=0.05)
                 continue
+            if self._spmd():
+                # one rank's replay worker may finalize this handle before
+                # another's: decide to step only from the state every
+                # rank reaches once its submitted replays have run
+                self._session.flush()
+                if self._finished.is_set():
+                    break
             if not self._session.step():
                 self._session.flush()   # replay queue -> finalize
                 if not self._finished.is_set():
@@ -255,6 +262,7 @@ class RequestHandle:
         dry (same contract as :meth:`result`); pass ``drive=False`` when
         consuming from a second thread while another thread drives —
         the iterator then only WAITS for events."""
+        settled = False   # SPMD: replays flushed since the last step
         while True:
             try:
                 ev = self._events.get_nowait()
@@ -273,6 +281,12 @@ class RequestHandle:
                         ev = self._events.get(timeout=0.05)
                     except _queue.Empty:
                         continue
+                elif self._spmd() and not settled:
+                    # as in result(): step only from the state every rank
+                    # reaches once its submitted replays have run
+                    self._session.flush()
+                    settled = True
+                    continue
                 elif not self._session.step():
                     self._session.flush()   # replay queue -> events
                     if not self._finished.is_set() and self._events.empty():
@@ -282,11 +296,15 @@ class RequestHandle:
                             "finalized")
                     continue
                 else:
+                    settled = False
                     continue
             if ev is _STREAM_END:
                 self._ended = True
                 return
             yield ev
+
+    def _spmd(self) -> bool:
+        return bool(getattr(self._session, "spmd", False))
 
     def _raise_if_poisoned(self) -> None:
         stream = getattr(self._session, "_stream", None)

@@ -459,7 +459,7 @@ class ContinuousBatchingScheduler:
                     "retry later (faults.submit_with_retry) or open the "
                     "session with a larger max_queue")
             h = RequestHandle(self, len(self._handles), request,
-                              time.perf_counter())
+                              self._now())
             temp, top_k, key = resolve_sampling(request, rng_key,
                                                 context=h.request_id)
             h.temperature, h.top_k = float(temp), int(top_k)
@@ -474,6 +474,38 @@ class ContinuousBatchingScheduler:
         once per resolved handle."""
         with self._lock:
             self._health.completed += 1
+
+    # -------------------------------------------------------------- SPMD
+    @property
+    def spmd(self) -> bool:
+        """Whether the engine is one rank of a mesh of several: every rank
+        runs this session, and must take every host decision alike (the
+        collectives of the device work it drives pair up only then)."""
+        return self.engine.eager
+
+    def _now(self) -> float:
+        """The clock for a host decision (submission, shedding, eviction,
+        pressure, preemption, admission order): under SPMD rank 0's
+        reading, broadcast, so that every rank decides alike."""
+        now = time.perf_counter()
+        if self.spmd:
+            now = self.engine.mesh.agree_float(now)
+        return now
+
+    def _cancelled(self) -> set:
+        """Indices of the queued and in-flight handles whose cancellation
+        this boundary honours. Under SPMD rank 0's set, broadcast: a
+        ``cancel`` may land on the ranks at different boundaries (it is a
+        no-op on a handle whose replay already finalized it)."""
+        with self._lock:
+            hs = list(self._queue)
+        hs += [st.handle for st in self._states if st is not None]
+        if not hs:
+            return set()
+        got = {h.index for h in hs if h.cancel_requested}
+        if self.spmd:
+            got = set(self.engine.mesh.broadcast_object(sorted(got)))
+        return got
 
     # -------------------------------------------------------------- step
     def step(self) -> bool:
@@ -504,12 +536,13 @@ class ContinuousBatchingScheduler:
         optimistic modeled service bound no longer fits their remaining
         budget (``infeasible=True``)."""
         pol = self._policy
-        now = time.perf_counter()
-        shed: List[RequestHandle] = []
-        infeasible: List[RequestHandle] = []
         with self._lock:
             if not self._queue:
                 return False
+        now = self._now()
+        shed: List[RequestHandle] = []
+        infeasible: List[RequestHandle] = []
+        with self._lock:
             keep: Deque[RequestHandle] = deque()
             for h in self._queue:
                 r = h.request
@@ -567,7 +600,7 @@ class ContinuousBatchingScheduler:
         pol = self._policy
         if pol.ladder is None or self._orch is None:
             return
-        now = time.perf_counter()
+        now = self._now()
         with self._lock:
             queued = list(self._queue)
         states = [st for st in self._states if st is not None]
@@ -624,7 +657,7 @@ class ContinuousBatchingScheduler:
             queued = list(self._queue)
         if free or not queued or not in_flight:
             return False
-        decision = pol.preempt(queued, in_flight, time.perf_counter())
+        decision = pol.preempt(queued, in_flight, self._now())
         if decision is None:
             return False
         head, (r, st) = decision
@@ -650,26 +683,29 @@ class ContinuousBatchingScheduler:
         ``deadline_s`` (their partial results, ``cancelled``)."""
         progress = False
         dropped: List[RequestHandle] = []
+        cancelled = self._cancelled()
         with self._lock:
-            if any(h.cancel_requested for h in self._queue):
+            if any(h.index in cancelled for h in self._queue):
                 keep: Deque[RequestHandle] = deque()
                 for h in self._queue:
-                    (dropped if h.cancel_requested else keep).append(h)
+                    (dropped if h.index in cancelled else keep).append(h)
                 self._queue = keep
         for h in dropped:   # finalize outside the lock
             self._submit_replay(partial(self._finalize_unadmitted, h), [h])
             progress = True
-        now = time.perf_counter()
+        if all(st is None for st in self._states):
+            return progress
+        now = self._now()
         for r in range(self._b):
             st = self._states[r]
             if st is None:
                 continue
             dl = st.request.deadline_s
             expired = dl is not None and now - st.handle.submit_t > dl
-            if st.handle.cancel_requested or expired:
+            if st.handle.index in cancelled or expired:
                 self._states[r] = None   # freed for the admission below
                 self._done[r] = True     # device row freezes from now on
-                if expired and not st.handle.cancel_requested:
+                if expired and st.handle.index not in cancelled:
                     self._health.deadline_evictions += 1
                 self._submit_replay(
                     partial(self._finalize, st, cancelled=True,
@@ -694,7 +730,7 @@ class ContinuousBatchingScheduler:
         if not free or not self._queue:
             return False
         if self._policy.reorders:
-            now0 = time.perf_counter()
+            now0 = self._now()
             with self._lock:
                 if len(self._queue) > 1:
                     self._queue = deque(
@@ -711,7 +747,7 @@ class ContinuousBatchingScheduler:
             with self._lock:
                 while self._queue and len(cands) < room:
                     cands.append(self._queue.popleft())
-            now = time.perf_counter()
+            now = self._now()
             lens = [h.request.prompt_len for h in cands]
             n = len(cands)
             # the engine's lock from the prefill through the injection of

@@ -3,8 +3,9 @@ train step, metrics history, periodic checkpoints. Works for every
 architecture config the port serves.
 
 The step runs eagerly: the reference's ``jax.jit`` has no counterpart here
-(a CUDA graph of the step is later work, see ROADMAP.md), and there is no
-mesh. ``device`` None means CUDA, and raises without it.
+(a CUDA graph of the step is later work, see ROADMAP.md). ``device`` None
+means CUDA, and raises without it. ``mesh`` / ``shardings`` are kept, as
+the reference keeps them (its step does not read them either).
 """
 from __future__ import annotations
 
@@ -42,9 +43,14 @@ class TrainLoop:
     ``params`` and ``opt_state`` to start from other weights)."""
 
     def __init__(self, cfg: ModelConfig, loop_cfg: TrainLoopConfig,
-                 device=None):
+                 device=None, mesh=None, shardings=None):
         self.cfg = cfg
         self.loop_cfg = loop_cfg
+        # a repro_torch.launch.mesh.Mesh and spec trees (e.g.
+        # sharding.partition.zero1_shardings): stored, as the reference
+        # stores them; the step runs on this process's device
+        self.mesh = mesh
+        self.shardings = shardings
         self.device = resolve_device(device)
         self.optimizer = AdamW(
             lr=cosine_lr(loop_cfg.lr, loop_cfg.warmup, loop_cfg.steps),

@@ -28,7 +28,9 @@ sampled and per row (``test_cuda_compiled_decode_many_*``), and two
 replicas of one engine on driver threads capturing while they step
 (``test_cuda_threaded_replicas_*``); and the training path: train steps on
 the card against the CPU, a checkpoint of CUDA tensors
-(``test_cuda_train_*``, ``test_cuda_checkpoint_*``).
+(``test_cuda_train_*``, ``test_cuda_checkpoint_*``); and 4 gloo ranks
+sharing the card, serving expert- and tensor-parallel over a mesh
+(``test_cuda_expert_parallel_*``).
 (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
@@ -1389,3 +1391,61 @@ def test_cuda_checkpoint_bf16_round_trip(tmp_path):
     loop = TrainLoop(get_config("olmoe_1b_7b").reduced(),
                      TrainLoopConfig(steps=2, log_every=1))
     assert loop.params["embed"].device.type == "cuda"
+
+
+def _ep_card_rank(rank, device, cfg, reqs, ep):
+    """One of 4 gloo ranks sharing the card: its shards of the weights
+    drawn on the card, a sharded engine, the batch's tokens and the K1/K2
+    launches of this rank."""
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.models.model import init_sharded
+    from repro_torch.serving import DyMoEEngine, EdgeProfile, EngineConfig
+
+    mesh = make_sim_mesh(4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, q = init_sharded(cfg, gen, mesh, expert_parallel=ep,
+                             device=device)
+    eng = DyMoEEngine(cfg, params, EngineConfig(
+        profile=EdgeProfile().with_vram(12), decode_chunk=4), device=device,
+        qparams=q, mesh=mesh, expert_parallel=ep)
+    kmod.reset_launch_counts()
+    toks = [r.tokens for r in eng.generate_batch(reqs, num_slots=2)]
+    return toks, dict(kmod.LAUNCHES), dict(eng.last_stats)
+
+
+@pytest.mark.parametrize("ep", [True, False], ids=["ep", "tp"])
+def test_cuda_expert_parallel_ranks_share_the_card(ep):
+    """4 gloo ranks on one card (``launch.mesh.spawn``), expert- and
+    tensor-parallel: every rank's tokens equal the one-rank CPU run of the
+    same weights (drawn on the card, moved to the CPU), each rank launches
+    K1 and K2 as the one-rank card run does, and the chunks run eagerly
+    (no compile; gloo's collectives cannot be captured)."""
+    dev = _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import DyMoEEngine, EdgeProfile, EngineConfig, \
+        Request
+
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    reqs = [Request(prompt_tokens=list(range(1 + i, 13 + 3 * i)),
+                    max_new_tokens=4 + i, request_id=f"req-{i}")
+            for i in range(4)]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    ecfg = EngineConfig(profile=EdgeProfile().with_vram(12), decode_chunk=4)
+    cpu = DyMoEEngine(cfg, params, ecfg,
+                      device="cpu")
+    want = [r.tokens for r in cpu.generate_batch(reqs, num_slots=2)]
+    card = DyMoEEngine(cfg, params, ecfg, device=dev)
+    card.generate_batch(reqs, num_slots=2)       # warm: captures
+    kmod.reset_launch_counts()
+    card.generate_batch(reqs, num_slots=2)
+    one_rank = dict(kmod.LAUNCHES)
+    ranks = spawn(_ep_card_rank, 4, cfg, reqs, ep, device="cuda")
+    for toks, launches, stats in ranks:
+        assert toks == want
+        assert launches == one_rank and launches[
+            "expert_quant_matmul_grouped"] > 0
+        assert stats["compiles"] == 0 and stats["mesh"] == {"data": 1,
+                                                            "model": 4}

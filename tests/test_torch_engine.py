@@ -80,6 +80,9 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.serving.compiled\n"
             "import repro_torch.serving.cluster\n"
             "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.mesh\n"
+            "import repro_torch.sharding.partition\n"
+            "import repro_torch.sharding.spmd\n"
             "import repro_torch.serving.sampler\n"
             "import repro_torch.serving.cost_model\n"
             "import repro_torch.core.cache\n"

@@ -4,8 +4,9 @@ GPU. Run from the repository root: ``python3 chip_smoke.py``.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. build — every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
-     (one nvcc per source, all started together), with ptxas's report;
-     fails if any of K1-K5 (all on the tensor cores) spills;
+     (one nvcc per source, all started together), with ptxas's report
+     (its registers and spills are held to their budgets by the ``lint:``
+     phase's kernel-resources rule);
   1. kernels — K1 (``expert_quant_matmul_grouped``) and K2
      (``expert_quant_matmul``) at OLMoE-1B-7B shapes, "4/2" and "4/0"
      (K2 at the 512- and 64-token solo admissions; both also with f32
@@ -65,6 +66,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      prefill key the engine captured and kept replayed once under
      torch.profiler: its
      K1/K2 kernels by symbol must equal its counted launches;
+  4a. lint — the invariant linter on the card (``lint:`` line;
+     ``_lint_phase``): on the serve phase's engine, one admission wave
+     (B 2) and one eager 4-step ``decode_many_batched`` chunk of the
+     full-width OLMoE-1B-7B "4/2" traced through the CUDA kernels
+     (``repro_torch.analysis.trace_ops``) under
+     ``set_sync_debug_mode("error")``; every rule of
+     ``repro_torch.analysis`` on both with zero findings; kernel scopes
+     in the traces equal to the launch counters' growth (48 K1 a wave
+     and a step); the kernel-resources rule over ptxas's report and each
+     instantiation's ``cudaFuncGetAttributes`` (dynamic shared memory
+     against the Python mirror, registers, spills); and one request's
+     decode-step replay timed with and without a recording trace;
   4b. window — sliding-window ring caches at the reference's 8,192-token
      window (``window:`` line; ``_window_phase``): reduced f32 windowed
      OLMoE, qwen3_0p6b and zamba2_1p2b card == CPU; on the serve phase's
@@ -131,7 +144,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``_expert_parallel_phase``): reduced f32 qwen2_moe_a2p7b expert- and
      tensor-parallel, every rank's tokens, replay masks and modeled
      TTFT/TPOT equal to the one-rank CPU run; full-width OLMoE-1B-7B
-     ("4/2") through the launcher's ``--full --expert-parallel`` loop in
+     ("4/2") through the launcher's ``--full --expert-parallel`` loop
+     (decode chunks of ``EP_CHUNK`` steps) in
      f32 (tokens equal to the one-rank run) and bf16 (rows matching
      reported), each rank's routed store exactly 1/4 of the one-rank
      store and its K1/K2 launches equal to the one-rank run's; per rank:
@@ -152,8 +166,9 @@ compile seconds and pool bytes. No serving phase is cut in depth; the
 train phase keeps 4 of OLMoE-1B-7B's 16 layers (memory) and one row of
 zamba2_1p2b (time), see ``TRAIN_FULL``.
 
-The last lines are the card's name and power limit (nvidia-smi), one JSON
-line describing every kernel, and ``{"ok": true, "device": {...}}``.
+Before them, ``phases:`` gives each phase's seconds. The last lines are
+the card's name and power limit (nvidia-smi), one JSON line describing
+every kernel, and ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when there is no CUDA device or when the
 repository's sources are not beside this file.
 """
@@ -227,11 +242,45 @@ def _device_ms(fn, runs: int = 5):
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy_us = sum(e.self_device_time_total for e in _kernel_sums(prof))
         if busy_us > 0:
             return busy_us / runs / 1e3
     return None
+
+
+class _KernelSum:
+    """One device kernel's events in a trace: the fields of a
+    ``key_averages()`` row that the gates read."""
+
+    __slots__ = ("key", "count", "self_device_time_total", "device_type")
+
+    def __init__(self, key: str, device_type):
+        self.key, self.device_type = key, device_type
+        self.count, self.self_device_time_total = 0, 0.0
+
+
+def _kernel_sums(prof) -> list:
+    """``prof``'s device events summed by name (count, µs), as
+    ``key_averages()`` sums them (the same name filter and rewrite), but
+    straight from the Kineto events: ``key_averages()`` first builds every
+    host event into a tree, which took most of this script's profiler
+    time (130 s of ~900 in a run sampled by tools/smoke_profile.py)."""
+    import torch
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    cuda = torch.autograd.DeviceType.CUDA
+    sums: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or _filter_name(e.name()) or \
+                getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = _rewrite_name(name=e.name(), with_wildcard=True)
+        row = sums.get(name)
+        if row is None:
+            row = sums[name] = _KernelSum(name, cuda)
+        row.count += 1
+        row.self_device_time_total += e.duration_ns() / 1e3
+    return list(sums.values())
 
 
 def _median_ms(fn, runs: int, warmup: int = 3) -> float:
@@ -1020,6 +1069,180 @@ def _serve_phase(dev):
     print("graph: " + json.dumps(graph), flush=True)
     return launches, engine
 
+LINT_ADMIT = (32, 20)         # the admission wave's prompts (B 2)
+LINT_STEPS = 4                # the decode chunk's steps (B 8)
+
+
+def _lint_resources(logs: dict) -> tuple:
+    """Every kernel instantiation's resources for the kernel-resources
+    rule: ptxas's report of the libraries this run built (registers,
+    static shared memory plus the launcher's request, spills) and the
+    card's ``cudaFuncGetAttributes`` (registers, local memory as spills,
+    static plus requested shared memory), and the dynamic sizes the C++
+    requests; also one row a kernel for the ``lint:`` line."""
+    from repro_torch.analysis.resources import INSTANTIATIONS, \
+        card_resources, parse_ptxas, with_requested_smem
+
+    resources, requested, rows = [], {}, []
+    for lib in INSTANTIATIONS:
+        built = {r.name: with_requested_smem(r)
+                 for r in parse_ptxas(logs.get(lib, ""), lib)}
+        assert not logs.get(lib) or set(built) == {
+            f"{lib}:{label}" for label in INSTANTIATIONS[lib]}, \
+            (lib, sorted(built))
+        resources += list(built.values())
+        for row in card_resources(lib):
+            resources.append(row["resources"])
+            requested[row["name"]] = row["requested_smem"]
+            ptx = built.get(row["name"])
+            # ptxas and the card agree on the registers of what was built
+            assert ptx is None or ptx.registers == row["registers"], \
+                (row["name"], ptx, row)
+            rows.append(dict(
+                name=row["name"], registers=row["registers"],
+                local_bytes=row["local_bytes"],
+                static_smem=row["static_smem"],
+                requested_smem=row["requested_smem"],
+                mirror_smem=row["mirror_smem"],
+                max_dynamic_smem=row["max_dynamic_smem"],
+                ptxas_spill_bytes=None if ptx is None
+                else ptx.spill_stores + ptx.spill_loads))
+    return resources, requested, rows
+
+
+def _lint_phase(engine, logs: dict) -> dict:
+    """The invariant linter on the card (module docstring, 4a). Returns
+    the launch counts of the traced runs."""
+    import torch
+    from repro_torch.analysis import RULES, LintTarget, count_kernel_calls, \
+        trace_ops
+    from repro_torch.analysis import lint as tlint
+    from repro_torch.kernels import _scope
+    from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
+    from repro_torch.models.layers.moe import _capacity
+    from repro_torch.models.model import decode_many_batched, \
+        init_decode_state, prefill
+    from repro_torch.serving import Request
+    from repro_torch.serving.scheduler import live_cap_for
+
+    t_phase = time.perf_counter()
+    cfg, dev = engine.cfg, engine.device
+    L = cfg.num_layers
+    params, qparams = engine.params, engine.qparams
+    forbidden = tlint.forbidden_shapes_from_qparams(qparams)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    lens = list(LINT_ADMIT)
+    toks = torch.randint(1, cfg.vocab_size, (len(lens), max(lens)),
+                         generator=gen).to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32).to(dev)
+    caps = torch.tensor([_capacity(cfg, n) for n in lens],
+                        dtype=torch.int64).to(dev)
+    b = 8
+    caches = init_decode_state(cfg, b, 64, dev)
+    tok = torch.randint(1, cfg.vocab_size, (b,), generator=gen).to(
+        dev, torch.int32)
+
+    def admission(p, q):
+        return prefill(p, cfg, toks, qparams=q, cache_slots=64,
+                       lengths=lengths, row_local=True, row_capacities=caps)
+
+    def chunk(p, q, cch, tk):
+        z = torch.zeros_like(tk)
+        return decode_many_batched(
+            p, cfg, tk, cch, num_steps=LINT_STEPS, done=z.bool(),
+            n_emitted=z, limits=z + 64, eos_tokens=z - 1, qparams=q,
+            live_cap=live_cap_for(b, b))
+
+    targets, traced = [], {}
+    with engine.lock:
+        for phase, fn, args, steps in (
+                ("admission", admission, (params, qparams), L),
+                ("decode_chunk", chunk, (params, qparams, caches, tok),
+                 L * LINT_STEPS)):
+            torch.cuda.synchronize()
+            km.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            target = tlint.trace_target(
+                f"{cfg.name}/{tlint._mix_label(cfg)}/{phase}", cfg, phase,
+                fn, args, steps, forbidden=forbidden, device="cuda")
+            torch.cuda.synchronize()
+            assert target.trace_error is None, target.trace_error
+            launched = dict(km.LAUNCHES)
+            calls = count_kernel_calls(target.trace)
+            assert calls == sum(launched.values()), (phase, calls, launched)
+            assert launched["expert_quant_matmul_grouped"] == 3 * steps, \
+                (phase, launched)
+            traced[phase] = dict(
+                seconds=time.perf_counter() - t0,
+                ops=len(target.trace.sites), kernel_calls=calls,
+                launches=launched, layer_steps=steps,
+                # bytes: allocated before the run (the engine's weights,
+                # stores, decode states and graph pools) and its peak;
+                # the trace's own estimate (its arguments + the largest
+                # sum of live bytes it allocated); no gate
+                memory_allocated_before=base,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                trace_arg_bytes=target.trace.arg_bytes,
+                trace_peak_temp_bytes=target.trace.peak_temp_bytes)
+            targets.append(target)
+    lint_launches = {k: sum(t["launches"][k] for t in traced.values())
+                     for k in km.LAUNCHES}
+    # the same decode chunk on meta (full size, no memory): the peak the
+    # trace estimates without the card
+    t0 = time.perf_counter()
+    mp, mq = tlint._state(cfg, torch.device("meta"))
+    _, mtrace = trace_ops(chunk, mp, mq, init_decode_state(
+        cfg, b, 64, "meta"), tok.to("meta"))
+    traced["decode_chunk"].update(
+        meta_peak_bytes=mtrace.peak_bytes, meta_arg_bytes=mtrace.arg_bytes,
+        meta_peak_temp_bytes=mtrace.peak_temp_bytes,
+        meta_seconds=time.perf_counter() - t0)
+    resources, requested, rows = _lint_resources(logs)
+    targets.append(LintTarget(
+        name=f"{cfg.name}/kernels/resources", cfg=cfg, phase="resources",
+        device="cuda", resources=resources, requested_smem=requested))
+    targets.append(LintTarget(
+        name=f"{cfg.name}/scheduler/retrace", cfg=cfg, phase="retrace",
+        slots=b, ladder=live_cap_for))
+    findings = tlint.lint_targets(targets)
+    assert not findings, [f.to_json() for f in findings]
+
+    # what a scope costs outside a trace, and one request's decode-step
+    # replays with and without a recording trace (its keys are captured:
+    # a replay runs no scope and no aten op of the model)
+    n = 200000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with _scope.kernel_scope("expert_quant_matmul_grouped"):
+            pass
+    scope_ns = (time.perf_counter() - t0) / n * 1e9
+    req = Request(prompt_tokens=list(range(1, 65)), max_new_tokens=17)
+    replay = {}
+    for mode in ("plain", "traced", "plain_again", "traced_again"):
+        torch.cuda.synchronize()
+        if mode.startswith("traced"):
+            res, _ = trace_ops(engine.generate, req)
+        else:
+            res = engine.generate(req)
+        torch.cuda.synchronize()
+        st = engine.last_stats
+        assert st["compiles"] == 0 and st["prefill_compiles"] == 0, st
+        replay[mode] = res.decode_wall_s * 1e3 / 16
+    summary = dict(
+        config=f"{cfg.name} full width, {L} layers, "
+               f"{cfg.dymoe.high_bits}/{cfg.dymoe.low_bits}",
+        targets=[t.name for t in targets], findings=len(findings),
+        rules=sorted(RULES), traced=traced,
+        kernel_calls_equal_launches=True, resources=rows,
+        scope_ns_untraced=scope_ns,
+        scope_us_per_eager_step=scope_ns * 3 * L / 1e3,
+        decode_replay_ms_per_step=replay,
+        phase_s=time.perf_counter() - t_phase)
+    print("lint: " + json.dumps(summary), flush=True)
+    return lint_launches
+
 
 def _thread_syncs(records) -> dict:
     """``(thread, file:line) -> count`` of the host syncs that
@@ -1643,9 +1866,7 @@ def _trace(fn) -> list:
         for _ in range(TRACE_PADS):
             pad.add_(1.0)
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "double" not in e.key]
+    return [e for e in _kernel_sums(prof) if "double" not in e.key]
 
 
 def _prefill_engine(model, compiled, **extra) -> dict:
@@ -2087,8 +2308,7 @@ def _graph_gate(engine) -> dict:
             host.update(done=got.done.cpu().numpy(),
                         n_emitted=got.n_emitted.cpu().numpy())
         assert host["done"][2] and not host["done"][0]
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = _kernel_sums(prof)
         k1 = sum(e.count for e in kernels if "grouped_kernel" in e.key)
         assert k1 == 3 * cfg.num_layers * steps, \
             f"the replay ran {k1} K1 kernels, not 3 x L x {steps}"
@@ -2339,8 +2559,7 @@ def _arch_gate(engine) -> dict:
             rec.update(eager_ms_per_step=(t1 - t0) * 1e3 / steps,
                        graph_ms_per_step=(t2 - t1) * 1e3 / steps)
         else:
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels = _kernel_sums(prof)
             busy = sum(e.self_device_time_total for e in kernels) / 1e3
             k2 = [e for e in kernels if SYMBOLS["expert_quant_matmul"]
                   in e.key]
@@ -2878,6 +3097,11 @@ def _dropless(engine):
         qparams=engine.qparams)
 
 
+# the launcher's requests in the frontend phase (8 before the whole run
+# neared its time limit on slower hosts)
+FRONTEND_REQUESTS = 4
+
+
 def _frontend_phase(dev) -> tuple:
     """The serving front end at full width (``olmoe_1b_7b``, 16 layers,
     the launcher's seeded weights), the ``frontend:`` line; each part
@@ -2886,7 +3110,7 @@ def _frontend_phase(dev) -> tuple:
     engine (bf16, "4/2", the serving dtype):
 
     the bf16 token check: each request of the launcher's loop (``--full
-        --requests 8``) alone at the loop's slot length (``_solo_at``,
+        --requests FRONTEND_REQUESTS``) alone at the loop's slot length (``_solo_at``,
         checked equal to ``generate``) against the loop with 2 replicas
         of 1 slot (driver threads; gated: every request's solo tokens),
         2 replicas of 2 slots and 1 replica of 2 slots (reported: a
@@ -2901,14 +3125,15 @@ def _frontend_phase(dev) -> tuple:
     them), where a row's tokens do not depend on its batch:
 
     (a) the launcher's open loop (``repro_torch.launch.serve``: ``--full
-        --requests 8 --replicas 2 --num-slots 2``, driver threads): a cold
+        --requests FRONTEND_REQUESTS --replicas 2 --num-slots 2``, a
+        thread a replica): a cold
         run (it captures, in the driver threads), then a counted one:
         every request's tokens equal the same engine's solo ``generate``,
         both replicas serve, every request completes, K1 runs; the same
         loop with one replica for the wall beside it;
     (b) ``--mode off`` (full precision; the same weights, no packed
         store): the one-shot equals ``generate_reference``, and
-        ``generate_batch(static=True)`` over the launcher's 8 requests
+        ``generate_batch(static=True)`` over the launcher's requests
         gives every row ``generate_reference``'s tokens in the dropless
         regime (``_dropless``; at the config's capacity factor the count
         is reported); no K1 or K2 launch;
@@ -2929,7 +3154,7 @@ def _frontend_phase(dev) -> tuple:
         FaultInjector, FaultSpec, ServingError
     from repro_torch.serving.compiled import CompiledDecodeMany
 
-    argv = ["--full", "--requests", "8"]
+    argv = ["--full", "--requests", str(FRONTEND_REQUESTS)]
     loop = argv + ["--replicas", "2", "--num-slots", "2"]
     paths, summary = {}, {}
 
@@ -2961,7 +3186,8 @@ def _frontend_phase(dev) -> tuple:
     summary["bf16_vs_solo"] = bf16
     print("frontend_bf16: " + json.dumps(bf16), flush=True)
     one_slot = bf16["replicas_2_slots_1"]
-    assert one_slot["equal"] == one_slot["of"] == 8, one_slot
+    assert one_slot["equal"] == one_slot["of"] == FRONTEND_REQUESTS, \
+        one_slot
     summary["decode_many_gate"] = _decode_many_gate(engine)
     req = dataclasses.replace(reqs[0], prompt_tokens=list(range(101, 165)),
                               max_new_tokens=33, request_id="ref")
@@ -3014,7 +3240,7 @@ def _frontend_phase(dev) -> tuple:
     solo = [engine.generate(h.request).tokens for h in handles]
     assert got == solo, _tokens_equal(got, solo)
     assert {r["replica"] for r in report["requests"]} == {0, 1}
-    assert report["health"]["merged"]["completed"] == 8
+    assert report["health"]["merged"]["completed"] == FRONTEND_REQUESTS
     assert all("error" not in r for r in report["requests"])
     assert paths["frontend_serve"]["expert_quant_matmul_grouped"] > 0
     args1 = launcher.parse_args(argv + ["--replicas", "1", "--num-slots",
@@ -3373,6 +3599,9 @@ EP_RANKS = 4
 # the full-width loop of the expert_parallel phase: the launcher's flow
 EP_ARGV = ["--full", "--requests", "3", "--num-slots", "2", "--prompt-len",
            "64", "--max-new", "8"]
+# its decode chunks: gloo's host transport makes an eager step 0.8-2.1 s,
+# and a 16-step chunk runs all 16 steps for rows that stop after 7
+EP_CHUNK = 4
 
 
 def _ep_requests() -> list:
@@ -3427,6 +3656,15 @@ def _ep_get_config(launcher, dtype: str):
 
     real = launcher.get_config
     return lambda name: dataclasses.replace(real(name), dtype=dtype)
+
+
+def _ep_engine(launcher, args, mesh=None):
+    """The launcher's engine, its decode chunks ``EP_CHUNK`` steps."""
+    import dataclasses
+
+    engine = launcher.build_engine(args, mesh)
+    engine.ecfg = dataclasses.replace(engine.ecfg, decode_chunk=EP_CHUNK)
+    return engine
 
 
 class _TimedChunks:
@@ -3522,7 +3760,7 @@ def _ep_rank(rank: int, device, cfg, reqs) -> dict:
             args = launcher.parse_args(EP_ARGV + [
                 "--expert-parallel", "--device", str(device)])
             t0 = time.perf_counter()
-            engine = launcher.build_engine(args, mesh)
+            engine = _ep_engine(launcher, args, mesh)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
         finally:
@@ -3577,7 +3815,7 @@ def _expert_parallel_phase(dev) -> dict:
         launcher.get_config = _ep_get_config(launcher, dtype)
         try:
             args = launcher.parse_args(EP_ARGV + ["--device", str(dev)])
-            engine = launcher.build_engine(args)
+            engine = _ep_engine(launcher, args)
         finally:
             launcher.get_config = real
         one[dtype] = _ep_full(launcher, args, engine)
@@ -3626,6 +3864,18 @@ def _expert_parallel_phase(dev) -> dict:
     return ranks[0]["bfloat16"]["launches"]
 
 
+class _Marks:
+    """Seconds of each phase of ``main``, from one mark to the next."""
+
+    def __init__(self):
+        self.seconds, self._t = {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py  (takes no arguments; runs "
@@ -3663,37 +3913,39 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
-    # the tensor-core tiles of K1-K5 are sized to the register file: a
-    # toolchain that spills one fails here, not silently in its times
-    # (checked where this run built them)
-    for name in ("eqm_grouped", "eqm_expert", "qm_dense", "attn_flash_fwd",
-                 "attn_key_mass"):
-        if name in logs:
-            spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
-            assert spills and all("0 bytes spill stores, 0 bytes spill loads"
-                                  in ln for ln in spills), \
-                f"{name} spills: {spills}"
 
     cfg = get_config("olmoe_1b_7b")
+    mark = _Marks()
     records = _kernel_cases(cfg, dev)
     records["expert_quant_matmul"] += _k2_e1_cases(dev)
+    mark("kernels")
     t0 = time.perf_counter()
     records.update(_api_cases(cfg, dev))
     launches = _api_phase(cfg, dev)
     print(f"api: phase {time.perf_counter() - t0:.1f}s", flush=True)
+    mark("api")
     _reference_phase(dev)
     _reference_archs(dev)
+    mark("reference")
     serve_launches, engine = _serve_phase(dev)
     launches.update(serve_launches)
-    by_path = {"serve": serve_launches, "session": _session_phase(engine),
-               "generate_reference": _reference_full(engine)}
+    mark("serve")
+    by_path = {"serve": serve_launches, "lint": _lint_phase(engine, logs)}
+    mark("lint")
+    by_path["session"] = _session_phase(engine)
+    by_path["generate_reference"] = _reference_full(engine)
+    mark("session")
     olmoe = _prefill_olmoe(engine)
+    mark("prefill_olmoe")
     by_path.update(_window_phase(engine))
+    mark("window")
     by_path["pipeline"] = _pipeline_phase(engine)
+    mark("pipeline")
     shard_paths, folded = _dispatch_shards_phase(dev, engine)
     by_path.update(shard_paths)
     records["expert_quant_matmul"].append(folded)
     del engine
+    mark("dispatch_shards")
     arch_paths, archs = _serve_archs(dev)
     by_path.update(arch_paths)
     gates = olmoe["gates"] + archs["gates"]
@@ -3702,10 +3954,15 @@ def main() -> int:
         flush=True)
     errors = [g["launch_error"] for g in gates if g["launch_error"]]
     assert not errors, errors
+    mark("archs")
     frontend_paths, _ = _frontend_phase(dev)
     by_path.update(frontend_paths)
+    mark("frontend")
     by_path["train_serve"] = _train_phase(dev)
+    mark("train")
     by_path["expert_parallel"] = _expert_parallel_phase(dev)
+    mark("expert_parallel")
+    print("phases: " + json.dumps(mark.seconds), flush=True)
 
     kernels = []
     for name, (source, replaces, library) in KERNELS.items():

@@ -27,6 +27,15 @@ ARCH_IDS: List[str] = [
     "qwen3_30b_a3b",
 ]
 
+# Edge-deployment subset the linter's ``--smoke`` run lints: the two
+# small MoE configs plus the tiniest dense config — the fastest set that
+# still exercises every rule family.
+ANALYSIS_SMOKE_CONFIGS: List[str] = [
+    "qwen3_0p6b",
+    "olmoe_1b_7b",
+    "qwen2_moe_a2p7b",
+]
+
 _ALIASES: Dict[str, str] = {
     "internvl2-26b": "internvl2_26b",
     "olmoe-1b-7b": "olmoe_1b_7b",
@@ -49,4 +58,9 @@ def get_config(name: str) -> ModelConfig:
     return mod.config()
 
 
-__all__ = ["ARCH_IDS", "get_config", "ModelConfig"]
+def all_configs() -> Dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_IDS}
+
+
+__all__ = ["ARCH_IDS", "ANALYSIS_SMOKE_CONFIGS", "get_config",
+           "all_configs", "ModelConfig"]

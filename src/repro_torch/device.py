@@ -2,7 +2,12 @@
 
 ``None`` means CUDA: a public function of the port runs on the card unless
 its caller asks for the CPU by name, and it never quietly falls back from
-one to the other.
+one to the other. ``"meta"`` is accepted only by name: PyTorch's abstract
+device, where tensors have shapes and dtypes but no storage, so a
+full-size program runs with zero bytes allocated (the heir of
+``jax.eval_shape``). Only the linter (``repro_torch.analysis``), the dry
+run (``repro_torch.launch.dryrun``) and tests name it; no serving or
+training path picks it on its own.
 """
 from __future__ import annotations
 
@@ -22,16 +27,17 @@ def resolve_device(device=None) -> torch.device:
         # true f32 for f32 work on the card (parity with the reference)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
 
 def on_cuda(x: torch.Tensor) -> bool:
     """How a kernel entry point dispatches: True for a CUDA tensor (launch
-    the kernel), False for a CPU tensor (run its plain version)."""
+    the kernel), False for a CPU or meta tensor (run its plain version;
+    on meta that gives the output's shape and dtype)."""
     if x.device.type == "cuda":
         return True
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"unsupported device {x.device}")

@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["LIBS", "build_all", "load", "build_dir", "raise_on_error"]
+__all__ = ["LIBS", "build_all", "load", "load_attrs", "build_dir",
+           "raise_on_error"]
 
 _KERNELS = Path(__file__).resolve().parent
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -68,6 +69,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _entries: Dict[str, ctypes._CFuncPtr] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
@@ -131,17 +133,35 @@ def build_all(ptxas_verbose: bool = False) -> Dict[str, str]:
     return logs
 
 
+def _cdll(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+    return lib
+
+
 def load(name: str):
     """The launch function of library ``name``, its argument types set
     (building every library on first use)."""
     with _lock:
         fn = _entries.get(name)
         if fn is None:
-            build_all()
-            fn = getattr(ctypes.CDLL(str(_lib_path(name))), LIBS[name].entry)
+            fn = getattr(_cdll(name), LIBS[name].entry)
             fn.argtypes = LIBS[name].argtypes
             fn.restype = ctypes.c_int
             _entries[name] = fn
+        return fn
+
+
+def load_attrs(name: str):
+    """Library ``name``'s ``<name>_attrs(which, int out[5])`` entry:
+    ``cudaFuncGetAttributes`` of one of its kernel instantiations (see
+    ``repro_torch.analysis.resources``)."""
+    with _lock:
+        fn = getattr(_cdll(name), f"{name}_attrs")
+        fn.argtypes = (_I, ctypes.POINTER(ctypes.c_int))
+        fn.restype = ctypes.c_int
         return fn
 
 

@@ -213,3 +213,29 @@ extern "C" int key_mass_launch(const void* q, const void* k, int in_bf16,
                                          s);
   return attn::launch_d<float>(q, k, l, m, H, S, D, causal, scale, s);
 }
+
+namespace attn {
+
+template <typename T, int DMAX>
+int attrs(int* out) {
+  return mmt::func_attrs(key_mass_kernel<T, DMAX>,
+                         (int)mass_smem_bytes<T>(col_rows<T>(DMAX), DMAX), out);
+}
+
+}  // namespace attn
+
+// Resources of instantiation `which`, in the order of
+// INSTANTIATIONS["attn_key_mass"] in repro_torch/analysis/resources.py:
+// out = {numRegs, localSizeBytes, sharedSizeBytes,
+// maxDynamicSharedSizeBytes, requested dynamic shared memory}.
+extern "C" int attn_key_mass_attrs(int which, int* out) {
+  switch (which) {
+    case 0: return attn::attrs<__nv_bfloat16, 64>(out);
+    case 1: return attn::attrs<__nv_bfloat16, 128>(out);
+    case 2: return attn::attrs<__nv_bfloat16, attn::MAX_D>(out);
+    case 3: return attn::attrs<float, 64>(out);
+    case 4: return attn::attrs<float, 128>(out);
+    case 5: return attn::attrs<float, attn::MAX_D>(out);
+  }
+  return (int)cudaErrorInvalidValue;
+}

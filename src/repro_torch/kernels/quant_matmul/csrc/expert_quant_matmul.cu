@@ -108,3 +108,21 @@ extern "C" int eqm_expert_launch(const void* x, int x_bf16, const void* hp,
                                            out_bf16, E, M, K, N, hi_bits,
                                            lo_bits, gs, s);
 }
+
+// Resources of instantiation `which`, in the order of
+// INSTANTIATIONS["eqm_expert"] in repro_torch/analysis/resources.py:
+// out = {numRegs, localSizeBytes, sharedSizeBytes,
+// maxDynamicSharedSizeBytes, requested dynamic shared memory}.
+extern "C" int eqm_expert_attrs(int which, int* out) {
+  switch (which) {
+    case 0: return mmt::func_attrs(eqm_mma::expert_kernel<__nv_bfloat16, 1>,
+                                 mmt::smem_bytes<__nv_bfloat16, 1>(), out);
+    case 1: return mmt::func_attrs(eqm_mma::expert_kernel<__nv_bfloat16, 4>,
+                                 mmt::smem_bytes<__nv_bfloat16, 4>(), out);
+    case 2: return mmt::func_attrs(eqm_mma::expert_kernel<float, 1>,
+                                 mmt::smem_bytes<float, 1>(), out);
+    case 3: return mmt::func_attrs(eqm_mma::expert_kernel<float, 4>,
+                                 mmt::smem_bytes<float, 4>(), out);
+  }
+  return (int)cudaErrorInvalidValue;
+}

@@ -558,4 +558,22 @@ __device__ __forceinline__ void row_tile(int bits, uint8_t* smem,
                             out, out_bf16, n0);
 }
 
+// cudaFuncGetAttributes of `kernel` into out = {numRegs, localSizeBytes,
+// sharedSizeBytes, maxDynamicSharedSizeBytes, requested}, where
+// `requested` is the dynamic shared memory its launcher asks for: the
+// <lib>_attrs entry points (repro_torch/analysis/resources.py). Returns
+// the CUDA error (0 on success).
+template <typename K>
+inline int func_attrs(K* kernel, int requested, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxDynamicSharedSizeBytes;
+  out[4] = requested;
+  return 0;
+}
+
 }  // namespace mmt

@@ -198,3 +198,25 @@ extern "C" int qm_dense_launch(const void* x, int x_bf16, const void* packed,
                : qm_mma::launch<float, 4>(x, packed, scales, out, out_bf16,
                                           M, K, N, bits, gs, s);
 }
+
+// Resources of instantiation `which`, in the order of
+// INSTANTIATIONS["qm_dense"] in repro_torch/analysis/resources.py:
+// out = {numRegs, localSizeBytes, sharedSizeBytes,
+// maxDynamicSharedSizeBytes, requested dynamic shared memory}.
+extern "C" int qm_dense_attrs(int which, int* out) {
+  switch (which) {
+    case 0: return mmt::func_attrs(qm_mma::dense_kernel<__nv_bfloat16, 1>,
+                                 mmt::smem_bytes<__nv_bfloat16, 1>(), out);
+    case 1: return mmt::func_attrs(qm_mma::dense_kernel<__nv_bfloat16, 4>,
+                                 mmt::smem_bytes<__nv_bfloat16, 4>(), out);
+    case 2: return mmt::func_attrs(qm_mma::dense_kernel<float, 1>,
+                                 mmt::smem_bytes<float, 1>(), out);
+    case 3: return mmt::func_attrs(qm_mma::dense_kernel<float, 4>,
+                                 mmt::smem_bytes<float, 4>(), out);
+    case 4: return mmt::func_attrs(qm_mma::dense_split_kernel<__nv_bfloat16>,
+                                 mmt::smem_bytes<__nv_bfloat16, 1>(), out);
+    case 5: return mmt::func_attrs(qm_mma::dense_split_kernel<float>,
+                                 mmt::smem_bytes<float, 1>(), out);
+  }
+  return (int)cudaErrorInvalidValue;
+}

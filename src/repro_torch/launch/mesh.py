@@ -16,6 +16,12 @@ offers nothing else for CUDA tensors. :meth:`Mesh.all_gather` is an
 exactly one writer, summed as integers over its bytes, so it is exact
 (``x + 0 = x``, bit for bit).
 
+A mesh without an initialized world is abstract: enough for the sharding
+rules, which read only ``shape``, and for rank 0's program on ``meta``
+tensors, whose collectives are shape-only (they count, and add their
+payload bytes, but move nothing; the linter and the dry run trace the
+expert-parallel programs so). On a real tensor they need the world.
+
 Every collective is preceded, by default, by a check that all ranks are
 issuing the same one (``check=True``): a tiny MAX over each rank's
 (operation, dtype, element count) fingerprint and its negation. Ranks
@@ -70,7 +76,11 @@ class Mesh:
     Collectives act over the whole world, which is the "model" axis on the
     meshes this port serves on (every axis but "model" of size 1).
     ``collectives`` and ``collective_s`` count the payload collectives and
-    their seconds (checks and object broadcasts included in the seconds).
+    their seconds (checks and object broadcasts included in the seconds);
+    ``collective_bytes`` their payload bytes by kind ("all-reduce",
+    "all-gather": the gathered buffer, "broadcast") and in ``"total"``, as
+    ``repro_torch.roofline.collective_bytes_from_mesh`` reads them. On
+    ``meta`` tensors a collective is shape-only (no world is needed).
     """
 
     def __init__(self, shape: Dict[str, int], rank: int = 0, group=None, *,
@@ -93,6 +103,8 @@ class Mesh:
         self.coords = {a: self.coords[a] for a in self.axis_names}
         self.collectives = 0
         self.collective_s = 0.0
+        self.collective_bytes = {"all-reduce": 0, "all-gather": 0,
+                                 "broadcast": 0, "total": 0}
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -138,10 +150,16 @@ class Mesh:
                 f"collective (max {hi.tolist()} vs min {lo.tolist()} over "
                 f"(op, dtype, numel)): the ranks' host decisions diverged")
 
-    def _run(self, op: str, t: torch.Tensor) -> torch.Tensor:
+    def _run(self, op: str, t: torch.Tensor, kind: str) -> torch.Tensor:
         if not self.distributed:
             return t
         self._model_only()
+        nbytes = t.numel() * t.element_size()
+        self.collective_bytes[kind] += nbytes
+        self.collective_bytes["total"] += nbytes
+        if t.is_meta:             # shape-only: no peer, nothing to move
+            self.collectives += 1
+            return t
         t0 = time.perf_counter()
         self._fingerprint(op, t)
         if op == "broadcast":
@@ -157,11 +175,11 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """In-place ``all_reduce`` of ``t`` (``op`` "sum" or "max") over
         the model axis; returns ``t``."""
-        return self._run(op, t)
+        return self._run(op, t, "all-reduce")
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """In place: every rank gets rank 0's ``t``; returns ``t``."""
-        return self._run("broadcast", t)
+        return self._run("broadcast", t, "broadcast")
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block ``t`` of a tensor split evenly along ``dim``
@@ -190,7 +208,7 @@ class Mesh:
         # gloo adds bf16 far slower than int32
         flat = buf.view(-1)
         self._run("sum", flat.view(torch.int32 if flat.nbytes % 4 == 0
-                                   else torch.uint8))
+                                   else torch.uint8), "all-gather")
         out, off = [], 0
         for w in widths:
             out.append(buf.narrow(dim, off, n * w))

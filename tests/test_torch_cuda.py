@@ -30,7 +30,12 @@ replicas of one engine on driver threads capturing while they step
 the card against the CPU, a checkpoint of CUDA tensors
 (``test_cuda_train_*``, ``test_cuda_checkpoint_*``); and 4 gloo ranks
 sharing the card, serving expert- and tensor-parallel over a mesh
-(``test_cuda_expert_parallel_*``).
+(``test_cuda_expert_parallel_*``); and the invariant linter on the card:
+the reduced OLMoE's admission wave and decode chunk traced through the
+CUDA kernels under ``set_sync_debug_mode("error")`` with zero findings
+and one kernel scope per launch, and every kernel instantiation's
+``cudaFuncGetAttributes`` against the shared-memory mirror and the
+register and spill budgets (``test_cuda_lint_*``).
 (The engine's greedy tokens on the card
 against the plain path on the CPU are checked by ``chip_smoke.py``'s
 reference phase.) Imports no JAX, so it runs where the card is:
@@ -1449,3 +1454,47 @@ def test_cuda_expert_parallel_ranks_share_the_card(ep):
             "expert_quant_matmul_grouped"] > 0
         assert stats["compiles"] == 0 and stats["mesh"] == {"data": 1,
                                                             "model": 4}
+
+
+def test_cuda_lint_scopes_equal_launches():
+    """The reduced OLMoE's admission wave and 4-step decode chunk, traced
+    on the card: every rule clean, kernel calls in the trace equal to the
+    launch counters, 3 K1 a layer and step."""
+    dev = _need_cuda()
+    from repro_torch.analysis import count_kernel_calls
+    from repro_torch.analysis import lint as tlint
+    from repro_torch.configs import get_config
+
+    cfg = tlint._mix_cfg(get_config("olmoe_1b_7b").reduced(), "mixed")
+    params, qparams = tlint._state(cfg, dev)
+    forbidden = tlint.forbidden_shapes_from_qparams(qparams)
+    for phase, program in (("admission", tlint._admission_program),
+                           ("decode_chunk", tlint._decode_program)):
+        fn, args, steps = program(cfg, params, qparams, dev)
+        fn(*args)                            # builds the kernels
+        torch.cuda.synchronize()
+        kmod.reset_launch_counts()
+        target = tlint.trace_target(f"reduced/{phase}", cfg, phase, fn,
+                                    args, steps, forbidden=forbidden,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        assert not tlint.lint_targets([target])
+        launched = dict(kmod.LAUNCHES)
+        assert count_kernel_calls(target.trace) == sum(launched.values())
+        assert launched["expert_quant_matmul_grouped"] == 3 * steps
+
+
+def test_cuda_lint_kernel_resources_equal_the_mirror():
+    """Each instantiation's attributes on the card: the dynamic shared
+    memory its launcher requests equals the Python mirror, within the
+    block budget, at most 255 registers, no local memory."""
+    _need_cuda()
+    from repro_torch.analysis.resources import INSTANTIATIONS, \
+        SMEM_BUDGET_BYTES, card_resources
+
+    for lib in INSTANTIATIONS:
+        for row in card_resources(lib):
+            assert row["requested_smem"] == row["mirror_smem"], row
+            assert row["static_smem"] + row["requested_smem"] <= \
+                SMEM_BUDGET_BYTES["sm_90a"], row
+            assert not row["resources"].problems(), row

@@ -1,0 +1,188 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the JAX
+package's: ``SHAPES``, ``shape_adapted_config``, ``strip_expert_weights``
+and ``_extrapolate``; the argument bytes a rank on (1, 4), 16×16 and
+2×16×16 against the same arithmetic on the reference's spec trees (built
+through a stand-in mesh that has only ``.shape``, with ``NamedSharding``
+stood in by a holder of the spec, as ``tests/test_torch_sharding.py``
+does: ``AbstractMesh`` cannot be built on the installed jax); and
+``run_one`` on a reduced config at a small shape: the reference's record
+keys, its ``model_flops``, ``0 < useful_flops_ratio <= 1``, collectives on
+an expert-parallel (1, 4) mesh, and no traced number on 16×16."""
+import os
+import types
+
+import jax
+import pytest
+import torch
+
+import _torch_bridge  # noqa: F401  (one torch thread a worker)
+import repro.sharding.partition as jpart
+from repro.configs import get_config as jget_config
+from repro.roofline import model_flops_estimate as jflops
+from repro.roofline import roofline_terms as jterms
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh
+from repro_torch.sharding.partition import tree_specs
+
+# the reference's dry run asks for 512 host devices at import; the backend
+# is up already, so that cannot reach it, and the flag is put back
+jax.devices()
+_FLAGS = os.environ.get("XLA_FLAGS")
+from repro.launch import dryrun as jdry  # noqa: E402
+
+if _FLAGS is None:
+    os.environ.pop("XLA_FLAGS", None)
+else:
+    os.environ["XLA_FLAGS"] = _FLAGS
+
+MESHES = ["1x4", "16x16", "2x16x16"]
+
+
+class _Holder:
+    """``NamedSharding`` stand-in: keeps the spec."""
+
+    def __init__(self, mesh, spec):
+        self.spec = spec
+
+
+@pytest.fixture
+def ref(monkeypatch):
+    monkeypatch.setattr(jpart, "NamedSharding", _Holder)
+    monkeypatch.setattr(jdry, "NamedSharding", _Holder)
+    return jdry
+
+
+def test_shapes_and_window_equal_the_reference():
+    assert dryrun.SHAPES == jdry.SHAPES
+    assert dryrun.LONG_CONTEXT_WINDOW == jdry.LONG_CONTEXT_WINDOW
+
+
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "qwen3_0p6b",
+                                  "falcon_mamba_7b", "zamba2_1p2b"])
+def test_shape_adapted_config_and_strip_equal_the_reference(name):
+    for shape in dryrun.SHAPES:
+        got = dryrun.shape_adapted_config(get_config(name), shape)
+        want = jdry.shape_adapted_config(jget_config(name), shape)
+        assert got.sliding_window == want.sliding_window
+    cfg = get_config(name).reduced()
+    params = dryrun.strip_expert_weights(
+        dryrun._meta_params(cfg), cfg)
+    jcfg = jget_config(name).reduced()
+    jparams = jdry.strip_expert_weights(jax.eval_shape(
+        lambda: jdry.init_params(jcfg, jax.random.PRNGKey(0))), jcfg)
+    mine = {}
+    tree_specs(params, lambda p, t: mine.setdefault(p, tuple(t.shape)))
+    theirs = {jpart._path_str(p): tuple(v.shape) for p, v in
+              jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    assert mine == theirs
+
+
+def test_extrapolate_equals_the_reference():
+    for args in ((10.0, 40.0, 4, 16), (5.0, 5.0, 2, 28), (3.0, 1.0, 2, 8),
+                 (7.0, 9.0, 1, 12)):
+        assert dryrun._extrapolate(*args) == jdry._extrapolate(*args)
+
+
+def _ref_bytes(args, shardings, mesh) -> int:
+    """Each leaf's bytes over the mesh axes its spec splits it over, on
+    the reference's trees."""
+    total = 0
+    leaves = jax.tree_util.tree_leaves(args)
+    specs = jax.tree_util.tree_leaves(
+        shardings, is_leaf=lambda x: isinstance(x, _Holder))
+    assert len(leaves) == len(specs)
+    for leaf, h in zip(leaves, specs):
+        n = 1
+        for axes in h.spec:
+            for a in (axes if isinstance(axes, tuple) else (axes,)):
+                if a is not None:
+                    n *= mesh.shape[a]
+        total += leaf.size * leaf.dtype.itemsize // n
+    return total
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k", "train_4k"])
+@pytest.mark.parametrize("ep", [True, False], ids=["ep", "tp"])
+def test_argument_bytes_a_rank_equal_the_reference(ref, shape, ep):
+    cfg = get_config("olmoe_1b_7b").reduced()
+    jcfg = jget_config("olmoe_1b_7b").reduced()
+    for name in MESHES:
+        mesh = Mesh(dryrun.MESHES[name])
+        stand_in = types.SimpleNamespace(shape=dict(dryrun.MESHES[name]))
+        _, _, args, shardings = dryrun.build_specs(cfg, shape, mesh, ep)
+        _, _, jargs, jshard = ref.build_specs(jcfg, shape, stand_in, ep)
+        got = dryrun.argument_bytes(args, shardings, mesh)
+        assert got == _ref_bytes(jargs, jshard, stand_in), (shape, name)
+
+
+def test_argument_bytes_full_size_on_16x16(ref):
+    """Full-size OLMoE's serve-step arguments a rank on 16 × 16: no world
+    of 256 ranks, meta tensors and shape arithmetic only."""
+    mesh = Mesh(dryrun.MESHES["16x16"])
+    stand_in = types.SimpleNamespace(shape=dict(mesh.shape))
+    _, _, args, shardings = dryrun.build_specs(
+        get_config("olmoe_1b_7b"), "decode_32k", mesh, True)
+    _, _, jargs, jshard = ref.build_specs(
+        jget_config("olmoe_1b_7b"), "decode_32k", stand_in, True)
+    assert dryrun.argument_bytes(args, shardings, mesh) == \
+        _ref_bytes(jargs, jshard, stand_in)
+
+
+_KEYS = {"arch", "shape", "mesh", "chips", "expert_parallel", "opts",
+         "phase", "lower_s", "compile_s", "memory", "collectives",
+         "model_flops", "useful_flops_ratio"}
+
+
+@pytest.fixture
+def tiny(monkeypatch):
+    """The reduced OLMoE under its own name, and a small decode shape."""
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda name: get_config(name).reduced())
+    monkeypatch.setitem(dryrun.SHAPES, "decode_tiny",
+                        dict(seq_len=64, global_batch=4, phase="decode"))
+    monkeypatch.setitem(dryrun.SHAPES, "prefill_tiny",
+                        dict(seq_len=32, global_batch=2, phase="prefill"))
+
+
+@pytest.mark.parametrize("shape", ["decode_tiny", "prefill_tiny"])
+def test_run_one_record_has_the_reference_keys(tiny, tmp_path, shape):
+    r = dryrun.run_one("olmoe_1b_7b", shape, save_dir=str(tmp_path),
+                       verbose=False)
+    terms = jterms({"flops": 1.0, "bytes accessed": 1.0}, 1)
+    assert _KEYS | set(terms) <= set(r)
+    assert {"argument_bytes", "output_bytes", "temp_bytes",
+            "peak_bytes"} <= set(r["memory"])
+    info = dryrun.SHAPES[shape]
+    tokens = info["global_batch"] * (1 if info["phase"] == "decode"
+                                     else info["seq_len"])
+    assert r["model_flops"] == jflops(
+        jget_config("olmoe_1b_7b").reduced(), tokens=tokens,
+        phase=info["phase"])
+    assert 0 < r["useful_flops_ratio"] <= 1
+    assert r["hw"]["peak_flops"] == 989e12 and r["dominant"]
+    assert r["memory"]["peak_bytes"] == \
+        r["memory"]["argument_bytes"] + r["memory"]["temp_bytes"]
+    assert (tmp_path / "1x1.jsonl").read_text().count("\n") == 1
+
+
+def test_run_one_expert_parallel_counts_collectives(tiny, tmp_path):
+    r = dryrun.run_one("olmoe_1b_7b", "decode_tiny", mesh="1x4",
+                       expert_parallel=True, save_dir=str(tmp_path),
+                       verbose=False)
+    assert r["chips"] == 4 and r["collectives"]["total"] > 0
+    assert r["collective_bytes"] == r["collectives"]["total"]
+    assert r["t_collective_s"] > 0
+    one = dryrun.run_one("olmoe_1b_7b", "decode_tiny", save_dir=None,
+                         verbose=False)
+    # a rank holds a quarter of the experts
+    assert r["memory"]["argument_bytes"] < one["memory"]["argument_bytes"]
+
+
+def test_run_one_on_16x16_reports_memory_only(tiny):
+    r = dryrun.run_one("olmoe_1b_7b", "decode_tiny", mesh="16x16",
+                       save_dir=None, verbose=False)
+    assert r["memory"]["argument_bytes"] > 0 and r["flops"] is None
+    assert "data-axis slice" in r["traced"]
+    assert r["memory"]["argument_bytes_by_mesh"]["16x16"] == \
+        r["memory"]["argument_bytes"]

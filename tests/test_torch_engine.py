@@ -89,6 +89,11 @@ def test_port_imports_without_jax_or_repro():
             "import repro_torch.core.orchestrator\n"
             "import repro_torch.params\n"
             "import repro_torch.kernels.quant_matmul.ops\n"
+            "import repro_torch.analysis.lint\n"
+            "import repro_torch.analysis.__main__\n"
+            "import repro_torch.roofline\n"
+            "import repro_torch.launch.lint\n"
+            "import repro_torch.launch.dryrun\n"
             "import chip_smoke\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))

@@ -10,9 +10,11 @@
   op (``jax.disable_jit()``); against its jitted run (XLA rewrites the
   division there) the codes are equal and the scales within rtol 1e-6;
 * every name in the ``__all__`` of ``repro.core``, ``repro.quant``,
-  ``repro.models``, ``repro.serving`` and ``repro.kernels`` exists in the
-  port's subpackage, except the names of ``NOT_PORTED``, each with the
-  ROADMAP item that ports it."""
+  ``repro.models``, ``repro.serving``, ``repro.kernels``,
+  ``repro.analysis``, ``repro.roofline`` and ``repro.configs`` exists in
+  the port's subpackage, except the names of ``NOT_PORTED``, each with
+  the ROADMAP item that ports it, and the Pallas- and jaxpr-only names of
+  ``HEIRS``, each with the name of the port that takes its place."""
 import functools
 import importlib
 
@@ -38,15 +40,27 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 # reference names the port does not have yet -> the ROADMAP item porting it
 NOT_PORTED = {}
 
+# names of a jaxpr or of a Pallas kernel -> the port's name in their place
+HEIRS = {"analysis": {
+    "EqnSite": "OpSite", "iter_eqns": "iter_ops", "find_eqns": "find_ops",
+    "subjaxprs": "trace_ops", "intermediate_avals": "intermediate_shapes",
+    "count_primitive": "count_op", "count_pallas_calls": "count_kernel_calls",
+    "PallasVmemEstimate": "KernelResources",
+    "VMEM_BUDGET_BYTES": "SMEM_BUDGET_BYTES",
+    "estimate_pallas_vmem": "launch_smem_bytes"}}
+
 
 @pytest.mark.parametrize("pkg", ["core", "quant", "models", "serving",
-                                 "kernels"])
+                                 "kernels", "analysis", "roofline",
+                                 "configs"])
 def test_public_names_exist(pkg):
     ref = importlib.import_module(f"repro.{pkg}")
     mine = importlib.import_module(f"repro_torch.{pkg}")
+    heirs = HEIRS.get(pkg, {})
     missing = {name for name in ref.__all__ if not hasattr(mine, name)}
-    assert missing == set(NOT_PORTED.get(pkg, {})), missing
+    assert missing == set(NOT_PORTED.get(pkg, {})) | set(heirs), missing
     assert set(ref.__all__) - set(mine.__all__) == missing
+    assert set(heirs.values()) <= set(mine.__all__)
 
 
 def test_decode_expert_importance_is_the_gate():

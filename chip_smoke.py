@@ -150,7 +150,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      reported), each rank's routed store exactly 1/4 of the one-rank
      store and its K1/K2 launches equal to the one-rank run's; per rank:
      peak memory, eager ms a decode step, collectives a step and their
-     seconds.
+     seconds. Then, in the same world, a (2, 2) ("data", "model") mesh
+     (``data_axis:`` line; ``_data_axis_rank``): the reduced f32
+     ``moe_apply_sharded`` at D 2 with its groups pinned to "data" against
+     the CPU run (``DA_TOL``), and the launcher's full-width OLMoE engine
+     serving 4 requests of 64 + 4 tokens through ``generate_batch`` on 4
+     slots (one wave, 2 rows a data rank; 32 experts a rank) in f32
+     (tokens equal to the one-rank run) and
+     bf16 (rows matching reported): each rank's routed store exactly 1/2
+     of the one-rank store, its K1/K2 launches equal to the count worked
+     out from its rows and chunks, its peak memory, eager ms a decode
+     step and collectives a step by axis with their seconds.
 
 The ``prefill_graph:`` line holds the six full-width prefill gates: the
 compiled prefill's eager protocol (``graphs=False``) against the
@@ -3602,6 +3612,13 @@ EP_ARGV = ["--full", "--requests", "3", "--num-slots", "2", "--prompt-len",
 # its decode chunks: gloo's host transport makes an eager step 0.8-2.1 s,
 # and a 16-step chunk runs all 16 steps for rows that stop after 7
 EP_CHUNK = 4
+# the data_axis run in the same world: a (2, 2) mesh, 4 requests on 4
+# slots (2 a data rank), expert-parallel over "model" (E/2 a rank)
+DA_SHAPE = {"data": 2, "model": 2}
+DA_REQUESTS = 4
+DA_NEW = 4        # new tokens a request: one admission wave, then one chunk
+DA_TOKENS = 32    # the reduced moe_apply_sharded case's tokens
+DA_TOL = 1e-4     # its card rows against the CPU's, atol and rtol
 
 
 def _ep_requests() -> list:
@@ -3676,6 +3693,9 @@ class _TimedChunks:
         self._inner, self._mesh = inner, mesh
         self.s, self.steps, self.collectives, self.collective_s = \
             0.0, 0, 0, 0.0
+        self.by_axis = {} if mesh is None else {
+            a: dict(collectives=0, seconds=0.0)
+            for a in mesh.collectives_by_axis}
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
@@ -3686,6 +3706,8 @@ class _TimedChunks:
         torch.cuda.synchronize()
         m = self._mesh
         c0, s0 = (m.collectives, m.collective_s) if m else (0, 0.0)
+        a0 = {a: dict(v) for a, v in m.collectives_by_axis.items()} \
+            if m else {}
         t0 = time.perf_counter()
         out = self._inner(state, tokens, **kw)
         torch.cuda.synchronize()
@@ -3694,43 +3716,109 @@ class _TimedChunks:
         if m:
             self.collectives += m.collectives - c0
             self.collective_s += m.collective_s - s0
+            for a, v in m.collectives_by_axis.items():
+                for k in ("collectives", "seconds"):
+                    self.by_axis[a][k] += v[k] - a0[a][k]
         return out
 
 
-def _ep_full(launcher, args, engine, mesh=None) -> dict:
-    """The launcher's open loop on ``engine`` (its output kept out of this
-    script's), counted: K1/K2 launches from 0, tokens, the decode chunks'
-    seconds and steps (graph replays on one rank, eager over a mesh) and
-    — over a mesh — their collectives. On one rank a warm run first
-    captures the keys (a capture's warm-up step launches K1)."""
+class _CountedPrefill:
+    """``engine._prefill`` with its calls counted: row-local waves
+    (``waves``), solo prefills (``solo``) and the rows of both
+    (``rows``); everything else delegated."""
+
+    def __init__(self, inner):
+        self._inner, self.waves, self.solo, self.rows = inner, 0, 0, 0
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def __call__(self, prompts, **kw):
+        if kw.get("row_local"):
+            self.waves += 1
+        else:
+            self.solo += 1
+        self.rows += len(prompts)
+        return self._inner(prompts, **kw)
+
+
+def _counted_run(engine, mesh, serve) -> dict:
+    """``serve()`` (which returns a dict with the requests' ``tokens``)
+    on ``engine``, counted: K1/K2 launches from 0, its host seconds, the
+    decode chunks' seconds and steps (graph replays on one rank, eager
+    over a mesh) and — over a mesh — their collectives, and the whole
+    run's by axis. On one rank a warm run first captures the keys (a
+    capture's warm-up step launches K1)."""
+    import torch
     from repro_torch.kernels.quant_matmul import expert_quant_matmul as km
 
     if mesh is None:
-        _launcher_run(launcher, args, engine)
+        serve()
     chunks = engine._decode_batched = _TimedChunks(engine._decode_batched,
                                                    mesh)
+    a0 = {} if mesh is None else {
+        a: dict(v) for a, v in mesh.collectives_by_axis.items()}
     km.reset_launch_counts()                   # the path starts here
-    report, handles, wall, _ = _launcher_run(launcher, args, engine)
+    t0 = time.perf_counter()
+    out = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = dict(km.LAUNCHES)               # ... and ends here
+    run_axes = {} if mesh is None else {
+        a: {k: v[k] - a0[a][k] for k in ("collectives", "total", "seconds")}
+        for a, v in mesh.collectives_by_axis.items()}
     engine._decode_batched = chunks._inner
     steps = max(chunks.steps, 1)
-    return dict(tokens=[h.result().tokens for h in handles],
-                n_devices=report["n_devices"],
-                expert_parallel=report["expert_parallel"], wall_s=wall,
+    return dict(out, wall_s=wall,
                 launches=launches, routed_bytes=_routed_bytes(engine),
                 decode_steps=chunks.steps,
                 ms_per_step=chunks.s / steps * 1e3,
                 collectives_per_step=chunks.collectives / steps,
                 collective_s=chunks.collective_s,
                 collective_share=(chunks.collective_s / chunks.s
-                                  if chunks.s else None))
+                                  if chunks.s else None),
+                by_axis={a: dict(per_step=v["collectives"] / steps,
+                                 seconds=v["seconds"])
+                         for a, v in chunks.by_axis.items()},
+                run_by_axis=run_axes)
 
 
-def _ep_rank(rank: int, device, cfg, reqs) -> dict:
+def _ep_full(launcher, args, engine, mesh=None) -> dict:
+    """The launcher's open loop on ``engine`` (its output kept out of this
+    script's), counted (:func:`_counted_run`)."""
+    def serve():
+        report, handles, _, _ = _launcher_run(launcher, args, engine)
+        return dict(tokens=[h.result().tokens for h in handles],
+                    n_devices=report["n_devices"],
+                    expert_parallel=report["expert_parallel"])
+    return _counted_run(engine, mesh, serve)
+
+
+def _da_requests() -> list:
+    """The ``data_axis:`` requests: ``DA_REQUESTS`` prompts of 64 tokens
+    (the launcher's, ``--prompt-len 64``), ``DA_NEW`` new tokens each."""
+    from repro_torch.serving import Request
+    return [Request(prompt_tokens=list(range(1 + i, 65 + i)),
+                    max_new_tokens=DA_NEW, request_id=f"req-{i}")
+            for i in range(DA_REQUESTS)]
+
+
+def _da_full(engine, mesh=None) -> dict:
+    """``generate_batch`` of :func:`_da_requests` over ``DA_REQUESTS``
+    slots on ``engine`` — one admission wave, whose rows the data ranks
+    split in blocks — counted (:func:`_counted_run`)."""
+    def serve():
+        res = engine.generate_batch(_da_requests(), num_slots=DA_REQUESTS)
+        return dict(tokens=[r.tokens for r in res])
+    return _counted_run(engine, mesh, serve)
+
+
+def _ep_rank(rank: int, device, cfg, reqs, fx) -> dict:
     """One of ``EP_RANKS`` gloo ranks sharing the card: the reduced gate
     (expert- and tensor-parallel engines on this rank's shards of weights
     drawn as the parent draws them), then the launcher's ``--full
-    --expert-parallel`` flow in f32 and in bf16."""
+    --expert-parallel`` flow in f32 and in bf16 over (1, 4), then the
+    ``data_axis:`` run over (2, 2) (:func:`_data_axis_rank`)."""
     import gc
 
     import torch
@@ -3771,6 +3859,121 @@ def _ep_rank(rank: int, device, cfg, reqs) -> dict:
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         out[dtype] = run
         del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["data_axis"] = _data_axis_rank(rank, device, launcher, fx)
+    out["data_axis"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _da_moe_case(mesh, device, fx) -> dict:
+    """``moe_apply_sharded`` of the reduced f32 config's layer 0 at D 2,
+    its groups pinned to "data": this rank's rows of the output and the
+    merged statistics against the CPU run on every token."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import moe as tmoe
+    from repro_torch.models.model import _index_tree, init_sharded
+
+    cfg = fx["cfg"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    p, q = init_sharded(cfg, gen, mesh, expert_parallel=True,
+                        device=device)
+    layer = {k: v[0] for k, v in p["layers"]["moe"].items()}
+    lo, hi = mesh.batch_block(DA_TOKENS)
+    on = {k: torch.from_numpy(fx[k]).to(device)
+          for k in ("x", "hh", "tv", "crit")}
+    y, st = tmoe.moe_apply_sharded(
+        layer, cfg, on["x"][lo:hi], hh_mask=on["hh"][lo:hi],
+        critical_mask=on["crit"], qweights=_index_tree(q["layers"]["moe"], 0),
+        token_valid=on["tv"][lo:hi], mesh=mesh)
+    torch.cuda.synchronize()
+    want = fx["want"]
+    got = dict(y=y.cpu().numpy(), router_logits=st.router_logits.cpu().numpy(),
+               gate_mean=st.gate_mean.cpu().numpy(),
+               aux_loss=st.aux_loss.cpu().numpy(),
+               dropped_frac=st.dropped_frac.cpu().numpy())
+    err, close = 0.0, True
+    for k, g in got.items():
+        w = want[k][lo:hi] if k in ("y", "router_logits") else want[k]
+        err = max(err, float(np.abs(g - w).max()))
+        close &= bool(np.allclose(g, w, atol=DA_TOL, rtol=DA_TOL))
+    loads = all(np.array_equal(getattr(st, k).cpu().numpy(), want[k])
+                for k in ("expert_load", "expert_hh_load"))
+    return dict(rows=(lo, hi), max_abs_err=err, close=close,
+                loads_equal=loads)
+
+
+def _data_axis_rank(rank: int, device, launcher, fx) -> dict:
+    """The ``data_axis:`` run on this rank of a (2, 2) mesh in the
+    expert-parallel world: the reduced ``moe_apply_sharded`` case, then
+    the launcher's ``--full --expert-parallel`` engine serving
+    :func:`_da_full` in f32 and bf16 (32 experts and 2 slots a rank), its
+    prefills counted so that the rank's K1/K2 launches can be worked out
+    from its rows and chunks: 3 a layer for each row-local wave it
+    prefilled and each decode step (K1), 3 a layer for each solo prefill
+    (K2) (``want_launches``); and fixed by the request plan, whatever the
+    run did: one wave of all ``DA_REQUESTS`` requests, then the
+    ``EP_CHUNK``-step chunks that ``DA_NEW - 1`` tokens take, and no solo
+    prefill (``plan_launches``).
+
+    Four f32 ranks do not fit on one card with the float expert weights
+    (12.9 GB a rank on (2, 2)), which serving with DyMoE on never reads:
+    the ranks build in turn, and each drops them from its engine's
+    params before the next builds (``peak_gib`` is the rank's peak,
+    build included; ``resident_gib`` what its engine holds)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh(DA_SHAPE, rank)
+    out = dict(coords=(mesh.data_rank, mesh.model_rank),
+               moe=_da_moe_case(mesh, device, fx))
+    real = launcher.get_config
+    for dtype in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launcher.get_config = _ep_get_config(launcher, dtype)
+        try:
+            args = launcher.parse_args(EP_ARGV + [
+                "--expert-parallel", "--device", str(device)])
+            for turn in range(mesh.size):
+                if turn == rank:
+                    t0 = time.perf_counter()
+                    engine = _ep_engine(launcher, args, mesh)
+                    for name in ("w_gate", "w_up", "w_down"):
+                        del engine.params["layers"]["moe"][name]
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.synchronize()
+                    build_s = time.perf_counter() - t0
+                dist.barrier()
+        finally:
+            launcher.get_config = real
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        counted = engine._prefill = _CountedPrefill(engine._prefill)
+        run = _da_full(engine, mesh)
+        engine._prefill = counted._inner
+        n = 3 * engine.cfg.num_layers
+        steps = EP_CHUNK * -(-(DA_NEW - 1) // EP_CHUNK)
+        run.update(
+            build_s=build_s, resident_gib=resident, waves=counted.waves,
+            solo=counted.solo, rows=counted.rows,
+            compiles=engine._decode_batched.compiles
+            + engine._prefill.compiles,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            want_launches={
+                "expert_quant_matmul_grouped":
+                    n * (counted.waves + run["decode_steps"]),
+                "expert_quant_matmul": n * counted.solo},
+            plan_launches={"expert_quant_matmul_grouped": n * (1 + steps),
+                           "expert_quant_matmul": 0})
+        out[dtype] = run
+        del engine, counted       # (its compiled prefill holds the store)
     return out
 
 
@@ -3806,8 +4009,9 @@ def _expert_parallel_phase(dev) -> dict:
     cpu = DyMoEEngine(cfg, params, EngineConfig(
         profile=EdgeProfile().with_vram(12), decode_chunk=4), device="cpu")
     want = _ep_served(cpu, reqs)
+    fx = _da_fixture(cpu)
     del cpu, params
-    one = {}
+    one, one_da = {}, {}
     real = launcher.get_config
     for dtype in ("float32", "bfloat16"):
         gc.collect()
@@ -3819,11 +4023,14 @@ def _expert_parallel_phase(dev) -> dict:
         finally:
             launcher.get_config = real
         one[dtype] = _ep_full(launcher, args, engine)
+        one_da[dtype] = _da_full(engine)
         del engine
     gc.collect()
     torch.cuda.empty_cache()
+    parent_gib = (torch.cuda.memory_allocated() / 2 ** 30,
+                  torch.cuda.memory_reserved() / 2 ** 30)
     t0 = time.perf_counter()
-    ranks = spawn(_ep_rank, EP_RANKS, cfg, reqs, device=str(dev),
+    ranks = spawn(_ep_rank, EP_RANKS, cfg, reqs, fx, device=str(dev),
                   timeout_s=300.0)
     ranks_s = time.perf_counter() - t0
     per_rank, bf16_match = [], []
@@ -3859,9 +4066,105 @@ def _expert_parallel_phase(dev) -> dict:
         f32_tokens_equal=True,
         bf16_tokens_match=f"{min(bf16_match)}/{len(one['bfloat16']['tokens'])}",
         per_rank=per_rank, ranks_s=ranks_s,
+        parent_allocated_reserved_gib=parent_gib,
         phase_s=time.perf_counter() - t_phase)
     print("expert_parallel: " + json.dumps(summary), flush=True)
-    return ranks[0]["bfloat16"]["launches"]
+    return ranks[0]["bfloat16"]["launches"], _data_axis_gates(ranks,
+                                                               one_da)
+
+
+def _da_fixture(cpu) -> dict:
+    """The reduced ``moe_apply_sharded`` case's config (D 2, its groups
+    pinned to "data"), inputs and the CPU engine's result on every token
+    (one device: the axes pin nothing)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import moe as tmoe
+    from repro_torch.models.model import _index_tree
+
+    cfg = dataclasses.replace(cpu.cfg, moe_dispatch_shards=2,
+                              moe_dispatch_axes=("data",))
+    rng = np.random.default_rng(7)
+    fx = dict(cfg=cfg, x=rng.standard_normal(
+        (DA_TOKENS, cfg.d_model)).astype(np.float32),
+        hh=(rng.random(DA_TOKENS) < 0.3).astype(np.float32),
+        tv=rng.random(DA_TOKENS) < 0.85,
+        crit=np.arange(cfg.num_experts) % 2 == 0)
+    layer = {k: v[0] for k, v in cpu.params["layers"]["moe"].items()}
+    y, st = tmoe.moe_apply_sharded(
+        layer, cfg, torch.from_numpy(fx["x"]),
+        hh_mask=torch.from_numpy(fx["hh"]),
+        critical_mask=torch.from_numpy(fx["crit"]),
+        qweights=_index_tree(cpu.qparams["layers"]["moe"], 0),
+        token_valid=torch.from_numpy(fx["tv"]))
+    fx["want"] = dict(y=y.numpy(), **{
+        f: getattr(st, f).numpy() for f in (
+            "router_logits", "expert_load", "expert_hh_load", "gate_mean",
+            "aux_loss", "dropped_frac")})
+    return fx
+
+
+def _data_axis_gates(ranks, one: dict) -> dict:
+    """The ``data_axis:`` line: every rank's gates against the one-rank
+    runs of the same requests (f32 tokens equal, routed store exactly 1/2,
+    K1/K2 launches as worked out from the rank's rows and chunks, equal
+    to the request plan's count and to the one-rank run's, no compile; the reduced ``moe_apply_sharded`` rows within ``DA_TOL`` of
+    the CPU's, loads exact), the bf16 rows that match (not gated), and
+    per rank its peak memory, eager decode step and collectives a step by
+    axis (``by_axis``: inside the decode chunks; ``run_by_axis``: the
+    whole loop, the boundary gathers over "data" included). Returns rank
+    0's f32 launches (the path ``data_axis``)."""
+    n_data = DA_SHAPE["data"]
+    per_rank, bf16_match = [], []
+    for r in ranks:
+        da = r["data_axis"]
+        moe = da["moe"]
+        assert moe["close"] and moe["loads_equal"], (r["rank"], moe)
+        for dtype in ("float32", "bfloat16"):
+            run, ref = da[dtype], one[dtype]
+            # every data rank prefilled its block of the wave
+            assert run["rows"] == DA_REQUESTS // n_data, run["rows"]
+            assert run["routed_bytes"] * DA_SHAPE["model"] == \
+                ref["routed_bytes"], (dtype, run["routed_bytes"],
+                                      ref["routed_bytes"])
+            assert run["launches"] == run["want_launches"] \
+                == run["plan_launches"] == ref["launches"], \
+                (dtype, run["launches"], run["want_launches"],
+                 run["plan_launches"], ref["launches"])
+            assert run["launches"]["expert_quant_matmul_grouped"] > 0
+            assert run["compiles"] == 0
+            assert run["run_by_axis"]["data"]["collectives"] > 0
+        assert da["float32"]["tokens"] == one["float32"]["tokens"], r["rank"]
+        bf16_match.append(sum(a == b for a, b in zip(
+            da["bfloat16"]["tokens"], one["bfloat16"]["tokens"])))
+        per_rank.append(dict(rank=r["rank"], coords=da["coords"],
+                             seconds=da["seconds"],
+                             moe_max_abs_err=moe["max_abs_err"], **{
+            dtype: {k: da[dtype][k] for k in (
+                "routed_bytes", "peak_gib", "resident_gib", "launches",
+                "waves", "solo", "rows",
+                "build_s", "wall_s", "decode_steps", "ms_per_step",
+                "collectives_per_step", "collective_s", "collective_share",
+                "by_axis", "run_by_axis")}
+            for dtype in ("float32", "bfloat16")}))
+    summary = dict(
+        mesh=DA_SHAPE, ranks=EP_RANKS, backend="gloo",
+        config="olmoe_1b_7b 4/2 full width, full depth",
+        requests=dict(n=DA_REQUESTS, prompt=64, new=DA_NEW, slots=DA_REQUESTS,
+                      slots_a_data_rank=DA_REQUESTS // n_data,
+                      chunk=EP_CHUNK, entry="generate_batch"),
+        one_rank={d: {k: one[d][k] for k in (
+            "routed_bytes", "launches", "wall_s", "decode_steps",
+            "ms_per_step")} for d in one},
+        f32_tokens_equal=True, routed_half=True, launches_exact=True,
+        moe_dispatch_axes_data=dict(tokens=DA_TOKENS, d=2, tol=DA_TOL,
+                                    equal=True),
+        bf16_tokens_match=f"{min(bf16_match)}/{len(one['bfloat16']['tokens'])}",
+        per_rank=per_rank)
+    print("data_axis: " + json.dumps(summary), flush=True)
+    return ranks[0]["data_axis"]["float32"]["launches"]
 
 
 class _Marks:
@@ -3960,7 +4263,8 @@ def main() -> int:
     mark("frontend")
     by_path["train_serve"] = _train_phase(dev)
     mark("train")
-    by_path["expert_parallel"] = _expert_parallel_phase(dev)
+    by_path["expert_parallel"], by_path["data_axis"] = \
+        _expert_parallel_phase(dev)
     mark("expert_parallel")
     print("phases: " + json.dumps(mark.seconds), flush=True)
 

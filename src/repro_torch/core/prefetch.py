@@ -19,6 +19,37 @@ def predict_next_gates(h: torch.Tensor, next_router_w: torch.Tensor
     return torch.softmax(h.to(torch.float32) @ next_router_w, dim=-1)
 
 
+def prefetch_sums(pred_gates: torch.Tensor, k: int,
+                  token_valid: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sums over tokens that Eq. (7)'s demand is made of: predicted
+    top-k counts (..., E), predicted mass (..., E) and valid tokens
+    (..., 1). Sums of disjoint token sets add, so a batch split over
+    ranks sums each part over them before :func:`prefetch_demand`."""
+    e = pred_gates.shape[-1]
+    _, idx = stable_topk(pred_gates, k)                      # (..., T, k)
+    oh = torch.nn.functional.one_hot(idx, e).to(torch.float32)
+    if token_valid is None:
+        n = pred_gates.new_full(pred_gates.shape[:-2] + (1,),
+                                float(pred_gates.shape[-2]))
+        return oh.sum(dim=(-3, -2)), pred_gates.sum(dim=-2), n
+    tv = token_valid.to(torch.float32)
+    return ((oh * tv[..., None, None]).sum(dim=(-3, -2)),
+            (pred_gates * tv[..., None]).sum(dim=-2),
+            tv.sum(dim=-1, keepdim=True))
+
+
+def prefetch_demand(counts: torch.Tensor, mass: torch.Tensor,
+                    n: torch.Tensor, t: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. (7)/(8) from :func:`prefetch_sums`: the counts plus half the
+    mean predicted mass as tie-break; returns the top-t experts of that
+    demand and the demand, (expert_ids (..., t), freq (..., E))."""
+    freq = counts + mass / torch.clamp(n, min=1.0) * 0.5
+    _, top = stable_topk(freq, min(t, freq.shape[-1]))
+    return top, freq
+
+
 def prefetch_targets(pred_gates: torch.Tensor, k: int, t: int,
                      token_valid: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -27,19 +58,7 @@ def prefetch_targets(pred_gates: torch.Tensor, k: int, t: int,
     demand are prefetched. ``pred_gates`` is (..., T, E) — leading dims
     are independent rows — and ``token_valid`` (..., T) drops padding.
     Returns (expert_ids (..., t), freq (..., E))."""
-    e = pred_gates.shape[-1]
-    _, idx = stable_topk(pred_gates, k)                      # (..., T, k)
-    oh = torch.nn.functional.one_hot(idx, e).to(torch.float32)
-    if token_valid is not None:
-        tv = token_valid.to(torch.float32)
-        oh = oh * tv[..., None, None]
-        mass = (pred_gates * tv[..., None]).sum(dim=-2) \
-            / torch.clamp(tv.sum(dim=-1, keepdim=True), min=1.0)
-    else:
-        mass = pred_gates.mean(dim=-2)
-    freq = oh.sum(dim=(-3, -2)) + mass * 0.5
-    _, top = stable_topk(freq, min(t, e))
-    return top, freq
+    return prefetch_demand(*prefetch_sums(pred_gates, k, token_valid), t)
 
 
 def layer_similarity(h_l: torch.Tensor, h_next: torch.Tensor) -> torch.Tensor:

@@ -22,17 +22,27 @@ memory. So, per (arch, shape, mesh):
   call reads its operands and writes its result once. This stands where
   XLA's "bytes accessed" stood;
 * **collectives** — the payload bytes of the abstract mesh's collectives
-  (``collective_bytes_from_mesh``);
+  (``collective_bytes_from_mesh``), and the same counts by axis in
+  ``collectives_by_axis`` ("model", "data" — the composite ("pod",
+  "data") — and "world"), so a record says what crossed "data";
 * ``roofline_terms`` with the H100's :class:`~repro_torch.roofline.HW`.
 
-The traced step is rank 0's program, so it runs on meshes whose only
-axis above 1 is "model" ((1, n), or one card). On 16×16 and 2×16×16 the
-record carries the memory and says, in ``traced``, that the traced terms
-wait for the port's data-axis slice (ROADMAP.md): no number is reported
-for them. The port has no layer scan: a trace holds every layer, so a
-deep config whose one-layer trace predicts more than ``FULL_TRACE_S``
-seconds for full depth is traced at depth 1 and at a probe depth, and
-its terms extrapolated linearly (:func:`_extrapolate`).
+The traced step is rank 0's program on an abstract ``Mesh`` of the
+record's shape: its arguments are rank 0's blocks (``shard_tree``: the
+weights split over "model", the batch and the KV caches' rows over
+("pod", "data") where the data ranks divide them), and it runs on
+``Mesh.for_batch`` of the global batch — a batch the data ranks do not
+divide (``long_500k``'s one row) is replicated, every data rank computing
+it whole. A one-mask MoE site of a split batch gathers its tokens over
+"data" and runs as one rank would, or, with ``local_dispatch``
+(``moe_dispatch_axes`` over the batch axes), dispatches a rank's own
+groups and sums its statistics over "data" (``models/model.py``). The
+train step on a mesh of more than one rank carries memory only: training
+under a mesh is a later slice of the port (ROADMAP.md). The port has no
+layer scan: a trace holds every layer, so a deep config whose one-layer
+trace predicts more than ``FULL_TRACE_S`` seconds for full depth is
+traced at depth 1 and at a probe depth, and its terms extrapolated
+linearly (:func:`_extrapolate`).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmoe-1b-7b \\
@@ -278,13 +288,14 @@ def _trace_step(cfg0: ModelConfig, shape: str, mesh: Mesh,
     cfg, step, args, shardings = build_specs(cfg_n, shape, mesh,
                                              expert_parallel, opts)
     traced_mesh = Mesh(mesh.shape)           # fresh payload counters
+    run_mesh = None
     if traced_mesh.size > 1:
         args = tuple(a if sp is None else shard_tree(a, sp, traced_mesh)
                      for a, sp in zip(args, shardings))
+        run_mesh = traced_mesh.for_batch(SHAPES[shape]["global_batch"])
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as fc:
-        out, trace = trace_ops(
-            step, *args, mesh=traced_mesh if traced_mesh.size > 1 else None)
+        out, trace = trace_ops(step, *args, mesh=run_mesh)
     seconds = time.perf_counter() - t0
     flops = float(fc.get_total_flops()) + sum(
         _kernel_flops(s) for s in trace.sites
@@ -292,6 +303,9 @@ def _trace_step(cfg0: ModelConfig, shape: str, mesh: Mesh,
     return dict(cfg=cfg, seconds=seconds, flops=flops,
                 bytes=float(trace.bytes_accessed()),
                 coll=collective_bytes_from_mesh(traced_mesh),
+                coll_axis={a: {k: n for k, n in v.items() if k != "seconds"}
+                           for a, v in
+                           traced_mesh.collectives_by_axis.items()},
                 output_bytes=tensor_bytes(out, exclude=args),
                 temp_bytes=trace.peak_temp_bytes)
 
@@ -315,8 +329,8 @@ def run_one(arch: str, shape: str, *, mesh: str = "1x1",
             save_dir: Optional[str] = "build/dryrun",
             verbose: bool = True, opts: tuple = ()) -> Dict[str, Any]:
     """One record: memory a rank on ``mesh`` and on the production
-    meshes, and on a mesh whose only axis above 1 is "model" the traced
-    step's terms (see the module docstring)."""
+    meshes, and rank 0's traced step's terms on ``mesh`` (memory only for
+    the train step on more than one rank; see the module docstring)."""
     m = Mesh(MESHES[mesh])
     n_chips = m.size
     cfg0 = get_config(arch)
@@ -335,8 +349,7 @@ def run_one(arch: str, shape: str, *, mesh: str = "1x1",
                                                              pm)
     del args
 
-    traceable = m.size == m.model_size and not (
-        info["phase"] == "train" and m.size > 1)
+    traceable = not (info["phase"] == "train" and m.size > 1)
     result: Dict[str, Any] = dict(
         arch=arch, shape=shape, mesh=mesh, chips=n_chips,
         expert_parallel=expert_parallel, opts=list(opts),
@@ -346,14 +359,13 @@ def run_one(arch: str, shape: str, *, mesh: str = "1x1",
               if info["phase"] != "decode" else info["global_batch"])
     mf = model_flops_estimate(cfg, tokens=tokens, phase=info["phase"])
     if not traceable:
-        why = ("a data or pod axis above 1: the traced terms wait for the "
-               "port's data-axis slice (ROADMAP.md)"
-               if m.size != m.model_size else
-               "the train step runs the whole model a rank: no traced "
-               "terms on a mesh of more than one rank")
+        why = ("training under a mesh is a later slice of the port "
+               "(ROADMAP.md): no traced terms for the train step on a "
+               "mesh of more than one rank")
         mem.update(output_bytes=None, temp_bytes=None, peak_bytes=None)
         result.update(lower_s=None, compile_s=None, memory=mem,
-                      collectives=None, model_flops=mf,
+                      collectives=None, collectives_by_axis=None,
+                      model_flops=mf,
                       useful_flops_ratio=None, flops=None, bytes=None,
                       collective_bytes=None, t_compute_s=None,
                       t_memory_s=None, t_collective_s=None, dominant=None,
@@ -375,6 +387,11 @@ def run_one(arch: str, shape: str, *, mesh: str = "1x1",
                                                 probe["coll"][k], l_probe,
                                                 lf))
                             for k in one["coll"]}
+            full["coll_axis"] = {
+                a: {k: int(_extrapolate(v, probe["coll_axis"][a][k],
+                                        l_probe, lf))
+                    for k, v in one["coll_axis"][a].items()}
+                for a in one["coll_axis"]}
             depth = f"extrapolated from depths 1 and {l_probe} to {lf}"
         coll = full["coll"]
         terms = roofline_terms({"flops": full["flops"],
@@ -387,7 +404,8 @@ def run_one(arch: str, shape: str, *, mesh: str = "1x1",
         total = terms["flops"] * n_chips
         result.update(
             lower_s=full["seconds"], compile_s=None, memory=mem,
-            collectives=coll, model_flops=mf,
+            collectives=coll, collectives_by_axis=full["coll_axis"],
+            model_flops=mf,
             useful_flops_ratio=(mf / total if total else 0.0),
             **terms, traced="rank 0 on meta", depth=depth,
             bytes_source="op trace: each op outside a kernel call reads "
@@ -415,12 +433,12 @@ def main(argv=None) -> None:
     ap.add_argument("--include-paper", action="store_true",
                     help="also run mixtral-8x7b / qwen3-30b-a3b")
     ap.add_argument("--mesh", default="1x1", choices=list(MESHES),
-                    help="the mesh of the record (traced terms need every "
-                    "axis but 'model' at 1)")
+                    help="the mesh of the record (rank 0's program on it)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the 2x16x16 mesh (memory only)")
+                    help="the 2x16x16 mesh")
     ap.add_argument("--expert-parallel", action="store_true")
-    ap.add_argument("--opt", action="append", default=[],
+    ap.add_argument("--opt", "--opts", dest="opt", action="append",
+                    default=[],
                     choices=["attn_skip", "bf16_attn", "zero1", "seq_acts",
                              "local_dispatch", "dymoe_40"],
                     help="perf levers (repeatable)")

@@ -7,7 +7,10 @@ rank of a ``torch.distributed`` world runs the same program on its own
 shards, and the model code places the collectives by hand. A :class:`Mesh`
 is the named shape of that world (``("data", "model")`` or ``("pod",
 "data", "model")``), this process's rank and coordinates, and the process
-group.
+groups of its axes: the "model" sub-group of its batch coordinate, over
+which products of split weights reduce, and the "data" sub-group of its
+model coordinate, over the composite ("pod", "data") axis a batch is split
+over.
 
 Only two collectives are used, ``all_reduce`` (SUM, MAX) and
 ``broadcast``: gloo, which carries ranks that share one card and the CPU,
@@ -19,16 +22,18 @@ exactly one writer, summed as integers over its bytes, so it is exact
 A mesh without an initialized world is abstract: enough for the sharding
 rules, which read only ``shape``, and for rank 0's program on ``meta``
 tensors, whose collectives are shape-only (they count, and add their
-payload bytes, but move nothing; the linter and the dry run trace the
-expert-parallel programs so). On a real tensor they need the world.
+payload bytes by kind and by axis, but move nothing; the linter and the
+dry run trace the sharded programs so). On a real tensor they need the
+world.
 
-Every collective is preceded, by default, by a check that all ranks are
-issuing the same one (``check=True``): a tiny MAX over each rank's
-(operation, dtype, element count) fingerprint and its negation. Ranks
-whose host decisions diverged then raise ``CollectiveMismatch`` together
-instead of pairing mismatched payloads (which gloo answers by aborting
-the process or by blocking until the timeout). A rank that issues no
-collective at all is caught by the process group's timeout.
+Every collective is preceded, by default, by a check that all ranks of
+its sub-group are issuing the same one (``check=True``): a tiny MAX over
+each rank's (operation, dtype, element count) fingerprint and its
+negation. Ranks whose host decisions diverged then raise
+``CollectiveMismatch`` together instead of pairing mismatched payloads
+(which gloo answers by aborting the process or by blocking until the
+timeout). A rank that issues no collective at all is caught by the
+process group's timeout.
 
 Builders are functions, as in the JAX package: importing this module
 touches no process group.
@@ -54,6 +59,8 @@ __all__ = ["Mesh", "CollectiveMismatch", "make_production_mesh",
 DEFAULT_TIMEOUT_S = 120.0
 
 _OPS = {"sum": 1, "max": 2, "broadcast": 3}
+_KINDS = ("all-reduce", "all-gather", "broadcast")
+_AXES = ("model", "data", "world")
 _DTYPES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3,
            torch.float64: 4, torch.int32: 5, torch.int64: 6, torch.uint8: 7}
 
@@ -63,28 +70,59 @@ class CollectiveMismatch(RuntimeError):
     decisions diverged."""
 
 
+def _new_tally() -> Dict[str, Dict[str, float]]:
+    """The collective counters a mesh and its views share, by axis
+    ("model", "data" — the composite ("pod", "data") — and "world"):
+    payload collectives, their bytes by kind and in all, and seconds."""
+    return {a: dict(dict.fromkeys(("collectives",) + _KINDS + ("total",), 0),
+                    seconds=0.0) for a in _AXES}
+
+
 class Mesh:
     """A named grid of ``torch.distributed`` ranks.
 
     ``shape`` maps axis names to sizes in row-major order (the last axis
     varies fastest over the ranks, as ``jax.make_mesh`` lays devices);
-    ``rank`` is this process's rank in ``group`` (None: the default
-    world). A mesh of one rank needs no process group: its collectives
-    are the identity. Without an initialized world a mesh is abstract —
-    enough for the sharding rules, which read only ``shape``.
+    ``rank`` is this process's rank (None group: the default world, whose
+    ranks are the mesh's). A mesh of one rank needs no process group: its
+    collectives are the identity. Without an initialized world of its
+    size a mesh is abstract — enough for the sharding rules, which read
+    only ``shape``, and for meta tensors.
 
-    Collectives act over the whole world, which is the "model" axis on the
-    meshes this port serves on (every axis but "model" of size 1).
-    ``collectives`` and ``collective_s`` count the payload collectives and
-    their seconds (checks and object broadcasts included in the seconds);
-    ``collective_bytes`` their payload bytes by kind ("all-reduce",
-    "all-gather": the gathered buffer, "broadcast") and in ``"total"``, as
-    ``repro_torch.roofline.collective_bytes_from_mesh`` reads them. On
-    ``meta`` tensors a collective is shape-only (no world is needed).
+    **Sub-groups.** Over a world, the constructor builds, with
+    ``dist.new_group`` called by every rank in the same order, the "model"
+    group of each batch coordinate (the ranks that share this rank's
+    ("pod", "data") coordinates) and the "data" group of each model
+    coordinate (the ranks that share its "model" coordinate, over the
+    composite ("pod", "data") axis); an axis that spans the world uses the
+    world's group, an axis of size 1 none. So every rank of the world must
+    build the same meshes in the same order. ``all_reduce``,
+    ``broadcast``, ``all_gather`` and ``all_gather_many`` act over
+    ``axis="model"`` by default or ``axis="data"``; the fingerprint check
+    runs on the sub-group of the collective it guards. ``agree_float`` and
+    ``broadcast_object`` act over the whole world: they carry rank 0's
+    host decisions.
+
+    **The batch.** A batch is split in blocks over ("pod", "data")
+    (:meth:`batch_block`) when the data ranks divide it, else replicated:
+    :meth:`for_batch` gives the mesh a batch runs on, this mesh or its
+    :meth:`model_view` (its model sub-group as a mesh of its own, whose
+    data axes are 1), over which the model code issues no data collective.
+
+    ``collectives_by_axis`` counts, by axis ("model", "data", "world"),
+    the payload collectives, their payload bytes by kind ("all-reduce",
+    "all-gather": the gathered buffer, "broadcast") and in all, and their
+    seconds (checks and object broadcasts included):
+    ``{"collectives": n, <kind>: bytes, ..., "total": bytes, "seconds":
+    s}``. ``collectives``, ``collective_s`` and ``collective_bytes`` (as
+    ``repro_torch.roofline.collective_bytes_from_mesh`` reads it) are their
+    sums over the axes.
+    A mesh and its views share the counters. On ``meta`` tensors a
+    collective is shape-only (no world is needed).
     """
 
     def __init__(self, shape: Dict[str, int], rank: int = 0, group=None, *,
-                 check: bool = True):
+                 check: bool = True, _parent: "Mesh" = None):
         self.shape = dict(shape)
         self.axis_names: Tuple[str, ...] = tuple(self.shape)
         self.size = 1
@@ -95,20 +133,66 @@ class Mesh:
         self.rank = rank
         self.group = group
         self.check = check
-        self.coords: Dict[str, int] = {}
-        rest = rank
-        for name in reversed(self.axis_names):
-            self.coords[name] = rest % self.shape[name]
-            rest //= self.shape[name]
-        self.coords = {a: self.coords[a] for a in self.axis_names}
-        self.collectives = 0
-        self.collective_s = 0.0
-        self.collective_bytes = {"all-reduce": 0, "all-gather": 0,
-                                 "broadcast": 0, "total": 0}
+        self.coords = self._coords_of(rank)
+        self.batch_axes: Tuple[str, ...] = tuple(
+            a for a in ("pod", "data") if a in self.shape)
+        self._views: Dict[str, "Mesh"] = {}
+        if _parent is not None:
+            # a view: the parent's counters, and its model group for both
+            # the model axis and the view's own world
+            self._tally = _parent._tally
+            model = _parent._groups["model"]
+            self._groups = {"model": model, "world": model,
+                            "data": (None, 0)}
+            return
+        self._tally = _new_tally()
+        self._groups = {"model": (group, 0), "data": (group, 0),
+                        "world": (group, 0)}
+        if self.size > 1 and self._in_world():
+            self._groups.update(model=self._sub_group(("model",)),
+                                data=self._sub_group(self.batch_axes))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
 
+    def _coords_of(self, rank: int) -> Dict[str, int]:
+        coords: Dict[str, int] = {}
+        rest = rank
+        for name in reversed(self.axis_names):
+            coords[name] = rest % self.shape[name]
+            rest //= self.shape[name]
+        return {a: coords[a] for a in self.axis_names}
+
+    def _in_world(self) -> bool:
+        return (self.group is None and dist.is_available()
+                and dist.is_initialized()
+                and dist.get_world_size() == self.size)
+
+    def _sub_group(self, axes: Tuple[str, ...]):
+        """(process group, global rank of its member at coordinate 0) of
+        the ranks that share this rank's coordinates on every axis but
+        ``axes``. Every rank creates every such group, in one order."""
+        n = 1
+        for a in axes:
+            n *= self.shape[a]
+        if n == 1:
+            return (None, self.rank)
+        if n == self.size:
+            return (None, 0)
+        rest = [a for a in self.axis_names if a not in axes]
+        groups: Dict[tuple, List[int]] = {}
+        for r in range(self.size):
+            c = self._coords_of(r)
+            groups.setdefault(tuple(c[a] for a in rest), []).append(r)
+        mine = tuple(self.coords[a] for a in rest)
+        out = None
+        for key in sorted(groups):
+            g = dist.new_group(groups[key])
+            if key == mine:
+                out = (g, groups[key][0])
+        return out
+
+    # ----------------------------------------------------------- axes
     @property
     def model_size(self) -> int:
         return self.shape.get("model", 1)
@@ -118,16 +202,81 @@ class Mesh:
         return self.coords.get("model", 0)
 
     @property
+    def data_size(self) -> int:
+        """The size of the composite ("pod", "data") batch axis."""
+        n = 1
+        for a in self.batch_axes:
+            n *= self.shape[a]
+        return n
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's coordinate on the composite ("pod", "data") axis."""
+        r = 0
+        for a in self.batch_axes:
+            r = r * self.shape[a] + self.coords[a]
+        return r
+
+    @property
     def distributed(self) -> bool:
         """Whether collectives leave this process (more than one rank)."""
         return self.size > 1
 
-    def _model_only(self) -> None:
-        if self.size != self.model_size:
-            raise NotImplementedError(
-                f"collectives over the model axis of a {self.shape} mesh: "
-                "a data or pod axis above 1 is the next slice of the port "
-                "(ROADMAP.md)")
+    def axis_size(self, axis: str) -> int:
+        return {"model": self.model_size, "data": self.data_size,
+                "world": self.size}[axis]
+
+    def axis_rank(self, axis: str) -> int:
+        return {"model": self.model_rank, "data": self.data_rank,
+                "world": self.rank}[axis]
+
+    def batch_block(self, n: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's rows of an n-row batch: its block when
+        the data ranks divide n, else every row (replicated)."""
+        d = self.data_size
+        if d == 1 or n % d:
+            return 0, n
+        w = n // d
+        return self.data_rank * w, (self.data_rank + 1) * w
+
+    def model_view(self) -> "Mesh":
+        """This rank's model sub-group as a mesh of its own (its data axes
+        1; the counters shared): what a program that one data coordinate
+        runs alone — a replicated batch, or rows that stay on their data
+        rank — runs on. The mesh itself when its data axes are 1."""
+        if self.data_size == 1:
+            return self
+        if "model" not in self._views:
+            shape = {a: (1 if a in self.batch_axes else n)
+                     for a, n in self.shape.items()}
+            self._views["model"] = Mesh(shape, self.model_rank,
+                                        check=self.check, _parent=self)
+        return self._views["model"]
+
+    def for_batch(self, n: int) -> "Mesh":
+        """The mesh an n-row batch runs on: this one when the data ranks
+        divide n (each computes its :meth:`batch_block`), else the
+        :meth:`model_view` (every data rank computes every row)."""
+        d = self.data_size
+        return self if d == 1 or n % d == 0 else self.model_view()
+
+    # --------------------------------------------------------- counters
+    @property
+    def collectives(self) -> int:
+        return sum(v["collectives"] for v in self._tally.values())
+
+    @property
+    def collective_s(self) -> float:
+        return sum(v["seconds"] for v in self._tally.values())
+
+    @property
+    def collective_bytes(self) -> Dict[str, int]:
+        return {k: sum(v[k] for v in self._tally.values())
+                for k in _KINDS + ("total",)}
+
+    @property
+    def collectives_by_axis(self) -> Dict[str, Dict[str, int]]:
+        return self._tally
 
     # ------------------------------------------------------- collectives
     def _host(self) -> str:
@@ -135,13 +284,13 @@ class Mesh:
         tensors, gloo takes host ones (no device sync)."""
         return "cuda" if dist.get_backend(self.group) == "nccl" else "cpu"
 
-    def _fingerprint(self, op: str, t: torch.Tensor) -> None:
+    def _fingerprint(self, op: str, t: torch.Tensor, group) -> None:
         if not self.check:
             return
         f = torch.tensor([_OPS[op], _DTYPES.get(t.dtype, 0), t.numel()],
                          dtype=torch.int64, device=self._host())
         both = torch.cat([f, -f])
-        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.group)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
         hi, lo = both[:3], -both[3:]
         if not torch.equal(hi, lo):
             raise CollectiveMismatch(
@@ -150,50 +299,55 @@ class Mesh:
                 f"collective (max {hi.tolist()} vs min {lo.tolist()} over "
                 f"(op, dtype, numel)): the ranks' host decisions diverged")
 
-    def _run(self, op: str, t: torch.Tensor, kind: str) -> torch.Tensor:
-        if not self.distributed:
+    def _run(self, op: str, t: torch.Tensor, kind: str,
+             axis: str) -> torch.Tensor:
+        if self.axis_size(axis) == 1:
             return t
-        self._model_only()
         nbytes = t.numel() * t.element_size()
-        self.collective_bytes[kind] += nbytes
-        self.collective_bytes["total"] += nbytes
+        by = self._tally[axis]
+        by[kind] += nbytes
+        by["total"] += nbytes
+        by["collectives"] += 1
         if t.is_meta:             # shape-only: no peer, nothing to move
-            self.collectives += 1
             return t
+        group, src = self._groups[axis]
         t0 = time.perf_counter()
-        self._fingerprint(op, t)
+        self._fingerprint(op, t, group)
         if op == "broadcast":
-            dist.broadcast(t, src=0, group=self.group)
+            dist.broadcast(t, src=src, group=group)
         else:
             dist.all_reduce(t, op=(dist.ReduceOp.SUM if op == "sum"
                                    else dist.ReduceOp.MAX),
-                            group=self.group)
-        self.collectives += 1
-        self.collective_s += time.perf_counter() - t0
+                            group=group)
+        by["seconds"] += time.perf_counter() - t0
         return t
 
-    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, op: str = "sum", *,
+                   axis: str = "model") -> torch.Tensor:
         """In-place ``all_reduce`` of ``t`` (``op`` "sum" or "max") over
-        the model axis; returns ``t``."""
-        return self._run(op, t, "all-reduce")
+        ``axis``; returns ``t``."""
+        return self._run(op, t, "all-reduce", axis)
 
-    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """In place: every rank gets rank 0's ``t``; returns ``t``."""
-        return self._run("broadcast", t, "broadcast")
+    def broadcast(self, t: torch.Tensor, *,
+                  axis: str = "model") -> torch.Tensor:
+        """In place: every rank of ``axis`` gets the ``t`` of the rank at
+        coordinate 0 on it; returns ``t``."""
+        return self._run("broadcast", t, "broadcast", axis)
 
-    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, dim: int, *,
+                   axis: str = "model") -> torch.Tensor:
         """This rank's block ``t`` of a tensor split evenly along ``dim``
-        over the model axis -> the whole tensor, exactly: a zero buffer
-        with ``t`` at this rank's block, summed over the ranks."""
-        return self.all_gather_many([t], dim)[0]
+        over ``axis`` -> the whole tensor, exactly: a zero buffer with
+        ``t`` at this rank's block, summed over the ranks."""
+        return self.all_gather_many([t], dim, axis=axis)[0]
 
-    def all_gather_many(self, ts: Sequence[torch.Tensor],
-                        dim: int) -> List[torch.Tensor]:
+    def all_gather_many(self, ts: Sequence[torch.Tensor], dim: int, *,
+                        axis: str = "model") -> List[torch.Tensor]:
         """:meth:`all_gather` of several blocks (one dtype, one shape but
         along ``dim``) through ONE collective."""
-        if not self.distributed:
+        n, r = self.axis_size(axis), self.axis_rank(axis)
+        if n == 1:
             return list(ts)
-        n, r = self.model_size, self.model_rank
         dim = dim % ts[0].dim()
         widths = [t.shape[dim] for t in ts]
         shape = list(ts[0].shape)
@@ -203,46 +357,68 @@ class Mesh:
         for t, w in zip(ts, widths):
             buf.narrow(dim, off + r * w, w).copy_(t)
             off += n * w
-        # summed as integers over the buffer's bytes: with one writer a
-        # position, bit-exact for any dtype (-0.0 and NaNs included), and
-        # gloo adds bf16 far slower than int32
-        flat = buf.view(-1)
-        self._run("sum", flat.view(torch.int32 if flat.nbytes % 4 == 0
-                                   else torch.uint8), "all-gather")
+        self._sum_exact(buf, axis)
         out, off = [], 0
         for w in widths:
             out.append(buf.narrow(dim, off, n * w))
             off += n * w
         return out
 
+    def all_gather_rows(self, t: torch.Tensor, rows: Sequence[int], n: int,
+                        *, axis: str = "data") -> torch.Tensor:
+        """The (n, ...) whole of which this rank holds rows ``rows`` (host
+        ints; ``t`` (len(rows), ...)), each row written by exactly one
+        rank of ``axis`` (a row none writes is zero): one exact gather,
+        whatever the number of rows each rank holds."""
+        if self.axis_size(axis) == 1:
+            assert len(rows) == n, (len(rows), n)
+            return t
+        buf = torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        if len(rows):
+            buf[torch.as_tensor(list(rows), device=t.device)] = t
+        return self._sum_exact(buf, axis)
+
+    def _sum_exact(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
+        # summed as integers over the buffer's bytes: with one writer a
+        # position, bit-exact for any dtype (-0.0 and NaNs included), and
+        # gloo adds bf16 far slower than int32
+        flat = buf.reshape(-1)
+        flat = flat.view(torch.uint8) if flat.dtype == torch.bool else flat
+        self._run("sum", flat.view(torch.int32 if flat.nbytes % 4 == 0
+                                   else torch.uint8), "all-gather", axis)
+        return buf
+
     def agree_float(self, x: float) -> float:
-        """Rank 0's ``x`` on every rank (one broadcast on the host)."""
+        """Rank 0's ``x`` on every rank of the world (one broadcast on the
+        host)."""
         if not self.distributed:
             return x
         return float(self.broadcast(torch.tensor(
-            [x], dtype=torch.float64, device=self._host()))[0])
+            [x], dtype=torch.float64, device=self._host()), axis="world")[0])
 
     def broadcast_object(self, obj: Any) -> Any:
-        """Rank 0's ``obj`` (picklable) on every rank: two broadcasts, of
-        its pickled length and of its bytes, on the host."""
+        """Rank 0's ``obj`` (picklable) on every rank of the world: two
+        broadcasts, of its pickled length and of its bytes, on the host."""
         if not self.distributed:
             return obj
         import pickle
 
-        self._model_only()
+        group, src = self._groups["world"]
         t0 = time.perf_counter()
         dev = self._host()
-        data = pickle.dumps(obj) if self.rank == 0 else b""
+        mine = self.rank == 0
+        data = pickle.dumps(obj) if mine else b""
         n = torch.tensor([len(data)], dtype=torch.int64, device=dev)
-        self._fingerprint("broadcast", n)
-        dist.broadcast(n, src=0, group=self.group)
+        self._fingerprint("broadcast", n, group)
+        dist.broadcast(n, src=src, group=group)
         buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
-               if self.rank == 0 else
+               if mine else
                torch.zeros(int(n[0]), dtype=torch.uint8, device=dev))
-        self._fingerprint("broadcast", buf)
-        dist.broadcast(buf, src=0, group=self.group)
-        self.collective_s += time.perf_counter() - t0
-        return pickle.loads(buf.cpu().numpy().tobytes()) if self.rank else obj
+        self._fingerprint("broadcast", buf, group)
+        dist.broadcast(buf, src=src, group=group)
+        self._tally["world"]["seconds"] += time.perf_counter() - t0
+        return obj if mine else pickle.loads(buf.cpu().numpy().tobytes())
 
 
 # ---------------------------------------------------------------- builders
@@ -272,7 +448,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def make_local_mesh() -> Mesh:
     """(ranks, 1) ("data", "model") mesh over the initialized world (one
-    rank without one) — for smoke tests."""
+    rank without one): every rank holds the whole model and its block of
+    the batch."""
     size, rank = _world()
     return Mesh({"data": size, "model": 1}, rank)
 

@@ -319,11 +319,83 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
     return _combine(p, cfg, x, r, yb, hh_mask, token_valid)
 
 
+def dispatch_axes(cfg: ModelConfig, mesh) -> None:
+    """Check ``cfg.moe_dispatch_axes`` against ``mesh``: every axis it
+    names is one of the mesh's batch axes ("pod", "data"), every batch
+    axis above 1 is named, and ``cfg.moe_dispatch_shards`` is a multiple
+    of their size (each data rank runs D / d of the D groups); raises
+    ``ValueError`` otherwise. Nothing to check without axes or a mesh."""
+    axes = tuple(cfg.moe_dispatch_axes or ())
+    if not axes or mesh is None:
+        return
+    batch = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    if any(a not in batch for a in axes) or any(
+            mesh.shape[a] > 1 and a not in axes for a in batch):
+        raise ValueError(
+            f"moe_dispatch_axes={axes} must name the batch axes {batch} of "
+            f"a {mesh.shape} mesh (every one above 1)")
+    if cfg.moe_dispatch_shards % mesh.data_size:
+        raise ValueError(
+            f"moe_dispatch_shards={cfg.moe_dispatch_shards} is not a "
+            f"multiple of the {mesh.data_size} data ranks of "
+            f"{mesh.shape} that moe_dispatch_axes={axes} pins its groups to")
+
+
+def local_dispatch(cfg: ModelConfig, mesh, t: int) -> bool:
+    """Whether a one-mask MoE site over this rank's ``t`` tokens of a
+    batch split over ``mesh``'s data axes dispatches them where they are:
+    ``cfg.moe_dispatch_axes`` pins the D groups to the data ranks
+    (:func:`dispatch_axes` checks them) and D divides the global tokens.
+    Otherwise the site keeps the global capacity and token order by
+    gathering its tokens over "data"."""
+    if mesh is None or mesh.data_size == 1 or not cfg.moe_dispatch_axes:
+        return False
+    dispatch_axes(cfg, mesh)
+    d = cfg.moe_dispatch_shards
+    return d > 1 and (t * mesh.data_size) % d == 0
+
+
+def _grouped(p, cfg: ModelConfig, x: torch.Tensor, d: int, hh_mask,
+             critical_mask, qweights, token_valid):
+    """``moe_apply`` on each of ``d`` contiguous token groups of ``x``,
+    their capacity buffers folded into one (E, d·C_d, dm) buffer (one K2
+    launch an expert matmul). Returns (y, per-group MoEStats)."""
+    t = x.shape[0]
+    xs = x.reshape(d, t // d, -1)
+    hh = hh_mask.reshape(d, t // d) if hh_mask is not None else None
+    tv = token_valid.reshape(d, t // d) if token_valid is not None else None
+    routed = [_dispatch(p, cfg, xs[i], None if tv is None else tv[i])
+              for i in range(d)]
+    c = routed[0].buf.shape[1]
+    yb = _experts(p, _cat([r.buf for r in routed], 1),
+                  critical_mask, qweights)                    # (E, D·C, dm)
+    outs = [_combine(p, cfg, xs[i], r, yb[:, i * c:(i + 1) * c],
+                     None if hh is None else hh[i],
+                     None if tv is None else tv[i])
+            for i, r in enumerate(routed)]
+    return _cat([o[0] for o in outs], 0), [o[1] for o in outs]
+
+
+def _cat(ts, dim: int) -> torch.Tensor:
+    """``torch.cat``, without the copy of a single tensor."""
+    return ts[0] if len(ts) == 1 else torch.cat(ts, dim=dim)
+
+
+def _merge(router_logits: torch.Tensor, load, hh_load, gate_mean, aux,
+           dropped) -> MoEStats:
+    """The groups' statistics merged as the JAX package merges its vmap's:
+    loads summed, gate means, aux losses and dropped shares averaged."""
+    return MoEStats(router_logits=router_logits, expert_load=load.sum(0),
+                    expert_hh_load=hh_load.sum(0), gate_mean=gate_mean.mean(0),
+                    aux_loss=aux.mean(), dropped_frac=dropped.mean())
+
+
 def moe_apply_sharded(p, cfg: ModelConfig, x: torch.Tensor, *,
                       hh_mask: Optional[torch.Tensor] = None,
                       critical_mask: Optional[torch.Tensor] = None,
                       qweights: Optional[dict] = None,
                       token_valid: Optional[torch.Tensor] = None,
+                      mesh=None,
                       ) -> Tuple[torch.Tensor, MoEStats]:
     """Data-local MoE dispatch: the T tokens split into D =
     ``cfg.moe_dispatch_shards`` contiguous groups, each routed as its own
@@ -338,35 +410,59 @@ def moe_apply_sharded(p, cfg: ModelConfig, x: torch.Tensor, *,
     output does not depend on the rows beside it. Statistics merge as the
     JAX package's do: loads summed, gate means, aux losses and dropped
     shares averaged over the groups, router logits back to (T, E).
-    ``cfg.moe_dispatch_axes`` names the mesh axes the groups would be
-    pinned to: it has no effect on one device, and a mesh refuses it
-    (``models/model.py::_check_mesh``, the next slice)."""
+
+    ``mesh``: ``x`` (and ``hh_mask``, ``token_valid``) are this rank's
+    tokens of a batch split over the mesh's data axes (``Mesh.for_batch``;
+    a mesh whose data axes are 1 changes nothing here). With
+    ``cfg.moe_dispatch_axes`` naming them (:func:`local_dispatch`), the
+    rank runs only its D / d groups, as the reference pins them to the
+    data shards, and the groups' statistics are gathered over "data" (one
+    collective) and merged as on one device; the router logits stay this
+    rank's (T / d, E). Otherwise the tokens are gathered over "data", the
+    dispatch runs as one rank would (global capacity and token order) and
+    the rank keeps its rows of the output and of the router logits."""
+    split = mesh is not None and mesh.data_size > 1
     d = cfg.moe_dispatch_shards
     t = x.shape[0]
+    if split and local_dispatch(cfg, mesh, t):
+        dl = d // mesh.data_size
+        y, st = _grouped(p, cfg, x, dl, hh_mask, critical_mask, qweights,
+                         token_valid)
+        e = cfg.num_experts
+        rows = torch.cat([torch.stack([s.expert_load for s in st]),
+                          torch.stack([s.expert_hh_load for s in st]),
+                          torch.stack([s.gate_mean for s in st]),
+                          torch.stack([s.aux_loss for s in st])[:, None],
+                          torch.stack([s.dropped_frac.to(torch.float32)
+                                       for s in st])[:, None]], dim=1)
+        g = mesh.all_gather(rows.to(torch.float32), 0, axis="data")
+        return y, _merge(_cat([s.router_logits for s in st], 0),
+                         g[:, :e], g[:, e:2 * e], g[:, 2 * e:3 * e],
+                         g[:, 3 * e], g[:, 3 * e + 1])
+    if split:
+        gather = [v for v in (x, hh_mask, token_valid) if v is not None]
+        whole = iter([mesh.all_gather(v, 0, axis="data") for v in gather])
+        xg = next(whole)
+        hg = next(whole) if hh_mask is not None else None
+        tg = next(whole) if token_valid is not None else None
+        y, stats = moe_apply_sharded(p, cfg, xg, hh_mask=hg,
+                                     critical_mask=critical_mask,
+                                     qweights=qweights, token_valid=tg)
+        lo = mesh.data_rank * t
+        return y[lo:lo + t], dataclasses.replace(
+            stats, router_logits=stats.router_logits[lo:lo + t])
     if d <= 1 or t % d != 0:
         return moe_apply(p, cfg, x, hh_mask=hh_mask,
                          critical_mask=critical_mask, qweights=qweights,
                          token_valid=token_valid)
-    xs = x.reshape(d, t // d, -1)
-    hh = hh_mask.reshape(d, t // d) if hh_mask is not None else None
-    tv = token_valid.reshape(d, t // d) if token_valid is not None else None
-    routed = [_dispatch(p, cfg, xs[i], None if tv is None else tv[i])
-              for i in range(d)]
-    c = routed[0].buf.shape[1]
-    yb = _experts(p, torch.cat([r.buf for r in routed], dim=1),
-                  critical_mask, qweights)                    # (E, D·C, dm)
-    outs = [_combine(p, cfg, xs[i], r, yb[:, i * c:(i + 1) * c],
-                     None if hh is None else hh[i],
-                     None if tv is None else tv[i])
-            for i, r in enumerate(routed)]
-    st = [o[1] for o in outs]
-    return torch.cat([o[0] for o in outs]), MoEStats(
-        router_logits=torch.cat([s.router_logits for s in st]),
-        expert_load=torch.stack([s.expert_load for s in st]).sum(0),
-        expert_hh_load=torch.stack([s.expert_hh_load for s in st]).sum(0),
-        gate_mean=torch.stack([s.gate_mean for s in st]).mean(0),
-        aux_loss=torch.stack([s.aux_loss for s in st]).mean(),
-        dropped_frac=torch.stack([s.dropped_frac for s in st]).mean())
+    y, st = _grouped(p, cfg, x, d, hh_mask, critical_mask, qweights,
+                     token_valid)
+    return y, _merge(torch.cat([s.router_logits for s in st]),
+                     torch.stack([s.expert_load for s in st]),
+                     torch.stack([s.expert_hh_load for s in st]),
+                     torch.stack([s.gate_mean for s in st]),
+                     torch.stack([s.aux_loss for s in st]),
+                     torch.stack([s.dropped_frac for s in st]))
 
 
 def moe_apply_rows(p, cfg: ModelConfig, x: torch.Tensor,

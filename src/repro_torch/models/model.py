@@ -48,11 +48,19 @@ leading n_sites (hybrid only)}.
 
 ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) runs the inference
 paths as one program on every rank of the mesh, over params and stores
-that ``sharding/partition.py`` split (``Shard`` leaves) and KV caches whose
-slots are split over "model" (``sharding/spmd.py`` places the
-collectives). This slice covers MoE and dense attention models on meshes
-whose every axis but "model" is 1; SSM and hybrid blocks, a data axis
-above 1 and ``cfg.moe_dispatch_axes`` raise under a mesh.
+that ``sharding/partition.py`` split over "model" (``Shard`` leaves) and KV
+caches whose slots are split over "model" (``sharding/spmd.py`` places the
+collectives, over each rank's "model" sub-group). The batch a function is
+given is this rank's rows: its block of a batch split over the data axes
+("pod", "data") when ``mesh``'s data axes are above 1 (``Mesh.for_batch``
+gives the mesh a batch runs on; its ``model_view`` when the batch is
+replicated, or its rows stay on one data rank). Rows are independent but
+at the sites with one Critical mask: there the batch's tokens are gathered
+over "data" and the site runs as one rank would (global capacity, token
+order, Critical set and look-ahead), or, with ``cfg.moe_dispatch_axes``,
+the rank dispatches its own groups and the batch's statistics are summed
+over "data" (:func:`_site_split`). SSM and hybrid blocks raise under a
+mesh.
 """
 from __future__ import annotations
 
@@ -66,7 +74,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.importance import heavy_hitter_mask, \
     prefill_expert_importance, prefill_expert_importance_rows, \
     select_critical, select_critical_rows, stable_topk
-from repro_torch.core.prefetch import predict_next_gates, prefetch_targets
+from repro_torch.core.prefetch import predict_next_gates, prefetch_demand, \
+    prefetch_sums, prefetch_targets
 from repro_torch.core.schedule import critical_counts, retention_ratio
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -74,8 +83,8 @@ from repro_torch.models.kv_cache import KVCache, fill_kv_cache, init_kv_cache
 from repro_torch.models.layers.attention import attention_decode, \
     attention_train
 from repro_torch.models.layers.mlp import init_mlp, mlp, mlp_quantized
-from repro_torch.models.layers.moe import moe_apply_prefill_rows, \
-    moe_apply_rows, moe_apply_sharded
+from repro_torch.models.layers.moe import dispatch_axes, local_dispatch, \
+    moe_apply_prefill_rows, moe_apply_rows, moe_apply_sharded
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rotary import sinusoidal_embedding
 from repro_torch.models.layers.ssm import init_mamba, init_ssm_cache, \
@@ -269,7 +278,7 @@ def init_sharded(cfg: ModelConfig, generator: torch.Generator, mesh, *,
     keeps its block. Returns (params, qparams or None). Attention
     architectures only, as every mesh of this slice."""
     from repro_torch.sharding.partition import Shard, _block, _spec_for, \
-        _split_dim, param_shardings, shard_tree, tree_specs
+        _split_dims, param_shardings, shard_tree, tree_specs
 
     _check_mesh(cfg, mesh)
     cfg.validate()
@@ -285,12 +294,13 @@ def init_sharded(cfg: ModelConfig, generator: torch.Generator, mesh, *,
     def keep(key, path: str, t: torch.Tensor, l: int, n: int) -> None:
         """Layer ``l`` of the n-layer leaf at ``path``: this rank's block
         of ``t``, into its stack."""
-        d = _split_dim(_spec_for(path, (n,) + tuple(t.shape), mesh,
-                                 expert_parallel), mesh)
-        blk = t if d is None else _block(t, d - 1, mesh)
+        dims = _split_dims(_spec_for(path, (n,) + tuple(t.shape), mesh,
+                                     expert_parallel), mesh)
+        blk = _block(t, {d - 1: a for d, a in dims.items()}, mesh) \
+            if dims else t
         if key not in stacks:
             buf = blk.new_empty((n,) + tuple(blk.shape))
-            stacks[key] = buf if d is None else Shard(buf, d, mesh)
+            stacks[key] = Shard(buf, dims, mesh) if dims else buf
         stack = stacks[key]
         (stack.local if isinstance(stack, Shard) else stack)[l].copy_(blk)
 
@@ -382,18 +392,34 @@ def _check_mesh(cfg: ModelConfig, mesh) -> None:
     """What this slice runs under a mesh (see the module docstring)."""
     if mesh is None or mesh.size == 1:
         return
-    nxt = "the next slice of the port (ROADMAP.md)"
     if cfg.block_kinds()[0] not in ("attn_dense", "attn_moe") \
             or cfg.shared_attn_every:
         raise NotImplementedError(
-            f"{cfg.name}: SSM and hybrid blocks under a mesh are {nxt}")
-    if mesh.size != mesh.model_size:
-        raise NotImplementedError(
-            f"a {mesh.shape} mesh: a data or pod axis above 1 is {nxt}")
-    if cfg.moe_dispatch_axes:
-        raise NotImplementedError(
-            f"moe_dispatch_axes={cfg.moe_dispatch_axes} under a mesh is "
-            f"{nxt}")
+            f"{cfg.name}: SSM and hybrid blocks under a mesh are the next "
+            "slice of the port (ROADMAP.md)")
+    if cfg.is_moe:
+        dispatch_axes(cfg, mesh)
+
+
+def _site_split(cfg: ModelConfig, mesh, t: int) -> Tuple[bool, bool]:
+    """(gather, local) for a one-mask MoE site over this rank's ``t``
+    tokens: with the batch split over ``mesh``'s data axes the site either
+    gathers its tokens over "data" and runs as one rank would (the global
+    capacity, token order, Critical set and look-ahead), or, with
+    ``cfg.moe_dispatch_axes`` (:func:`local_dispatch`), dispatches its
+    tokens where they are and sums its batch statistics over "data"."""
+    if mesh is None or mesh.data_size == 1:
+        return False, False
+    local = local_dispatch(cfg, mesh, t)
+    return not local, local
+
+
+def _data_sums(mesh, *vecs: torch.Tensor) -> List[torch.Tensor]:
+    """Each f32 vector summed over the data ranks, through one
+    all_reduce."""
+    sizes = [v.numel() for v in vecs]
+    buf = torch.cat([v.reshape(-1).to(torch.float32) for v in vecs])
+    return list(torch.split(mesh.all_reduce(buf, axis="data"), sizes))
 
 
 def _kv_split(mesh, slots: int) -> dict:
@@ -701,7 +727,7 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
                                qparams if dymoe_on else None,
                                lengths=lengths, offsets=offsets, valid=valid,
                                positions=positions, row_local=row_local,
-                               row_capacities=row_capacities)
+                               row_capacities=row_capacities, mesh=mesh)
     else:
         tier, shared = _layer_tier_flags(cfg), _shared_flags(cfg)
         site = _site_index(cfg)
@@ -733,16 +759,22 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
 
 def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
                  qparams: dict, *, lengths, offsets, valid, positions,
-                 row_local: bool, row_capacities):
+                 row_local: bool, row_capacities, mesh):
     """The MoE layer stack of :func:`prefill`; returns (x, DyMoEInfo).
     ``qparams`` None runs the experts at full precision, as the reference
-    does with DyMoE off: every expert Critical, no heavy hitters."""
+    does with DyMoE off: every expert Critical, no heavy hitters. On a
+    batch split over ``mesh``'s data axes the one-mask site gathers or
+    sums over "data" (:func:`_site_split`); a row-local one needs nothing
+    but its rows."""
     dymoe_on = qparams is not None
     b, s = x.shape[:2]
     pol = cfg.dymoe
     e, k_tok = cfg.num_experts, cfg.num_experts_per_tok
     t_l = _t_l_array(cfg)
     vflat = valid.reshape(b * s) if valid is not None else None
+    gather, local = (False, False) if row_local else \
+        _site_split(cfg, mesh, b * s)
+    lo = mesh.data_rank * b * s if gather else 0
     telem: Dict[str, list] = {}
 
     def record(**kw):
@@ -766,22 +798,30 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
                   if valid is None else
                   _ragged_hh_mask(tok_imp, pol.heavy_hitter_frac, lengths,
                                   valid)).reshape(b * s)
+        # the site's tokens: this rank's, or every data rank's (gather)
+        hs, hhs, vs = hflat, hh, vflat
+        if gather:
+            hs, hhs, vs = (None if t is None
+                           else mesh.all_gather(t, 0, axis="data")
+                           for t in (hflat, hh, vflat))
+        # look-ahead (Eq. 6-7) for the next layer's prefetcher
+        pg = predict_next_gates(hs, _next_router(params, cfg, l))
         if dymoe_on or row_local:
             # router pre-pass: pick the Critical set BEFORE expert compute
             # (Eq. 1-2 -> Eq. 5); ties broken by lower index
-            probs_r = torch.softmax(hflat.to(torch.float32)
+            probs_r = torch.softmax(hs.to(torch.float32)
                                     @ lp["moe"]["wg_router"], dim=-1)
             gates_r, idx_r = stable_topk(probs_r, k_tok)
             oh = torch.nn.functional.one_hot(idx_r, e).to(torch.float32)
-            if vflat is not None:                    # pads route nowhere
-                oh = oh * vflat.to(torch.float32)[:, None, None]
+            if vs is not None:                       # pads route nowhere
+                oh = oh * vs.to(torch.float32)[:, None, None]
         if row_local and not dymoe_on:
             # full precision: the wave's experts run as one batch; only
             # the telemetry is per row
             oh_r = oh.reshape(b, s, k_tok, e)
             load_rows = oh_r.sum(dim=(1, 2))                     # (B, E)
             y, st = moe_apply_sharded(lp["moe"], cfg, hflat,
-                                      token_valid=vflat)
+                                      token_valid=vflat, mesh=mesh)
             critical = torch.ones((b, e), dtype=torch.bool, device=x.device)
             active, load = load_rows > 0, load_rows
             hh_load = torch.zeros_like(load_rows)
@@ -806,13 +846,22 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
             aux, dropped = st["aux_loss"], st["dropped_frac"]
         else:
             critical = None
+            parts = list(prefetch_sums(pg, k_tok, vs)) if local else []
             if dymoe_on:
-                imp = prefill_expert_importance(
-                    torch.einsum("tke,t->e", oh, hh), oh.sum(dim=(0, 1)))
+                hh_load_e = torch.einsum("tke,t->e", oh, hhs)
+                load_e = oh.sum(dim=(0, 1))
+                if local:   # the batch's loads: summed over the data ranks
+                    hh_load_e, load_e, *parts = _data_sums(
+                        mesh, hh_load_e, load_e, *parts)
+                imp = prefill_expert_importance(hh_load_e, load_e)
                 critical = select_critical(imp, t_l[l])
-            y, st = moe_apply_sharded(lp["moe"], cfg, hflat,
+            elif local:
+                parts = _data_sums(mesh, *parts)
+            y, st = moe_apply_sharded(lp["moe"], cfg, hs,
                                       critical_mask=critical, qweights=qm,
-                                      hh_mask=hh, token_valid=vflat)
+                                      hh_mask=hhs, token_valid=vs,
+                                      mesh=mesh if local else None)
+            y = y[lo:lo + b * s]
             if critical is None:
                 critical = torch.ones((e,), dtype=torch.bool,
                                       device=x.device)
@@ -821,14 +870,14 @@ def _prefill_moe(params, cfg: ModelConfig, x: torch.Tensor, caches: KVCache,
                 st.gate_mean)
             aux, dropped = st.aux_loss, st.dropped_frac
         x = x + y.reshape(b, s, -1)
-        # look-ahead (Eq. 6-7) for the next layer's prefetcher
-        pg = predict_next_gates(hflat, _next_router(params, cfg, l))
         if row_local:   # per-row Eq. 7: each admission's own demand
             _, freq = prefetch_targets(pg.reshape(b, s, e), k_tok,
                                        pol.prefetch_topk, token_valid=valid)
+        elif local:
+            _, freq = prefetch_demand(*parts, pol.prefetch_topk)
         else:
             _, freq = prefetch_targets(pg, k_tok, pol.prefetch_topk,
-                                       token_valid=vflat)
+                                       token_valid=vs)
         record(critical=critical, active=active, load=load, hh_load=hh_load,
                gate_mean=gate_mean, pred=freq, aux=aux, dropped=dropped,
                tok_imp=tok_imp)
@@ -852,7 +901,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     """Fresh stacked caches sized for ``seq_len`` context, ring-buffered
     to the sliding window when one is configured (``device`` None means
     CUDA); an SSM state does not depend on ``seq_len``, the hybrid's
-    shared-site KV caches do. Under ``mesh`` a rank allocates only its
+    shared-site KV caches do. Under ``mesh`` ``batch`` is the rows this
+    rank holds (its block of a batch split over the data axes, or the
+    whole batch where it is replicated) and a rank allocates only its
     block of the slots where "model" divides them (``cache_shardings``'
     layout)."""
     _check_mesh(cfg, mesh)
@@ -950,6 +1001,8 @@ def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
     pol = cfg.dymoe
     e, k_tok = cfg.num_experts, cfg.num_experts_per_tok
     t_l = _t_l_array(cfg)
+    gather, local = (False, False) if per_row_moe else \
+        _site_split(cfg, mesh, b)
     crit_l, act_l, gm_l, pred_l = [], [], [], []
     for l in range(cfg.num_layers):
         lp = _index_tree(params["layers"], l)
@@ -961,8 +1014,10 @@ def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
         x = x + a
         h = rmsnorm(lp["norm2"], x, cfg.norm_eps)
         hflat = h.reshape(b, -1)
-        pg = predict_next_gates(hflat, _next_router(params, cfg, l))
-        imp = torch.softmax(hflat.to(torch.float32)
+        # the site's rows: this rank's, or every data rank's (gather)
+        hs = mesh.all_gather(hflat, 0, axis="data") if gather else hflat
+        pg = predict_next_gates(hs, _next_router(params, cfg, l))
+        imp = torch.softmax(hs.to(torch.float32)
                             @ lp["moe"]["wg_router"], dim=-1) \
             if dymoe_on else None                                # (B, E)
         if per_row_moe and dymoe_on:
@@ -974,17 +1029,28 @@ def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
         elif per_row_moe:
             # full precision: the rows run as one batch (no live mask, as
             # in the reference); only the telemetry is per row
-            y, stats = moe_apply_sharded(lp["moe"], cfg, hflat)
+            y, stats = moe_apply_sharded(lp["moe"], cfg, hflat, mesh=mesh)
             _, top = stable_topk(stats.router_logits, k_tok)
             active = torch.nn.functional.one_hot(top, e).sum(dim=1) > 0
             gate_mean = stats.gate_mean[None].expand(active.shape)
             critical = torch.ones_like(active)
         else:
             # Eq. (3): gate-guided importance of the batch-mean gate
-            critical = select_critical(imp.mean(dim=0), t_l[l]) \
-                if dymoe_on else None
-            y, stats = moe_apply_sharded(lp["moe"], cfg, hflat,
-                                         critical_mask=critical, qweights=qm)
+            critical = None
+            if local:   # the batch's sums: over the data ranks
+                parts = _data_sums(mesh, *([imp.sum(dim=0)] if dymoe_on
+                                           else []),
+                                   *prefetch_sums(pg, k_tok))
+                if dymoe_on:
+                    critical = select_critical(
+                        parts.pop(0) / (b * mesh.data_size), t_l[l])
+            elif dymoe_on:
+                critical = select_critical(imp.mean(dim=0), t_l[l])
+            y, stats = moe_apply_sharded(lp["moe"], cfg, hs,
+                                         critical_mask=critical, qweights=qm,
+                                         mesh=mesh if local else None)
+            if gather:
+                y = y[mesh.data_rank * b:(mesh.data_rank + 1) * b]
             active, gate_mean = stats.expert_load > 0, stats.gate_mean
             if critical is None:
                 critical = torch.ones((e,), dtype=torch.bool,
@@ -992,6 +1058,8 @@ def _decode_moe(params, cfg: ModelConfig, x: torch.Tensor, caches,
         if per_row_moe:
             _, freq = prefetch_targets(pg[:, None, :], k_tok,
                                        pol.prefetch_topk)        # (B, E)
+        elif local:
+            _, freq = prefetch_demand(*parts, pol.prefetch_topk)
         else:
             _, freq = prefetch_targets(pg, k_tok, pol.prefetch_topk)  # (E,)
         x = x + y.reshape(b, 1, -1)

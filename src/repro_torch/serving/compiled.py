@@ -427,7 +427,11 @@ class _StatePool:
         # engine and its graphs are freed when it is dropped)
         self._params, self._qparams = engine.params, engine.qparams
         self._cfg, self._device = engine.cfg, engine.device
-        self._mesh, self.eager = engine.mesh, engine.eager
+        # a program runs on its data rank's model sub-group alone: a
+        # session's rows stay on their data rank, a replicated batch is
+        # computed whole on each (``serving/scheduler.py``)
+        self._mesh = None if engine.mesh is None else engine.mesh.model_view()
+        self.eager = engine.eager
         self._inputs = inputs
         on_card = self._device.type == "cuda" and not self.eager
         self.graphs = on_card if graphs is None else graphs
@@ -604,7 +608,11 @@ class CompiledPrefill:
         # the engine's model, not the engine (no reference cycle)
         self._params, self._qparams = engine.params, engine.qparams
         self._cfg, self._device = engine.cfg, engine.device
-        self._mesh, self.eager = engine.mesh, engine.eager
+        # a program runs on its data rank's model sub-group alone: a
+        # session's rows stay on their data rank, a replicated batch is
+        # computed whole on each (``serving/scheduler.py``)
+        self._mesh = None if engine.mesh is None else engine.mesh.model_view()
+        self.eager = engine.eager
         on_card = self._device.type == "cuda" and not self.eager
         self.graphs = on_card if graphs is None else graphs
         if self.graphs and not on_card:

@@ -63,11 +63,18 @@ drives the same calls in the same order. Each rank keeps only its shards
 of the params and packed stores (``sharding/partition.py``'s rules;
 ``expert_parallel=True`` splits the routed experts over E, E/n a rank) and
 of every decode state's KV slots (:meth:`DyMoEEngine.shard_decode_state`);
-the model code places the collectives (``sharding/spmd.py``). Over more
-than one rank the compiled programs run eagerly — gloo's collectives
-cannot be captured in a CUDA graph — and ``last_stats`` reports 0 compiles
-and the mesh's shape; the kernels launch as on one card. Host decisions
-that read the clock are rank 0's, broadcast (``serving/scheduler.py``).
+the model code places the collectives (``sharding/spmd.py``), over each
+rank's "model" sub-group: weights are whole across the data axes ("pod",
+"data"). A session's slots are split in blocks over the data ranks when
+they divide them (``serving/scheduler.py``); every compiled program runs
+on a data rank's model sub-group alone (``Mesh.model_view``), over its
+block of a session's slots, or whole where a batch is replicated
+(``generate``'s one slot, ``generate_reference``, the static baseline).
+Over more than one rank the compiled programs run eagerly — gloo's
+collectives cannot be captured in a CUDA graph — and ``last_stats``
+reports 0 compiles and the mesh's shape; the kernels launch as on one
+card. Host decisions that read the clock are rank 0's, broadcast
+(``serving/scheduler.py``).
 """
 from __future__ import annotations
 
@@ -340,9 +347,11 @@ class DyMoEEngine:
     def shard_decode_state(self, caches):
         """Lay a decode-state tree of whole caches out on the engine's
         mesh (``cache_shardings``: KV slots split over "model", batch over
-        "data"): this rank keeps its block. Identity on an unsharded
-        engine. The engine's own decode states are allocated so directly
-        (``init_decode_state(..., mesh=)``)."""
+        ("pod", "data") where the data ranks divide it): this rank keeps
+        its block of rows and slots. Identity on an unsharded engine. The
+        engine's own decode states are allocated so directly
+        (``init_decode_state(..., mesh=)`` with a session's block of
+        slots)."""
         if self.mesh is None:
             return caches
         from repro_torch.sharding.partition import cache_shardings, \

@@ -97,6 +97,24 @@ Rows are independent programs (row-local Critical sets, per-row PRNG streams
 indexed by the request's own token position), so a request's tokens do
 not depend on its neighbours, the chunk length or its slot — which is
 what makes every recovery rung below token-exact.
+
+**Slots over a mesh's data axes.** On an engine whose mesh has data axes
+above 1 ("pod", "data"), a session whose slot count they divide splits
+its slots in blocks over the data ranks (``Mesh.batch_block``); every
+device program runs on the rank's model sub-group alone
+(``Mesh.model_view``), over its block only. Each data rank prefills the
+admission rows headed for its own slots (the slot each would take were
+every candidate to survive; a survivor that a candidate finishing at its
+first token moves across a block edge is prefilled again on its new
+rank), so no KV crosses data ranks. The two host fetches — a wave's first
+tokens, a chunk's done / emitted / tokens — each become ONE exact gather
+over "data" of the rows with their telemetry, then the fetch: every rank
+then holds every row and takes rank 0's decisions itself. ``live_cap`` is
+a rank's own (its live rows in its block, on the ladder up to its block's
+size): a row's output does not depend on it, and each rank's MoE regions
+fit its own rows. A slot count the data ranks do not divide, and a
+full-precision MoE (its rows run as one batch of global capacity), is
+replicated: every data rank runs the whole session.
 """
 from __future__ import annotations
 
@@ -344,11 +362,19 @@ class ContinuousBatchingScheduler:
         self._can_batch = self._can_batch_admissions()
         dev = engine.device
         b = self._b
+        # the slots split in blocks over the mesh's data ranks, or whole
+        mesh = engine.mesh
+        self._dmesh = mesh if (mesh is not None and mesh.data_size > 1
+                               and b % mesh.data_size == 0
+                               and self._rows_independent()) else None
+        self._lo, self._hi = (self._dmesh.batch_block(b) if self._dmesh
+                              else (0, b))
         self._states: List[Optional[_SlotState]] = [None] * b
         with engine.lock:
             self._state = engine._decode_batched.acquire(
-                b, self._slots_len, owner=self)
-            self._tok_d = torch.zeros(b, dtype=torch.int32, device=dev)
+                self._hi - self._lo, self._slots_len, owner=self)
+            self._tok_d = torch.zeros(self._hi - self._lo,
+                                      dtype=torch.int32, device=dev)
         self._done = np.ones(b, bool)          # empty slots stay frozen
         self._emitted = np.zeros(b, np.int32)
         self._limits = np.zeros(b, np.int32)
@@ -506,6 +532,55 @@ class ContinuousBatchingScheduler:
         if self.spmd:
             got = set(self.engine.mesh.broadcast_object(sorted(got)))
         return got
+
+    def _rows_independent(self) -> bool:
+        """Whether every device program of the session computes each row
+        on its own: DyMoE's per-row MoE paths and non-MoE blocks. A
+        full-precision MoE runs its rows as one batch of global capacity
+        (the reference's), so its session is replicated over data."""
+        eng = self.engine
+        return not eng.cfg.is_moe or (eng.qparams is not None
+                                      and eng.cfg.dymoe.enabled)
+
+    def _owns(self, slot: int) -> bool:
+        """Whether ``slot`` is in this rank's block of the slots."""
+        return self._lo <= slot < self._hi
+
+    def _row_bytes(self, tensors) -> torch.Tensor:
+        """(rows, bytes) uint8: each row's values of ``tensors`` (leading
+        dim the rows; None skipped), as bytes side by side — the payload
+        of one exact gather over "data"."""
+        return torch.cat([t.contiguous().reshape(t.shape[0], -1)
+                          .view(torch.uint8) for t in tensors
+                          if t is not None], dim=1)
+
+    @staticmethod
+    def _unpack(buf: np.ndarray, layout):
+        """The host arrays of :meth:`_row_bytes`'s rows ``buf`` (n, bytes):
+        ``layout`` lists (dtype, per-row shape) in order (None: a None
+        leaf). Each comes back (n, *shape)."""
+        out, off = [], 0
+        for item in layout:
+            if item is None:
+                out.append(None)
+                continue
+            dtype, shape = item
+            w = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+            out.append(np.ascontiguousarray(buf[:, off:off + w]).view(dtype)
+                       .reshape((buf.shape[0],) + tuple(shape)))
+            off += w
+        return out
+
+    def _tele_layout(self, steps: Optional[int]):
+        """Per-row (dtype, shape) of the Critical / active masks and the
+        look-ahead (``steps`` None: a prefill's (L, E)); None leaves for a
+        non-MoE config."""
+        cfg = self.engine.cfg
+        if not cfg.is_moe:
+            return [None] * 3
+        shape = ((cfg.num_layers, cfg.num_experts) if steps is None
+                 else (steps, cfg.num_layers, cfg.num_experts))
+        return [(np.bool_, shape), (np.bool_, shape), (np.float32, shape)]
 
     # -------------------------------------------------------------- step
     def step(self) -> bool:
@@ -775,33 +850,18 @@ class ContinuousBatchingScheduler:
         requeued (the ladder retries it at half size), a single candidate
         resolves with :class:`AdmissionError`."""
         engine = self.engine
-        dev = engine.device
         n = len(cands)
         compiled = engine._prefill
         n_comp, comp_s = compiled.compiles, compiled.compile_s
+        # the candidates this rank prefills: all, or (slots split over
+        # data) those whose slot, were every candidate to survive, is in
+        # its block
+        mine = list(range(n)) if self._dmesh is None else [
+            i for i in range(n) if self._owns(free[n_survivors + i])]
         try:
             self._faults.fire("admit.alloc", n=n)
-            out = self._prefill_wave(cands, lens)
-            logits, info = out.logits, out.info
-            tele = _d2h_async((info.critical_masks, info.active_masks,
-                               info.predicted_next))
-            # the wave's ONE host sync: every candidate's first token.
-            # Sampled candidates draw with fold count 0 through the
-            # per-row sampler (greedy rows take the same argmax)
-            if any(h.temperature > 0.0 for h in cands):
-                keys = np.zeros((n, 2), np.int64)
-                for i, h in enumerate(cands):
-                    if h.key is not None:
-                        keys[i] = h.key
-                first_d = sample_token_rows(
-                    logits, fold_in(_h2d(keys, dev), 0),
-                    _h2d(np.asarray([h.temperature for h in cands],
-                                    np.float32), dev),
-                    _h2d(np.asarray([h.top_k for h in cands],
-                                    np.int64), dev))
-            else:
-                first_d = torch.argmax(logits, dim=-1)
-            first = first_d.cpu().numpy()
+            out = self._prefill_wave(cands, lens, mine)
+            first, tele = self._first_tokens(out, cands, mine)
         except _LADDER_ERRORS as e:
             self._last_fault = e
             self._health.last_fault = repr(e)
@@ -855,11 +915,84 @@ class ContinuousBatchingScheduler:
             self._temps[r] = h.temperature
             self._topks[r] = h.top_k
             self._keys[r] = h.key if h.key is not None else 0
-        dst_d = _h2d(np.asarray(dst, np.int64), dev)
-        self._inject_rows(out.caches, _h2d(np.asarray(src, np.int64), dev),
-                          dst_d)
-        self._tok_d[dst_d] = _h2d(np.asarray(toks, np.int32), dev)
+        # the rows whose slot is in this rank's block: from its own
+        # prefill, or (a survivor moved across a block edge by a candidate
+        # that finished at its first token) prefilled again here
+        lo = self._lo
+        keep = [(mine.index(i), r - lo, t) for i, r, t in zip(src, dst, toks)
+                if self._owns(r) and i in mine]
+        moved = [(i, r - lo, t) for i, r, t in zip(src, dst, toks)
+                 if self._owns(r) and i not in mine]
+        self._inject(out, keep)
+        if moved:
+            self._inject(self._prefill_wave(cands, lens,
+                                            [i for i, _, _ in moved]),
+                         [(j, r, t) for j, (_, r, t) in enumerate(moved)])
         return wave_states, tele, len(src)
+
+    def _inject(self, out, rows) -> None:
+        """Rows (wave row, local slot, first token) of a wave's prefill
+        ``out`` into this rank's slots."""
+        if not rows:
+            return
+        dev = self.engine.device
+        src, dst, toks = (np.asarray(c) for c in zip(*rows))
+        dst_d = _h2d(dst.astype(np.int64), dev)
+        self._inject_rows(out.caches, _h2d(src.astype(np.int64), dev),
+                          dst_d)
+        self._tok_d[dst_d] = _h2d(toks.astype(np.int32), dev)
+
+    def _first_tokens(self, out, cands: List[RequestHandle],
+                      mine: List[int]):
+        """The wave's ONE host sync: every candidate's first token (host
+        (n,)) and the wave's telemetry (host tensors, (L, n, E) for a
+        batched wave, (L, E) for a solo one). Sampled candidates draw with
+        fold count 0 through the per-row sampler (greedy rows take the
+        same argmax). With the slots split over data, this rank's rows
+        (``mine``; ``out`` None when it has none) go into one exact gather
+        over "data" with their telemetry, and the fetch follows it."""
+        dev = self.engine.device
+        first_d = tele_d = None
+        if out is not None:
+            hs = [cands[i] for i in mine]
+            info = out.info
+            tele_d = (info.critical_masks, info.active_masks,
+                      info.predicted_next)
+            if any(h.temperature > 0.0 for h in hs):
+                keys = np.zeros((len(hs), 2), np.int64)
+                for i, h in enumerate(hs):
+                    if h.key is not None:
+                        keys[i] = h.key
+                first_d = sample_token_rows(
+                    out.logits, fold_in(_h2d(keys, dev), 0),
+                    _h2d(np.asarray([h.temperature for h in hs],
+                                    np.float32), dev),
+                    _h2d(np.asarray([h.top_k for h in hs],
+                                    np.int64), dev))
+            else:
+                first_d = torch.argmax(out.logits, dim=-1)
+        if self._dmesh is None:
+            tele = _d2h_async(tele_d)
+            return first_d.cpu().numpy(), tele
+        n = len(cands)
+        layout = [(np.int64, ())] + self._tele_layout(None)
+        if out is not None:
+            # (L, k, E) leaves, or a solo prefill's (L, E): rows first
+            rows = [None if x is None else
+                    (x[:, None] if n == 1 else x).transpose(0, 1)
+                    for x in tele_d]
+            payload = self._row_bytes([first_d.to(torch.int64)] + rows)
+        else:
+            width = sum(int(np.prod(sh, dtype=np.int64))
+                        * np.dtype(dt).itemsize
+                        for dt, sh in filter(None, layout))
+            payload = torch.zeros((0, width), dtype=torch.uint8, device=dev)
+        whole = self._dmesh.all_gather_rows(payload, mine, n)
+        first, *leaves = self._unpack(whole.cpu().numpy(), layout)
+        tele = tuple(None if x is None else torch.from_numpy(
+            x[0] if n == 1 else np.ascontiguousarray(x.swapaxes(0, 1)))
+            for x in leaves)
+        return first, tele
 
     def _slot_budget(self, requests: Sequence[Request]) -> int:
         """The cache slots :meth:`run` asks for: the sliding window, whose
@@ -882,25 +1015,31 @@ class ContinuousBatchingScheduler:
                 and not cfg.shared_attn_every
                 and cfg.sliding_window is None)
 
-    def _prefill_wave(self, cands: List[RequestHandle], lens: List[int]):
-        """One admission wave's prefill through the engine's compiled
-        prefill (its key: the wave's shape, the session's ``slots_len``,
-        row-local or not): a ragged right-aligned row-local prefill for
+    def _prefill_wave(self, cands: List[RequestHandle], lens: List[int],
+                      rows: List[int]):
+        """One admission wave's prefill of candidates ``rows`` (all of
+        them, or this data rank's) through the engine's compiled prefill
+        (its key: the wave's shape, the session's ``slots_len``, row-local
+        or not): a ragged right-aligned row-local prefill for a wave of
         more than one candidate, padded to the wave's own longest prompt;
-        the exact solo prefill for one. Writes only the compiled prefill's
-        own outputs, which the next prefill overwrites."""
+        the exact solo prefill for a wave of one. None when ``rows`` is
+        empty. Writes only the compiled prefill's own outputs, which the
+        next prefill overwrites."""
         engine, cfg = self.engine, self.engine.cfg
+        if not rows:
+            return None
         if len(cands) > 1:
             smax = max(lens)
-            prompts = np.zeros((len(cands), smax), np.int64)
-            for i, h in enumerate(cands):   # right-aligned
-                prompts[i, smax - lens[i]:] = h.request.prompt_tokens
+            prompts = np.zeros((len(rows), smax), np.int64)
+            for j, i in enumerate(rows):   # right-aligned
+                prompts[j, smax - lens[i]:] = cands[i].request.prompt_tokens
+            sub = [lens[i] for i in rows]
             return engine._prefill(
                 prompts, cache_slots=self._slots_len,
-                lengths=np.asarray(lens, np.int32), row_local=True,
+                lengths=np.asarray(sub, np.int32), row_local=True,
                 # parity trap — capacities: exact host-side solo values
                 row_capacities=np.asarray(
-                    [_capacity(cfg, s) for s in lens], np.int64)
+                    [_capacity(cfg, s) for s in sub], np.int64)
                 if cfg.is_moe else None)
         prompt = np.asarray(cands[0].request.prompt_tokens,
                             np.int64)[None, :]
@@ -995,6 +1134,7 @@ class ContinuousBatchingScheduler:
         could run."""
         compiled = self.engine._decode_batched
         chunk = self._chunk          # transient: self._chunk is untouched
+        lo, hi = self._lo, self._hi  # this rank's block of the slots
         while True:
             live = [r for r in range(self._b)
                     if not self._done[r] and not deferred[r]]
@@ -1003,19 +1143,20 @@ class ContinuousBatchingScheduler:
             done_in = self._done | deferred
             sample_kw = {}
             if (self._temps[~done_in] > 0.0).any():
-                sample_kw = dict(rng_keys=self._keys,
-                                 temperatures=self._temps,
-                                 top_ks=self._topks)
+                sample_kw = dict(rng_keys=self._keys[lo:hi],
+                                 temperatures=self._temps[lo:hi],
+                                 top_ks=self._topks[lo:hi])
+            n_live = sum(self._owns(r) for r in live)
             n_comp, comp_s = compiled.compiles, compiled.compile_s
             try:
                 self._faults.fire("device.dispatch",
                                   chunk=self.stats["chunks"],
                                   num_steps=chunk, rows=len(live))
                 out = compiled(
-                    self._state, self._tok_d, num_steps=chunk, done=done_in,
-                    n_emitted=self._emitted, limits=self._limits,
-                    eos_tokens=self._eos,
-                    live_cap=live_cap_for(len(live), self._b), **sample_kw)
+                    self._state, self._tok_d, num_steps=chunk,
+                    done=done_in[lo:hi], n_emitted=self._emitted[lo:hi],
+                    limits=self._limits[lo:hi], eos_tokens=self._eos[lo:hi],
+                    live_cap=live_cap_for(n_live, hi - lo), **sample_kw)
                 break
             except _LADDER_ERRORS as e:
                 self._health.dispatch_retries += 1
@@ -1045,12 +1186,26 @@ class ContinuousBatchingScheduler:
         # the outputs are fixed buffers the next chunk overwrites: copy
         # what the session keeps, on the stream, before that
         self._tok_d.copy_(out.tokens[-1])
-        tele = _d2h_async((out.info.critical_masks, out.info.active_masks,
-                           out.info.predicted_next))
-        host = torch.cat([out.done.to(torch.int32)[None],
-                          out.n_emitted[None], out.tokens]
-                         ).cpu().numpy()                  # the boundary sync
-        return chunk, tele, host
+        info = out.info
+        tele_d = (info.critical_masks, info.active_masks, info.predicted_next)
+        rows = torch.cat([out.done.to(torch.int32)[None],
+                          out.n_emitted.to(torch.int32)[None],
+                          out.tokens.to(torch.int32)])    # (2 + T, B)
+        if self._dmesh is None:
+            tele = _d2h_async(tele_d)
+            return chunk, tele, rows.cpu().numpy()        # the boundary sync
+        # slots split over data: this rank's rows, with their telemetry,
+        # into ONE exact gather over "data", then the boundary sync
+        whole = self._dmesh.all_gather(self._row_bytes(
+            [rows.T] + [None if x is None else x.permute(2, 0, 1, 3)
+                        for x in tele_d]), 0, axis="data")
+        host, *leaves = self._unpack(
+            whole.cpu().numpy(),
+            [(np.int32, (2 + chunk,))] + self._tele_layout(chunk))
+        return chunk, tuple(
+            None if x is None else torch.from_numpy(
+                np.ascontiguousarray(x.transpose(1, 2, 0, 3)))
+            for x in leaves), np.ascontiguousarray(host.T)
 
     # ------------------------------------------- replay fault tolerance
     def _timed(self, replay, handles, *args) -> None:

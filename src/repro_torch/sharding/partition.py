@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -276,27 +276,54 @@ def zero1_shardings(tree: Any, mesh, *, expert_parallel: bool = False):
 # ------------------------------------------------------------------ shards
 
 
+def _axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _axis_rank(mesh, axes) -> int:
+    """This rank's coordinate on the composite of ``axes`` (row-major in
+    the order named)."""
+    r = 0
+    for a in _axes(axes):
+        r = r * mesh.shape[a] + mesh.coords[a]
+    return r
+
+
 class Shard:
-    """This rank's block of a leaf whose spec splits dim ``dim`` over the
-    mesh's "model" axis: ``local`` is the block ``[r·w, (r+1)·w)`` of that
-    dim, r the rank's model coordinate and w = size / n. Indexing with an
-    int (a stacked layer) gives the layer's Shard; every other use goes
-    through ``sharding/spmd.py``, so a split weight can never be used as
-    if it were whole."""
+    """This rank's block of a leaf whose spec splits some of its dims over
+    mesh axes above 1: ``local`` is the block, ``splits`` maps each split
+    dim to its axes (a tuple of names), and along each the block is
+    ``[c·w, (c+1)·w)``, c the rank's coordinate on those axes and w = size
+    / their size. Parameters split over "model" only (``param_shardings``);
+    ZeRO-1 moments also over ("pod", "data"). ``dim`` is the dim split
+    over "model" (None if none is), the one ``sharding/spmd.py`` reads.
+    Indexing with an int (a stacked layer) gives the layer's Shard; every
+    other use goes through ``sharding/spmd.py``, so a split weight can
+    never be used as if it were whole."""
 
-    __slots__ = ("local", "dim", "mesh")
+    __slots__ = ("local", "splits", "mesh")
 
-    def __init__(self, local: torch.Tensor, dim: int, mesh):
-        self.local, self.dim, self.mesh = local, dim, mesh
+    def __init__(self, local: torch.Tensor, splits: Dict[int, Tuple[str, ...]],
+                 mesh):
+        self.local, self.mesh = local, mesh
+        self.splits = {d: _axes(a) for d, a in splits.items()}
 
     def __repr__(self) -> str:
-        return (f"Shard(shape={self.shape}, dim={self.dim}, "
+        return (f"Shard(shape={self.shape}, splits={self.splits}, "
                 f"local={tuple(self.local.shape)})")
+
+    @property
+    def dim(self) -> Optional[int]:
+        for d, axes in self.splits.items():
+            if MODEL_AXIS in axes:
+                return d
+        return None
 
     @property
     def shape(self) -> Tuple[int, ...]:
         s = list(self.local.shape)
-        s[self.dim] *= self.mesh.model_size
+        for d, axes in self.splits.items():
+            s[d] *= _axis_size(self.mesh, axes)
         return tuple(s)
 
     @property
@@ -308,47 +335,50 @@ class Shard:
         return self.local.device
 
     def block(self) -> Tuple[int, int]:
-        """[lo, hi) of this rank's block along ``dim``."""
+        """[lo, hi) of this rank's block along ``dim`` (the model split)."""
         w = self.local.shape[self.dim]
         return self.mesh.model_rank * w, (self.mesh.model_rank + 1) * w
 
     def __getitem__(self, i):
-        if not isinstance(i, int) or self.dim == 0:
+        if not isinstance(i, int) or 0 in self.splits:
             raise TypeError(f"{self!r}: only a leading int index (a stacked "
                             "layer) applies to a shard")
-        return Shard(self.local[i], self.dim - 1, self.mesh)
+        return Shard(self.local[i], {d - 1: a for d, a in self.splits.items()},
+                     self.mesh)
 
     def to(self, device) -> "Shard":
-        return Shard(self.local.to(device), self.dim, self.mesh)
+        return Shard(self.local.to(device), self.splits, self.mesh)
 
 
-def _split_dim(spec: P, mesh) -> Optional[int]:
-    """The one dim ``spec`` splits over an axis above 1 (None: whole)."""
-    dims = [d for d, axes in enumerate(spec)
-            if axes is not None and _axis_size(mesh, axes) > 1]
-    if not dims:
-        return None
-    if len(dims) > 1 or _axis_size(mesh, spec[dims[0]]) != mesh.model_size:
-        raise NotImplementedError(
-            f"spec {spec} on a {mesh.shape} mesh splits over a data or pod "
-            "axis above 1: the next slice of the port (ROADMAP.md)")
-    return dims[0]
+def _split_dims(spec: P, mesh) -> Dict[int, Tuple[str, ...]]:
+    """The dims ``spec`` splits over axes above 1, each with its axes."""
+    return {d: _axes(axes) for d, axes in enumerate(spec)
+            if axes is not None and _axis_size(mesh, axes) > 1}
 
 
-def _block(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    w = t.shape[dim] // mesh.model_size
-    return t.narrow(dim, mesh.model_rank * w, w).clone()
+def _block(t: torch.Tensor, splits: Dict[int, Tuple[str, ...]],
+           mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``splits`` (a copy)."""
+    for d, axes in splits.items():
+        w = t.shape[d] // _axis_size(mesh, axes)
+        t = t.narrow(d, _axis_rank(mesh, axes) * w, w)
+    return t.clone()
 
 
 def shard_tree(tree: Any, specs: Any, mesh, device=None) -> Any:
     """Each rank's own part of ``tree`` under ``specs`` (a tree of
-    :class:`P` in the same structure, from :func:`param_shardings` or
-    :func:`cache_shardings`): a leaf a spec splits over an axis above 1
-    becomes a :class:`Shard` holding only this rank's block (a copy, on
-    ``device`` if given); a whole leaf stays as it is (moved to
-    ``device``). A ``KVCache`` keeps plain local tensors and records in
-    its static ``shards`` / ``shard`` how many ranks its slots are split
-    over and which block it holds."""
+    :class:`P` in the same structure, from :func:`param_shardings`,
+    :func:`cache_shardings` or :func:`zero1_shardings`): a leaf a spec
+    splits over "model" becomes a :class:`Shard` holding only this rank's
+    block (a copy, on ``device`` if given) and recording every split; a
+    leaf split over the batch axes ("pod", "data") alone — an activation,
+    a batch of tokens — becomes its plain block of rows, as the model code
+    computes on a rank's rows (``Mesh.for_batch``); a whole leaf stays as
+    it is (moved to ``device``). A ``KVCache`` gets its block of rows and
+    of slots as plain local tensors and records in its static ``shards`` /
+    ``shard`` how many ranks its slots are split over and which block it
+    holds. A dim that does not divide its axes stays whole
+    (``guard_spec``)."""
     def move(t):
         return t if device is None else t.to(device)
 
@@ -358,30 +388,38 @@ def shard_tree(tree: Any, specs: Any, mesh, device=None) -> Any:
         if isinstance(node, KVCache):
             out = {}
             split = dict(shards=1, shard=0)
+            # every field's rows follow k's (offset's spec keeps it whole:
+            # the reference lays out one replicated array, a rank here its
+            # rows)
+            rows = {d: a for d, a in _split_dims(spec.k, mesh).items()
+                    if d == 1}
             for name, t in _children(node):
-                d = _split_dim(getattr(spec, name), mesh)
-                out[name] = move(t if d is None else _block(t, d, mesh))
-                if name == "k" and d is not None:
+                dims = {**rows, **_split_dims(getattr(spec, name), mesh)}
+                out[name] = move(_block(t, dims, mesh) if dims else t)
+                if name == "k" and any(MODEL_AXIS in a for a in dims.values()):
                     split = dict(shards=mesh.model_size,
                                  shard=mesh.model_rank)
             return dataclasses.replace(node, **out, **split)
         kids = _children(node)
         if isinstance(node, Shard):
             # already this rank's block (``init_sharded``): as the spec says
-            if _split_dim(spec, mesh) != node.dim or node.mesh is not mesh:
+            if _split_dims(spec, mesh) != node.splits or node.mesh is not mesh:
                 raise ValueError(f"{node!r} does not match spec {spec} on "
                                  f"{mesh!r}")
             return node if device is None else node.to(device)
         if kids is None:
             if not isinstance(node, torch.Tensor):
                 return node
-            d = _split_dim(spec, mesh)
-            if d is None:
+            dims = _split_dims(spec, mesh)
+            if not dims:
                 return move(node)
-            return Shard(move(_block(node, d, mesh)), d, mesh)
+            blk = move(_block(node, dims, mesh))
+            if not any(MODEL_AXIS in a for a in dims.values()):
+                return blk
+            return Shard(blk, dims, mesh)
         if isinstance(node, SSMCache):
             for name, _ in kids:
-                if _split_dim(getattr(spec, name), mesh) is not None:
+                if _split_dims(getattr(spec, name), mesh):
                     raise NotImplementedError(
                         "SSM caches under a mesh: the next slice of the "
                         "port (ROADMAP.md)")

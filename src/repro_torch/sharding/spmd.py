@@ -4,9 +4,13 @@ under a mesh.
 
 A weight is either a whole tensor (every rank holds all of it: no spec
 split it, or the guard degraded the split) or a :class:`Shard` (this rank
-holds one block of one dim). Activations are always whole on every rank;
-the ranks compute them bitwise alike (an ``all_reduce`` leaves the same
-bits on every rank), so every host decision made from them agrees.
+holds one block of one dim, split over "model"). Activations hold the
+rows of this rank's batch block (``Mesh.for_batch``) and are whole along
+every other dim; the ranks of one "model" sub-group hold the same rows
+and compute them bitwise alike (an ``all_reduce`` leaves the same bits on
+every rank), so every host decision made from them agrees. Every
+collective here runs over the "model" sub-group only (the ``Mesh``
+methods' default axis): weights are whole across the data ranks.
 
   * column split (the output dim): the local product, then an exact
     gather of the output (:meth:`Mesh.all_gather`);

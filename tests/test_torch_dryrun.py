@@ -5,9 +5,12 @@ and ``_extrapolate``; the argument bytes a rank on (1, 4), 16×16 and
 through a stand-in mesh that has only ``.shape``, with ``NamedSharding``
 stood in by a holder of the spec, as ``tests/test_torch_sharding.py``
 does: ``AbstractMesh`` cannot be built on the installed jax); and
-``run_one`` on a reduced config at a small shape: the reference's record
+``run_one`` on a reduced config at small shapes: the reference's record
 keys, its ``model_flops``, ``0 < useful_flops_ratio <= 1``, collectives on
-an expert-parallel (1, 4) mesh, and no traced number on 16×16."""
+an expert-parallel (1, 4) mesh; on 16×16 and 2×16×16 rank 0's traced
+decode step, with ``local_dispatch`` the (1, 16) step at 1/16 of the
+batch (only statistics cross "data") and without it the data gather's
+bytes, and the train step's memory only."""
 import os
 import types
 
@@ -136,13 +139,22 @@ _KEYS = {"arch", "shape", "mesh", "chips", "expert_parallel", "opts",
 
 @pytest.fixture
 def tiny(monkeypatch):
-    """The reduced OLMoE under its own name, and a small decode shape."""
+    """The reduced OLMoE under its own name, and small shapes: a decode
+    batch of 32 (2 rows a data rank on 16×16, 1 on 2×16×16) and its
+    1/16th, and a train step."""
     monkeypatch.setattr(dryrun, "get_config",
                         lambda name: get_config(name).reduced())
     monkeypatch.setitem(dryrun.SHAPES, "decode_tiny",
                         dict(seq_len=64, global_batch=4, phase="decode"))
     monkeypatch.setitem(dryrun.SHAPES, "prefill_tiny",
                         dict(seq_len=32, global_batch=2, phase="prefill"))
+    monkeypatch.setitem(dryrun.SHAPES, "decode_b32",
+                        dict(seq_len=64, global_batch=32, phase="decode"))
+    monkeypatch.setitem(dryrun.SHAPES, "decode_b2",
+                        dict(seq_len=64, global_batch=2, phase="decode"))
+    monkeypatch.setitem(dryrun.SHAPES, "train_tiny",
+                        dict(seq_len=16, global_batch=32, phase="train"))
+    monkeypatch.setitem(dryrun.MESHES, "1x16", {"data": 1, "model": 16})
 
 
 @pytest.mark.parametrize("shape", ["decode_tiny", "prefill_tiny"])
@@ -180,9 +192,50 @@ def test_run_one_expert_parallel_counts_collectives(tiny, tmp_path):
 
 
 def test_run_one_on_16x16_reports_memory_only(tiny):
-    r = dryrun.run_one("olmoe_1b_7b", "decode_tiny", mesh="16x16",
+    """The train step on 16×16 reports its memory a rank and no traced
+    term: training under a mesh is a later slice."""
+    r = dryrun.run_one("olmoe_1b_7b", "train_tiny", mesh="16x16",
                        save_dir=None, verbose=False)
     assert r["memory"]["argument_bytes"] > 0 and r["flops"] is None
-    assert "data-axis slice" in r["traced"]
+    assert r["collectives_by_axis"] is None
+    assert "training under a mesh" in r["traced"]
     assert r["memory"]["argument_bytes_by_mesh"]["16x16"] == \
         r["memory"]["argument_bytes"]
+
+
+def test_run_one_on_16x16_with_local_dispatch_is_the_1x16_step(tiny):
+    """With ``local_dispatch`` a 16×16 rank runs the (1, 16) step at 1/16
+    of the global batch: the same FLOPs and "model" payload, bytes within
+    1 %; only statistics cross "data" — per layer, the one-mask site's
+    sums (importance, look-ahead counts and mass, valid tokens: 3E + 1
+    f32) and the 16 groups' merged MoE statistics (16 × (3E + 2) f32)."""
+    cfg = get_config("olmoe_1b_7b").reduced()
+    e, layers = cfg.num_experts, cfg.num_layers
+    r = dryrun.run_one("olmoe_1b_7b", "decode_b32", mesh="16x16",
+                       save_dir=None, verbose=False,
+                       opts=("local_dispatch",))
+    one = dryrun.run_one("olmoe_1b_7b", "decode_b2", mesh="1x16",
+                         save_dir=None, verbose=False)
+    assert r["traced"] == "rank 0 on meta"
+    assert r["flops"] == one["flops"] > 0
+    assert abs(r["bytes"] - one["bytes"]) <= 0.01 * one["bytes"]
+    by, by1 = r["collectives_by_axis"], one["collectives_by_axis"]
+    assert by["model"] == by1["model"] and by1["data"]["total"] == 0
+    assert by["data"]["total"] == layers * 4 * (
+        (3 * e + 1) + 16 * (3 * e + 2))
+    assert r["collectives"]["total"] == by["model"]["total"] + \
+        by["data"]["total"] + by["world"]["total"]
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+def test_run_one_without_local_dispatch_counts_the_data_gather(tiny, mesh):
+    """Without ``local_dispatch`` the one-mask MoE site gathers its tokens
+    over "data" (global capacity, as the reference's GSPMD program): per
+    layer, the whole batch's (B, d_model) hidden rows."""
+    cfg = get_config("olmoe_1b_7b").reduced()
+    r = dryrun.run_one("olmoe_1b_7b", "decode_b32", mesh=mesh,
+                       save_dir=None, verbose=False)
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    assert r["collectives_by_axis"]["data"]["all-gather"] == \
+        cfg.num_layers * 32 * cfg.d_model * itemsize
+    assert r["flops"] > 0 and r["t_collective_s"] > 0

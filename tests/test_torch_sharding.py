@@ -302,3 +302,112 @@ def test_train_loop_keeps_mesh_and_shardings():
     # (L 1, E 4, dm, d_ff): "data" on the first divisible whole dim
     assert specs["layers"]["moe"]["w_gate"] == tpart.P(None, "data", None,
                                                        "model")
+
+
+# ------------------------------------------------- meshes with a data axis
+
+DATA_MESHES = [{"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 2}]
+
+
+def _ranks(shape):
+    size = 1
+    for n in shape.values():
+        size *= n
+    return [Mesh(shape, rank=r) for r in range(size)]
+
+
+@pytest.mark.parametrize("shape", DATA_MESHES, ids=["2x2", "2x2x2"])
+def test_kv_cache_blocks_over_batch_and_slots(shape):
+    """``cache_shardings`` splits k / v (L, B, H, slots, D) with the batch
+    over ("pod", "data") and the slots over "model": each rank keeps the
+    block of its data coordinate's rows and its model coordinate's slots,
+    records the slot split, and the blocks tile the whole cache."""
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    caches = tmodel.init_decode_state(cfg, 8, 16, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    whole = caches["layers"]
+    for name in ("k", "v"):
+        getattr(whole, name).copy_(torch.randn(
+            getattr(whole, name).shape, generator=g))
+    whole.positions.copy_(torch.arange(16).expand_as(whole.positions))
+    specs = tpart.cache_shardings(caches, Mesh(shape))
+    axes = tuple(a for a in ("pod", "data") if a in shape)
+    assert tuple(specs["layers"].k) == (
+        None, axes if len(axes) > 1 else axes[0], None, "model", None)
+    for m in _ranks(shape):
+        got = tpart.shard_tree(caches, specs, m)["layers"]
+        lo, hi = m.batch_block(8)
+        assert hi - lo == 8 // m.data_size
+        s = 16 // m.model_size
+        sl = slice(m.model_rank * s, (m.model_rank + 1) * s)
+        assert torch.equal(got.k, whole.k[:, lo:hi, :, sl])
+        assert torch.equal(got.v, whole.v[:, lo:hi, :, sl])
+        assert torch.equal(got.positions, whole.positions[:, lo:hi, sl])
+        assert torch.equal(got.length, whole.length[:, lo:hi])
+        assert torch.equal(got.offset, whole.offset[:, lo:hi])
+        assert (got.shards, got.shard) == (m.model_size, m.model_rank)
+        assert type(got.k) is torch.Tensor
+
+
+@pytest.mark.parametrize("shape", DATA_MESHES, ids=["2x2", "2x2x2"])
+def test_batch_that_does_not_divide_is_replicated(shape):
+    """A batch of 3 rows over 2 or 4 data ranks stays whole (the guard),
+    and runs on the mesh's model view: its data axes 1."""
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    caches = tmodel.init_decode_state(cfg, 3, 16, device="cpu")
+    mesh = Mesh(shape)
+    specs = tpart.cache_shardings(caches, mesh)
+    assert specs["layers"].k[1] is None
+    tokens = torch.arange(3)
+    bspec = tpart.guard_spec(tpart.P(tpart.batch_spec(mesh)), (3,), mesh)
+    for m in _ranks(shape):
+        got = tpart.shard_tree(caches, specs, m)["layers"]
+        assert got.k.shape[1] == 3 and got.shards == m.model_size
+        assert torch.equal(tpart.shard_tree(tokens, bspec, m), tokens)
+        assert m.batch_block(3) == (0, 3)
+        view = m.for_batch(3)
+        assert view.data_size == 1 and view.model_size == m.model_size
+        assert view.model_rank == m.model_rank
+        assert m.for_batch(4) is m
+    # an even batch of tokens is split, as plain rows
+    even = tpart.guard_spec(tpart.P(tpart.batch_spec(mesh)), (8,), mesh)
+    for m in _ranks(shape):
+        lo, hi = m.batch_block(8)
+        got = tpart.shard_tree(torch.arange(8), even, m)
+        assert type(got) is torch.Tensor and torch.equal(
+            got, torch.arange(lo, hi))
+
+
+@pytest.mark.parametrize("shape", DATA_MESHES, ids=["2x2", "2x2x2"])
+def test_params_whole_across_data(shape):
+    """``param_shardings`` names "model" only: ranks that share a model
+    coordinate hold equal blocks, whatever their data coordinates, and
+    each Shard records its one model split."""
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    q = tmodel.quantize_model(params, cfg)
+    mesh = Mesh(shape)
+    for tree in (params, q):
+        specs = tpart.param_shardings(tree, mesh, expert_parallel=True)
+        named = set()
+        tpart.tree_specs(specs, lambda p, sp: named.update(
+            a for axes in sp if axes is not None
+            for a in ((axes,) if isinstance(axes, str) else axes)))
+        assert named == {"model"}
+        blocks = {}
+        for m in _ranks(shape):
+            leaves = {}
+            tpart.tree_specs(tpart.shard_tree(tree, specs, m),
+                             lambda p, x: leaves.setdefault(p, x))
+            blocks.setdefault(m.model_rank, []).append(leaves)
+        for model_rank, per_data in blocks.items():
+            assert len(per_data) == mesh.data_size
+            for path, x in per_data[0].items():
+                for other in per_data[1:]:
+                    a, b = x, other[path]
+                    if isinstance(a, Shard):
+                        assert list(a.splits.values()) == [("model",)]
+                        assert a.splits == b.splits
+                        a, b = a.local, b.local
+                    assert torch.equal(a, b), path

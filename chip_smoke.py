@@ -471,7 +471,13 @@ K2_E1_SHAPES = (("qwen3_0p6b", "gate_up", 1024, 3072),
                 ("zamba2_1p2b", "in_proj", 2048, 8384),   # N % 128 == 64
                 ("zamba2_1p2b", "out_proj", 4096, 2048),
                 ("falcon_mamba_7b", "in_proj", 4096, 16384),
-                ("falcon_mamba_7b", "out_proj", 8192, 4096))
+                ("falcon_mamba_7b", "out_proj", 8192, 4096),
+                # a rank's blocks on (1, 4) and (2, 2) (ssm_mesh): N split
+                ("zamba2_1p2b (1, 4) block", "in_proj", 2048, 2096),
+                ("zamba2_1p2b (1, 4) block", "out_proj", 4096, 512),
+                # N % 128 == 96
+                ("zamba2_1p2b (2, 2) block", "in_proj", 2048, 4192),
+                ("zamba2_1p2b (2, 2) block", "out_proj", 4096, 1024))
 
 
 def _k2_e1_cases(dev):
@@ -1879,6 +1885,28 @@ def _trace(fn) -> list:
     return [e for e in _kernel_sums(prof) if "double" not in e.key]
 
 
+def _replay_k1(kernels: list, replay, want: int) -> tuple:
+    """The K1 kernels a decode-chunk replay ran, which must be ``want``:
+    first from ``kernels`` (the CUDA events of a traced replay), and where
+    that trace shows fewer, from further replays traced by ``_trace``, up
+    to three. A CUDA graph runs the same kernels on every replay, so fewer
+    is a trace that lost records (531 of 768 once, on another host) and
+    more fails at once. Returns the count of every trace taken and the
+    kernels of the last."""
+    sym = SYMBOLS["expert_quant_matmul_grouped"]
+    counts = []
+    while True:
+        counts.append(sum(e.count for e in kernels if sym in e.key))
+        assert counts[-1] <= want, \
+            f"the replay ran {counts[-1]} K1 kernels, more than {want}"
+        if counts[-1] == want or len(counts) == 4:
+            break
+        kernels = _trace(replay)
+    assert counts[-1] == want, \
+        f"the replays ran {counts} K1 kernels, not {want}"
+    return counts, kernels
+
+
 def _prefill_engine(model, compiled, **extra) -> dict:
     """A compiled prefill's bookkeeping: keys captured, their seconds, the
     pool's bytes, and the kept keys, least recently used first (shape,
@@ -2318,13 +2346,15 @@ def _graph_gate(engine) -> dict:
             host.update(done=got.done.cpu().numpy(),
                         n_emitted=got.n_emitted.cpu().numpy())
         assert host["done"][2] and not host["done"][0]
-        kernels = _kernel_sums(prof)
-        k1 = sum(e.count for e in kernels if "grouped_kernel" in e.key)
-        assert k1 == 3 * cfg.num_layers * steps, \
-            f"the replay ran {k1} K1 kernels, not 3 x L x {steps}"
+        k1s, kernels = _replay_k1(
+            _kernel_sums(prof), lambda: compiled(
+                state, tok, num_steps=steps, live_cap=live_cap, **host),
+            3 * cfg.num_layers * steps)
+        # busy from the first complete trace (a replay runs the same
+        # kernels), over the timed replay's traced wall
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         rec.update(
-            k1_kernels_per_replay=k1,
+            k1_kernels_per_replay=k1s[-1], k1_traces=k1s,
             kernels_per_step=sum(e.count for e in kernels) / steps,
             replay_device_busy_ms=busy,
             replay_idle_share=1 - busy / rec["replay_traced_wall_ms"])
@@ -2723,21 +2753,6 @@ def _ring_gate(engine) -> dict:
         elif c == 1:
             rec.update(eager_ms_per_step=(t1 - t0) * 1e3 / steps,
                        graph_ms_per_step=(t2 - t1) * 1e3 / steps)
-        else:
-            busy = sum(e.self_device_time_total for e in kernels) / 1e3
-            k1 = sum(e.count for e in kernels
-                     if SYMBOLS["expert_quant_matmul_grouped"] in e.key)
-            assert k1 == 3 * cfg.num_layers * steps, k1
-            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
-            # idle share against the second chunk's untraced replay
-            rec.update(replay_device_busy_ms_per_step=busy / steps,
-                       replay_idle_share=1 - busy / (
-                           rec["graph_ms_per_step"] * steps),
-                       kernels_per_step=sum(e.count for e in kernels) / steps,
-                       k1_kernels_per_replay=k1,
-                       top_kernels=[dict(name=e.key[:60], count=e.count,
-                                         ms=e.self_device_time_total / 1e3)
-                                    for e in top[:6]])
         tok = got.tokens[-1].clone()
         host.update(done=got.done.cpu().numpy(),
                     n_emitted=got.n_emitted.cpu().numpy())
@@ -2745,6 +2760,21 @@ def _ring_gate(engine) -> dict:
     pos = state.caches["layers"].positions[0, 0].tolist()
     assert sorted(pos) == list(range(s + chunks * steps - WINDOW,
                                      s + chunks * steps)), "ring positions"
+    # further traced replays (only where the third's trace lost records)
+    # come after the ring's positions are checked
+    k1s, kernels = _replay_k1(kernels, lambda: compiled(
+        state, tok, num_steps=steps, live_cap=4, **host),
+        3 * cfg.num_layers * steps)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # idle share against the second chunk's untraced replay
+    rec.update(replay_device_busy_ms_per_step=busy / steps,
+               replay_idle_share=1 - busy / (rec["graph_ms_per_step"] * steps),
+               kernels_per_step=sum(e.count for e in kernels) / steps,
+               k1_kernels_per_replay=k1s[-1], k1_traces=k1s,
+               top_kernels=[dict(name=e.key[:60], count=e.count,
+                                 ms=e.self_device_time_total / 1e3)
+                            for e in top[:6]])
     compiled.release(state)
     rec["wrapped_at_step"] = WINDOW - s
     return rec
@@ -3619,6 +3649,15 @@ DA_REQUESTS = 4
 DA_NEW = 4        # new tokens a request: one admission wave, then one chunk
 DA_TOKENS = 32    # the reduced moe_apply_sharded case's tokens
 DA_TOL = 1e-4     # its card rows against the CPU's, atol and rtol
+# the ssm_mesh run in the same world: full-width zamba2 "4/2" (38 Mamba2
+# layers, 7 shared attention sites), tensor-parallel, through the
+# launcher's loop on (1, 4) and generate_batch on (2, 2), 4 x (64 + 4)
+# each; and reduced f32 Mamba1 and Mamba2 forward on both against the CPU
+SSM_ARGV = ["--arch", "zamba2-1.2b", "--full", "--requests", "4",
+            "--num-slots", "4", "--prompt-len", "64", "--max-new", "4"]
+SSM_REDUCED = ("falcon_mamba_7b", "zamba2_1p2b")
+SSM_LIVE = (True, False, True, True)   # the reduced decode step's rows
+SSM_TOL = 1e-5    # the reduced cases' card blocks against the CPU's
 
 
 def _ep_requests() -> list:
@@ -3654,10 +3693,11 @@ def _ep_served(engine, reqs) -> dict:
 
 
 def _routed_bytes(engine) -> int:
-    """Bytes of the routed experts' packed store this process holds (its
-    block of each split leaf)."""
+    """Bytes of the packed store this process holds (its block of each
+    split leaf): the routed experts', or the Mamba projections'."""
     total = 0
-    for mp in engine.qparams["layers"]["moe"].values():
+    for mp in (mp for group in engine.qparams["layers"].values()
+               for mp in group.values()):
         for qt in (mp.high, mp.low):
             if qt is None:
                 continue
@@ -3744,7 +3784,8 @@ class _CountedPrefill:
 
 def _counted_run(engine, mesh, serve) -> dict:
     """``serve()`` (which returns a dict with the requests' ``tokens``)
-    on ``engine``, counted: K1/K2 launches from 0, its host seconds, the
+    on ``engine``, counted: K1/K2 launches from 0, its prefills (waves,
+    solo prefills, rows) on this rank, its host seconds, the
     decode chunks' seconds and steps (graph replays on one rank, eager
     over a mesh) and — over a mesh — their collectives, and the whole
     run's by axis. On one rank a warm run first captures the keys (a
@@ -3756,6 +3797,7 @@ def _counted_run(engine, mesh, serve) -> dict:
         serve()
     chunks = engine._decode_batched = _TimedChunks(engine._decode_batched,
                                                    mesh)
+    prefills = engine._prefill = _CountedPrefill(engine._prefill)
     a0 = {} if mesh is None else {
         a: dict(v) for a, v in mesh.collectives_by_axis.items()}
     km.reset_launch_counts()                   # the path starts here
@@ -3768,8 +3810,11 @@ def _counted_run(engine, mesh, serve) -> dict:
         a: {k: v[k] - a0[a][k] for k in ("collectives", "total", "seconds")}
         for a, v in mesh.collectives_by_axis.items()}
     engine._decode_batched = chunks._inner
+    engine._prefill = prefills._inner
     steps = max(chunks.steps, 1)
-    return dict(out, wall_s=wall,
+    return dict(out, wall_s=wall, prefills=dict(
+                    waves=prefills.waves, solo=prefills.solo,
+                    rows=prefills.rows),
                 launches=launches, routed_bytes=_routed_bytes(engine),
                 decode_steps=chunks.steps,
                 ms_per_step=chunks.s / steps * 1e3,
@@ -3813,12 +3858,13 @@ def _da_full(engine, mesh=None) -> dict:
     return _counted_run(engine, mesh, serve)
 
 
-def _ep_rank(rank: int, device, cfg, reqs, fx) -> dict:
+def _ep_rank(rank: int, device, cfg, reqs, fx, fx_ssm) -> dict:
     """One of ``EP_RANKS`` gloo ranks sharing the card: the reduced gate
     (expert- and tensor-parallel engines on this rank's shards of weights
     drawn as the parent draws them), then the launcher's ``--full
     --expert-parallel`` flow in f32 and in bf16 over (1, 4), then the
-    ``data_axis:`` run over (2, 2) (:func:`_data_axis_rank`)."""
+    ``data_axis:`` run over (2, 2) (:func:`_data_axis_rank`), then the
+    ``ssm_mesh:`` run (:func:`_ssm_mesh_rank`)."""
     import gc
 
     import torch
@@ -3864,6 +3910,11 @@ def _ep_rank(rank: int, device, cfg, reqs, fx) -> dict:
     t0 = time.perf_counter()
     out["data_axis"] = _data_axis_rank(rank, device, launcher, fx)
     out["data_axis"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["ssm_mesh"] = _ssm_mesh_rank(rank, device, launcher, fx_ssm, mesh)
+    out["ssm_mesh"]["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3926,7 +3977,6 @@ def _data_axis_rank(rank: int, device, launcher, fx) -> dict:
     import gc
 
     import torch
-    import torch.distributed as dist
     from repro_torch.launch.mesh import Mesh
 
     mesh = Mesh(DA_SHAPE, rank)
@@ -3941,17 +3991,8 @@ def _data_axis_rank(rank: int, device, launcher, fx) -> dict:
         try:
             args = launcher.parse_args(EP_ARGV + [
                 "--expert-parallel", "--device", str(device)])
-            for turn in range(mesh.size):
-                if turn == rank:
-                    t0 = time.perf_counter()
-                    engine = _ep_engine(launcher, args, mesh)
-                    for name in ("w_gate", "w_up", "w_down"):
-                        del engine.params["layers"]["moe"][name]
-                    gc.collect()
-                    torch.cuda.empty_cache()
-                    torch.cuda.synchronize()
-                    build_s = time.perf_counter() - t0
-                dist.barrier()
+            engine, build_s = _build_in_turn(
+                launcher, args, mesh, rank, "moe", ("w_gate", "w_up", "w_down"))
         finally:
             launcher.get_config = real
         resident = torch.cuda.memory_allocated() / 2 ** 30
@@ -3988,8 +4029,11 @@ def _expert_parallel_phase(dev) -> dict:
     gated equal to the one-rank run of the same requests) and bf16 (the
     match count reported: bf16 tokens depend on the batch); each rank's
     routed store exactly 1/4 of the one-rank store and its K1/K2 launches
-    equal the one-rank run's. Returns the launch counts of rank 0's bf16
-    run (the serving dtype)."""
+    equal the one-rank run's. Then, in the same world, the ``data_axis:``
+    and ``ssm_mesh:`` runs. Returns the launch counts of rank 0's bf16
+    run (the serving dtype), of the ``data_axis`` and ``ssm_mesh`` paths,
+    and the ``ssm_mesh`` run's seconds (its one-rank runs and fixture in
+    this process; its longest rank)."""
     import gc
 
     import torch
@@ -4011,27 +4055,21 @@ def _expert_parallel_phase(dev) -> dict:
     want = _ep_served(cpu, reqs)
     fx = _da_fixture(cpu)
     del cpu, params
-    one, one_da = {}, {}
-    real = launcher.get_config
-    for dtype in ("float32", "bfloat16"):
-        gc.collect()
-        torch.cuda.empty_cache()
-        launcher.get_config = _ep_get_config(launcher, dtype)
-        try:
-            args = launcher.parse_args(EP_ARGV + ["--device", str(dev)])
-            engine = _ep_engine(launcher, args)
-        finally:
-            launcher.get_config = real
-        one[dtype] = _ep_full(launcher, args, engine)
-        one_da[dtype] = _da_full(engine)
-        del engine
+    t0 = time.perf_counter()
+    fx_ssm = _ssm_fixture(dev)
+    one_ssm = {f"{mesh}_{dtype}": run
+               for mesh, runs in zip(("1x4", "2x2"),
+                                     _one_rank_runs(launcher, dev, SSM_ARGV))
+               for dtype, run in runs.items()}
+    ssm_parent_s = time.perf_counter() - t0
+    one, one_da = _one_rank_runs(launcher, dev, EP_ARGV)
     gc.collect()
     torch.cuda.empty_cache()
     parent_gib = (torch.cuda.memory_allocated() / 2 ** 30,
                   torch.cuda.memory_reserved() / 2 ** 30)
     t0 = time.perf_counter()
-    ranks = spawn(_ep_rank, EP_RANKS, cfg, reqs, fx, device=str(dev),
-                  timeout_s=300.0)
+    ranks = spawn(_ep_rank, EP_RANKS, cfg, reqs, fx, fx_ssm,
+                  device=str(dev), timeout_s=300.0)
     ranks_s = time.perf_counter() - t0
     per_rank, bf16_match = [], []
     for r in ranks:
@@ -4069,8 +4107,11 @@ def _expert_parallel_phase(dev) -> dict:
         parent_allocated_reserved_gib=parent_gib,
         phase_s=time.perf_counter() - t_phase)
     print("expert_parallel: " + json.dumps(summary), flush=True)
-    return ranks[0]["bfloat16"]["launches"], _data_axis_gates(ranks,
-                                                               one_da)
+    ssm_s = dict(one_rank_s=ssm_parent_s,
+                 ranks_s=max(r["ssm_mesh"]["seconds"] for r in ranks))
+    return (ranks[0]["bfloat16"]["launches"],
+            _data_axis_gates(ranks, one_da),
+            _ssm_mesh_gates(ranks, one_ssm, ssm_s), ssm_s)
 
 
 def _da_fixture(cpu) -> dict:
@@ -4165,6 +4206,267 @@ def _data_axis_gates(ranks, one: dict) -> dict:
         per_rank=per_rank)
     print("data_axis: " + json.dumps(summary), flush=True)
     return ranks[0]["data_axis"]["float32"]["launches"]
+
+
+def _ssm_fixture(dev) -> dict:
+    """The ``ssm_mesh:`` reduced cases: for each of ``SSM_REDUCED``
+    (reduced, f32), weights drawn on the card from seed 0 as every rank
+    draws its blocks of them (``init_sharded``), a 4-row prompt, and the
+    CPU's logits after a prefill and a decode step with row 1 dead and
+    its caches after both, as numpy (a rank rebuilds the tensors)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.kv_cache import cache_tensors
+    from repro_torch.models.model import decode_step, init_params, \
+        prefill, quantize_model
+    from repro_torch.serving.engine import to_device
+
+    out = {}
+    for arch in SSM_REDUCED:
+        cfg = get_config(arch).reduced()
+        params = to_device(init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev), "cpu")
+        q = quantize_model(params, cfg)
+        prompt = torch.from_numpy(np.random.default_rng(3).integers(
+            1, cfg.vocab_size, (4, 11)))
+        logits, caches, _ = prefill(params, cfg, prompt, qparams=q,
+                                    cache_slots=16)
+        tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+        dlogits, caches, _ = decode_step(
+            params, cfg, tok0, caches, qparams=q, per_row_moe=True,
+            live_rows=torch.tensor(SSM_LIVE))
+        out[arch] = dict(
+            cfg=cfg, prompt=prompt.numpy(), tok0=tok0.numpy(),
+            logits=logits.numpy(), dlogits=dlogits.numpy(),
+            caches={part: dataclasses.replace(c, **{
+                name: t.numpy() for name, t in cache_tensors(c)})
+                for part, c in caches.items()})
+    return out
+
+
+def _ssm_reduced(mesh, device, fx) -> dict:
+    """Each reduced case on this rank of ``mesh``: its blocks of the
+    weights (``init_sharded``), its rows of the prompt, ``prefill`` and
+    one ``decode_step`` with row 1 dead; the largest distance of its
+    logits and of its blocks of every cache tensor from the CPU's, and
+    whether all are within ``SSM_TOL`` (lengths and positions exact)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.kv_cache import cache_tensors
+    from repro_torch.models.model import decode_step, init_sharded, prefill
+    from repro_torch.sharding.partition import cache_shardings, shard_tree
+
+    out = {}
+    for arch, fn in fx.items():
+        cfg = fn["cfg"]
+        f = {k: torch.from_numpy(v) for k, v in fn.items()
+             if k in ("prompt", "tok0", "logits", "dlogits")}
+        f["caches"] = {part: dataclasses.replace(c, **{
+            name: torch.from_numpy(a) for name, a in cache_tensors(c)})
+            for part, c in fn["caches"].items()}
+        p, q = init_sharded(cfg, torch.Generator(device=device).manual_seed(0),
+                            mesh, device=device)
+        lo, hi = mesh.batch_block(4)
+        on = mesh.for_batch(4)
+        logits, caches, _ = prefill(p, cfg, f["prompt"][lo:hi].to(device),
+                                    qparams=q, cache_slots=16, mesh=on)
+        dlogits, caches, _ = decode_step(
+            p, cfg, f["tok0"][lo:hi].to(device), caches, qparams=q,
+            per_row_moe=True, mesh=on,
+            live_rows=torch.tensor(SSM_LIVE[lo:hi], device=device))
+        want = shard_tree(f["caches"], cache_shardings(f["caches"], mesh),
+                          mesh)
+        pairs = [(logits, f["logits"][lo:hi]), (dlogits, f["dlogits"][lo:hi])]
+        exact = True
+        for part, c in want.items():
+            for (name, w), (_, g) in zip(cache_tensors(c),
+                                         cache_tensors(caches[part])):
+                if w.is_floating_point():
+                    pairs.append((g, w))
+                else:
+                    exact &= torch.equal(g.cpu(), w)
+        err = max(float((g.cpu() - w).abs().max()) for g, w in pairs)
+        close = all(torch.allclose(g.cpu(), w, atol=SSM_TOL, rtol=SSM_TOL)
+                    for g, w in pairs)
+        out[arch] = dict(max_abs_err=err, close=close and exact)
+        del p, q
+    return out
+
+
+def _build_in_turn(launcher, args, mesh, rank: int, group: str,
+                   names) -> tuple:
+    """The launcher's engine of this rank, the ranks building in turn;
+    its float ``names`` of the layer ``group``, which serving with DyMoE
+    on never reads (their packed store runs), dropped before the next
+    rank builds. (engine, build seconds)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    for turn in range(mesh.size):
+        if turn == rank:
+            t0 = time.perf_counter()
+            engine = _ep_engine(launcher, args, mesh)
+            for name in names:
+                del engine.params["layers"][group][name]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        dist.barrier()
+    return engine, build_s
+
+
+def _ssm_mesh_rank(rank: int, device, launcher, fx, mesh14) -> dict:
+    """The ``ssm_mesh:`` run on this rank: the reduced cases on (1, 4) and
+    (2, 2), then full-width zamba2 "4/2" in f32 and bf16 through the
+    launcher's ``--full --expert-parallel`` loop on (1, 4) and
+    ``generate_batch`` of :func:`_da_requests` on (2, 2), counted
+    (:func:`_counted_run`: K2 launches, solo prefills on this rank,
+    decode steps, collectives by axis)."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import Mesh
+
+    mesh22 = Mesh(DA_SHAPE, rank)
+    out = dict(coords=(mesh22.data_rank, mesh22.model_rank),
+               reduced={"1x4": _ssm_reduced(mesh14, device, fx),
+                        "2x2": _ssm_reduced(mesh22, device, fx)})
+    real = launcher.get_config
+    for dtype in ("float32", "bfloat16"):
+        for name, mesh in (("1x4", mesh14), ("2x2", mesh22)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            launcher.get_config = _ep_get_config(launcher, dtype)
+            try:
+                args = launcher.parse_args(SSM_ARGV + [
+                    "--expert-parallel", "--device", str(device)])
+                engine, build_s = _build_in_turn(
+                    launcher, args, mesh, rank, "ssm", ("in_proj", "out_proj"))
+            finally:
+                launcher.get_config = real
+            resident = torch.cuda.memory_allocated() / 2 ** 30
+            run = (_ep_full(launcher, args, engine, mesh) if name == "1x4"
+                   else _da_full(engine, mesh))
+            run.update(build_s=build_s, resident_gib=resident,
+                       k2_a_step=2 * engine.cfg.num_layers,
+                       compiles=engine._decode_batched.compiles
+                       + engine._prefill.compiles,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            out[f"{name}_{dtype}"] = run
+            del engine
+    return out
+
+
+def _one_rank_runs(launcher, dev, argv) -> tuple:
+    """The one-rank runs the ranks are held to: the launcher's engine of
+    ``argv`` on one card (graph replays) serving its loop
+    (:func:`_ep_full`) and :func:`_da_full`'s ``generate_batch``, in f32
+    and bf16: ({dtype: loop run}, {dtype: batch run})."""
+    import gc
+
+    import torch
+
+    loop, batch = {}, {}
+    real = launcher.get_config
+    for dtype in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        launcher.get_config = _ep_get_config(launcher, dtype)
+        try:
+            args = launcher.parse_args(argv + ["--device", str(dev)])
+            engine = _ep_engine(launcher, args)
+        finally:
+            launcher.get_config = real
+        loop[dtype] = _ep_full(launcher, args, engine)
+        batch[dtype] = _da_full(engine)
+        del engine
+    return loop, batch
+
+
+def _ssm_mesh_gates(ranks, one: dict, seconds: dict) -> dict:
+    """The ``ssm_mesh:`` line: every rank's gates against the one-rank
+    runs — f32 tokens equal; the packed store a rank exactly 1/4 (1, 4)
+    or 1/2 (2, 2) of one rank's; K2 = 2 L a solo prefill and a decode
+    step (76 at full depth) on every rank, no K1, no compile; on (1, 4) every
+    rank's launches and prefills the one rank's, on (2, 2) its data
+    ranks' prefills adding up to the one rank's; the reduced cases within
+    ``SSM_TOL`` of the CPU — the bf16 rows that match (not gated), and per
+    rank its peak memory, eager decode step and collectives a step by
+    axis. Returns rank 0's f32 (1, 4) launches (the path ``ssm_mesh``)."""
+    per_rank, bf16_match, split = [], {}, {}
+    for r in ranks:
+        sm = r["ssm_mesh"]
+        for mesh_name, cases in sm["reduced"].items():
+            for arch, c in cases.items():
+                assert c["close"], (r["rank"], mesh_name, arch, c)
+        for key, run in sm.items():
+            if key in ("coords", "reduced", "seconds"):
+                continue
+            ref = one[key]
+            k2 = run["launches"]["expert_quant_matmul"]
+            assert k2 == run["k2_a_step"] * (
+                run["prefills"]["solo"] + run["decode_steps"]) > 0, \
+                (key, run["launches"], run["prefills"], run["decode_steps"])
+            assert run["launches"]["expert_quant_matmul_grouped"] == 0
+            assert run["prefills"]["waves"] == 0
+            assert run["decode_steps"] == ref["decode_steps"], key
+            assert run["compiles"] == 0
+            model = EP_RANKS if key.startswith("1x4") else DA_SHAPE["model"]
+            # the packed in/out projections split along N: 1/model a rank
+            assert run["routed_bytes"] * model == ref["routed_bytes"], \
+                (key, run["routed_bytes"], ref["routed_bytes"])
+            if key.startswith("1x4"):
+                assert run["launches"] == ref["launches"], \
+                    (key, run["launches"], ref["launches"])
+                assert run["prefills"] == ref["prefills"], key
+            else:
+                split.setdefault((key, sm["coords"][1]), []).append(
+                    run["prefills"]["solo"])
+            if key.endswith("float32"):
+                assert run["tokens"] == ref["tokens"], (r["rank"], key)
+            else:
+                bf16_match.setdefault(key, []).append(sum(
+                    a == b for a, b in zip(run["tokens"], ref["tokens"])))
+        per_rank.append(dict(
+            rank=r["rank"], coords=sm["coords"], seconds=sm["seconds"],
+            reduced_max_abs_err={m: {a: c["max_abs_err"]
+                                     for a, c in cases.items()}
+                                 for m, cases in sm["reduced"].items()},
+            **{key: {k: run[k] for k in (
+                "routed_bytes", "peak_gib", "resident_gib", "launches",
+                "prefills",
+                "build_s", "wall_s", "decode_steps", "ms_per_step",
+                "collectives_per_step", "collective_s", "collective_share",
+                "by_axis", "run_by_axis")}
+               for key, run in sm.items()
+               if key not in ("coords", "reduced", "seconds")}))
+    for (key, _), solos in split.items():
+        assert sum(solos) == one[key]["prefills"]["solo"], (key, solos)
+    summary = dict(
+        meshes={"1x4": {"data": 1, "model": EP_RANKS}, "2x2": DA_SHAPE},
+        ranks=EP_RANKS, backend="gloo",
+        config="zamba2_1p2b 4/2 full width, full depth, tensor-parallel",
+        entries={"1x4": "launcher --full --expert-parallel loop",
+                 "2x2": "generate_batch"},
+        requests=dict(n=4, prompt=64, new=4, slots=4, chunk=EP_CHUNK),
+        reduced=dict(archs=list(SSM_REDUCED), tol=SSM_TOL, equal=True),
+        one_rank={k: {f: v[f] for f in ("launches", "prefills", "wall_s",
+                                        "decode_steps", "ms_per_step")}
+                  for k, v in one.items()},
+        f32_tokens_equal=True, store_split=True, launches_exact=True,
+        bf16_tokens_match={k: f"{min(v)}/{len(one[k]['tokens'])}"
+                           for k, v in bf16_match.items()},
+        seconds=seconds, per_rank=per_rank)
+    print("ssm_mesh: " + json.dumps(summary), flush=True)
+    return ranks[0]["ssm_mesh"]["1x4_float32"]["launches"]
 
 
 class _Marks:
@@ -4263,9 +4565,11 @@ def main() -> int:
     mark("frontend")
     by_path["train_serve"] = _train_phase(dev)
     mark("train")
-    by_path["expert_parallel"], by_path["data_axis"] = \
-        _expert_parallel_phase(dev)
+    by_path["expert_parallel"], by_path["data_axis"], \
+        by_path["ssm_mesh"], ssm_s = _expert_parallel_phase(dev)
     mark("expert_parallel")
+    mark.seconds["ssm_mesh_in_expert_parallel"] = \
+        ssm_s["one_rank_s"] + ssm_s["ranks_s"]
     print("phases: " + json.dumps(mark.seconds), flush=True)
 
     kernels = []

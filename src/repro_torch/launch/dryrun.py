@@ -29,7 +29,8 @@ memory. So, per (arch, shape, mesh):
 
 The traced step is rank 0's program on an abstract ``Mesh`` of the
 record's shape: its arguments are rank 0's blocks (``shard_tree``: the
-weights split over "model", the batch and the KV caches' rows over
+weights split over "model", the KV caches' slots and the SSM states'
+channels or heads over "model", the batch and the caches' rows over
 ("pod", "data") where the data ranks divide them), and it runs on
 ``Mesh.for_batch`` of the global batch — a batch the data ranks do not
 divide (``long_500k``'s one row) is replicated, every data rank computing

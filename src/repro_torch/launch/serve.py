@@ -31,18 +31,20 @@ counters:
 
 Expert parallelism (``--expert-parallel``): the model is served sharded
 over a (1, n) mesh of ranks — routed expert stores split over E, the
-other weights split as ``sharding/partition.py`` rules, KV slots over the
-model axis — every rank running the same program (SPMD over
-``torch.distributed``). Under ``torchrun`` it uses the world torchrun
-gives it; otherwise it spawns 4 ranks on ``--device`` (the reference's
-"best-effort 4 simulated host devices"): gloo on the CPU or on one shared
-card, NCCL when each rank has a card of its own. Each rank draws only its
+other weights split as ``sharding/partition.py`` rules, KV slots and SSM
+states over the model axis — every rank running the same program (SPMD
+over ``torch.distributed``); a config without experts (dense, Mamba,
+the hybrid) is tensor-parallel, as in the reference. Under ``torchrun``
+it uses the world torchrun gives it; otherwise it spawns 4 ranks on
+``--device`` (the reference's "best-effort 4 simulated host devices"):
+gloo on the CPU or on one shared card, NCCL when each rank has a card of
+its own. Each rank draws only its
 own shards (``models.model.init_sharded``); rank 0 prints the report,
 with ``expert_parallel: true`` and ``n_devices`` the world size. A
 replica tier over a mesh runs its replicas on the calling thread.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --expert-parallel \
-      --requests 4 --device cpu
+      --requests 4 --device cpu [--arch zamba2-1.2b]
 
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 (the
 reference draws its own with ``jax.random.PRNGKey(0)``; the two cannot

@@ -59,8 +59,10 @@ at the sites with one Critical mask: there the batch's tokens are gathered
 over "data" and the site runs as one rank would (global capacity, token
 order, Critical set and look-ahead), or, with ``cfg.moe_dispatch_axes``,
 the rank dispatches its own groups and the batch's statistics are summed
-over "data" (:func:`_site_split`). SSM and hybrid blocks raise under a
-mesh.
+over "data" (:func:`_site_split`). SSM blocks run on the rank's blocks of
+the Mamba weights and states, bridged by collectives over "model"
+(``layers/ssm.py``); the hybrid's shared sites run as dense attention
+layers do, over KV caches whose slots are split over "model".
 """
 from __future__ import annotations
 
@@ -91,6 +93,7 @@ from repro_torch.models.layers.ssm import init_mamba, init_ssm_cache, \
     mamba_decode, mamba_prefill
 from repro_torch.quant.qtensor import MixedPrecisionWeights
 from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import model_split
 from repro_torch.tree import tree_map
 
 __all__ = ["init_params", "init_sharded", "quantize_model", "forward",
@@ -223,13 +226,8 @@ def quantize_model(params, cfg: ModelConfig) -> Dict[str, Any]:
     analogue), with the leading L dim kept. Quantized LAYER BY LAYER on the
     weights' device: the full-depth f32 temporary of an OLMoE expert matrix
     would be 8.6 GB."""
-    kind, pol = cfg.block_kinds()[0], cfg.dymoe
-    if kind == "attn_moe":
-        group, names = "moe", ("w_gate", "w_up", "w_down")
-    elif kind == "attn_dense":
-        group, names = "mlp", tuple(params["layers"]["mlp"])
-    else:
-        group, names = "ssm", ("in_proj", "out_proj")
+    pol = cfg.dymoe
+    group, names = _quantized_group(cfg, params["layers"])
     out = {}
     for name in names:
         w = params["layers"][group][name]
@@ -245,12 +243,39 @@ def quantize_model(params, cfg: ModelConfig) -> Dict[str, Any]:
     return {"layers": {group: out}}
 
 
+def _quantized_group(cfg: ModelConfig, layers: dict) -> Tuple[str, tuple]:
+    """(the layer group, its weights) that :func:`quantize_model` packs."""
+    kind = cfg.block_kinds()[0]
+    if kind == "attn_moe":
+        return "moe", ("w_gate", "w_up", "w_down")
+    if kind == "attn_dense":
+        return "mlp", tuple(layers["mlp"])
+    return "ssm", ("in_proj", "out_proj")
+
+
 class _Lazy:
     """A leaf ``init_params`` asked for, not drawn yet: its shape, dtype
     and draw (see :func:`init_sharded`)."""
 
     def __init__(self, shape, dtype, sample):
         self.shape, self.dtype, self.sample = tuple(shape), dtype, sample
+
+    # the functions ``init_mamba`` applies to a draw (its ``dt_bias`` of
+    # the uniforms): elementwise, so shape and dtype stay
+    _ELEMENTWISE = (torch.exp, torch.expm1, torch.log)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        """``func`` of the leaf, applied to the sample when it is drawn
+        (the leaf itself, so its place in the draw order stays); any
+        other use of an undrawn leaf raises."""
+        if func not in cls._ELEMENTWISE or kwargs or len(args) != 1:
+            raise TypeError(f"{func.__name__} of an undrawn leaf: only "
+                            f"{[f.__name__ for f in cls._ELEMENTWISE]} apply")
+        (lazy,) = args
+        sample = lazy.sample
+        lazy.sample = lambda shape: func(sample(shape))
+        return lazy
 
 
 class _LazyDraw(_Draw):
@@ -275,8 +300,7 @@ def init_sharded(cfg: ModelConfig, generator: torch.Generator, mesh, *,
     leaves are drawn in ``init_params``' order and a stacked one a layer
     at a time, as it draws them; a rank keeps its block of each layer and
     quantizes each layer of the DyMoE store's weights whole before it
-    keeps its block. Returns (params, qparams or None). Attention
-    architectures only, as every mesh of this slice."""
+    keeps its block. Returns (params, qparams or None)."""
     from repro_torch.sharding.partition import Shard, _block, _spec_for, \
         _split_dims, param_shardings, shard_tree, tree_specs
 
@@ -288,7 +312,7 @@ def init_sharded(cfg: ModelConfig, generator: torch.Generator, mesh, *,
     paths = {}
     tree_specs(lazy, lambda path, leaf: paths.setdefault(id(leaf), path))
     pol = cfg.dymoe
-    group = "moe" if cfg.block_kinds()[0] == "attn_moe" else "mlp"
+    group, qnames = _quantized_group(cfg, lazy["layers"])
     stacks: Dict[Any, Any] = {}
 
     def keep(key, path: str, t: torch.Tensor, l: int, n: int) -> None:
@@ -313,7 +337,7 @@ def init_sharded(cfg: ModelConfig, generator: torch.Generator, mesh, *,
         n = leaf.shape[0]
         name = path.rsplit("/", 1)[1]
         quantized = quantize and path == f"/layers/{group}/{name}" \
-            and name.startswith("w_")
+            and name in qnames
         for l in range(n):
             t = leaf.sample(leaf.shape[1:]).to(leaf.dtype)
             keep(id(leaf), path, t, l, n)
@@ -389,15 +413,8 @@ def _lm_head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    """What this slice runs under a mesh (see the module docstring)."""
-    if mesh is None or mesh.size == 1:
-        return
-    if cfg.block_kinds()[0] not in ("attn_dense", "attn_moe") \
-            or cfg.shared_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM and hybrid blocks under a mesh are the next "
-            "slice of the port (ROADMAP.md)")
-    if cfg.is_moe:
+    """A MoE config's dispatch axes must name ``mesh``'s batch axes."""
+    if mesh is not None and mesh.size > 1 and cfg.is_moe:
         dispatch_axes(cfg, mesh)
 
 
@@ -420,15 +437,6 @@ def _data_sums(mesh, *vecs: torch.Tensor) -> List[torch.Tensor]:
     sizes = [v.numel() for v in vecs]
     buf = torch.cat([v.reshape(-1).to(torch.float32) for v in vecs])
     return list(torch.split(mesh.all_reduce(buf, axis="data"), sizes))
-
-
-def _kv_split(mesh, slots: int) -> dict:
-    """``init_kv_cache``'s ``shards`` / ``shard`` for ``slots`` over
-    ``mesh``: split over "model" when it divides them (the guard of
-    ``cache_shardings``), else whole on every rank."""
-    if mesh is None or mesh.model_size == 1 or slots % mesh.model_size:
-        return {}
-    return dict(shards=mesh.model_size, shard=mesh.model_rank)
 
 
 def _t_l_array(cfg: ModelConfig) -> List[int]:
@@ -494,7 +502,8 @@ def _ssm_params(lp: dict, q: Optional[dict], l: int, tier: bool) -> dict:
 
 def _shared_block_train(params, cfg: ModelConfig, x: torch.Tensor):
     """The hybrid's weight-shared attention + (unquantized) MLP block over
-    a whole prompt; returns (x, (k, v))."""
+    a whole prompt; returns (x, (k, v)). Under a mesh its projections are
+    split as a dense layer's (``sharding/spmd.py``)."""
     sp = params["shared_attn"]
     a, _, kv = attention_train(sp["attn"], cfg,
                                rmsnorm(sp["norm1"], x, cfg.norm_eps))
@@ -504,11 +513,12 @@ def _shared_block_train(params, cfg: ModelConfig, x: torch.Tensor):
 
 
 def _shared_block_decode(params, cfg: ModelConfig, x: torch.Tensor,
-                         cache: KVCache, live: Optional[torch.Tensor]):
+                         cache: KVCache, live: Optional[torch.Tensor],
+                         mesh=None):
     sp = params["shared_attn"]
     a, _ = attention_decode(sp["attn"], cfg,
                             rmsnorm(sp["norm1"], x, cfg.norm_eps), cache,
-                            live=live)
+                            live=live, mesh=mesh)
     x = x + a
     return x + mlp(sp["mlp"], cfg, rmsnorm(sp["norm2"], x, cfg.norm_eps))
 
@@ -711,16 +721,17 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
         "ragged prefill unsupported with sliding-window ring caches"
     if kind == "ssm":
         caches = {"layers": init_ssm_cache(cfg, b, dt, dev,
-                                           layers=cfg.num_layers)}
+                                           layers=cfg.num_layers, mesh=mesh)}
     else:
         caches = {"layers": init_kv_cache(b, cfg.num_kv_heads, slots,
                                           cfg.head_dim, dt, dev,
                                           layers=cfg.num_layers, ring=ring,
-                                          **_kv_split(mesh, slots))}
+                                          **model_split(mesh, slots))}
     if hybrid:
         caches["shared"] = init_kv_cache(b, cfg.num_kv_heads, slots,
                                          cfg.head_dim, dt, dev,
-                                         layers=_n_sites(cfg), ring=ring)
+                                         layers=_n_sites(cfg), ring=ring,
+                                         **model_split(mesh, slots))
     dymoe_on = qparams is not None and cfg.dymoe.enabled
     if kind == "attn_moe":
         x, info = _prefill_moe(params, cfg, x, caches["layers"],
@@ -749,7 +760,7 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
             else:
                 y, _ = mamba_prefill(_ssm_params(lp, q, l, tier[l]), cfg,
                                      rmsnorm(lp["norm1"], x, cfg.norm_eps),
-                                     caches["layers"].index(l))
+                                     caches["layers"].index(l), mesh)
                 x = x + y
         info = DyMoEInfo()
     logits = _lm_head(params, cfg, rmsnorm(params["final_norm"], x[:, -1],
@@ -904,8 +915,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     shared-site KV caches do. Under ``mesh`` ``batch`` is the rows this
     rank holds (its block of a batch split over the data axes, or the
     whole batch where it is replicated) and a rank allocates only its
-    block of the slots where "model" divides them (``cache_shardings``'
-    layout)."""
+    block of the slots, and of an SSM state's channels or heads, where
+    "model" divides them (``cache_shardings``' layout)."""
     _check_mesh(cfg, mesh)
     device = resolve_device(device)
     dt = _dtype(cfg)
@@ -914,16 +925,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     ring = cfg.sliding_window is not None and slots == cfg.sliding_window
     if cfg.block_kinds()[0] == "ssm":
         caches = {"layers": init_ssm_cache(cfg, batch, dt, device,
-                                           layers=cfg.num_layers)}
+                                           layers=cfg.num_layers, mesh=mesh)}
     else:
         caches = {"layers": init_kv_cache(batch, cfg.num_kv_heads, slots,
                                           cfg.head_dim, dt, device,
                                           layers=cfg.num_layers, ring=ring,
-                                          **_kv_split(mesh, slots))}
+                                          **model_split(mesh, slots))}
     if cfg.shared_attn_every:
         caches["shared"] = init_kv_cache(batch, cfg.num_kv_heads, slots,
                                          cfg.head_dim, dt, device,
-                                         layers=_n_sites(cfg), ring=ring)
+                                         layers=_n_sites(cfg), ring=ring,
+                                         **model_split(mesh, slots))
     return caches
 
 
@@ -973,7 +985,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
         if shared[l]:
             x = _shared_block_decode(params, cfg, x,
                                      caches["shared"].index(site[l]),
-                                     live_rows)
+                                     live_rows, mesh)
         if kind == "attn_dense":
             a, _ = attention_decode(lp["attn"], cfg,
                                     rmsnorm(lp["norm1"], x, cfg.norm_eps),
@@ -984,7 +996,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             y, _ = mamba_decode(_ssm_params(lp, q, l, tier[l]), cfg,
                                 rmsnorm(lp["norm1"], x, cfg.norm_eps),
-                                cache, live=live_rows)
+                                cache, live=live_rows, mesh=mesh)
             x = x + y
     logits = _lm_head(params, cfg,
                       rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0])

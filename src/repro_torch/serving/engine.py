@@ -62,7 +62,8 @@ rank of an SPMD program: every rank of the mesh builds the same engine and
 drives the same calls in the same order. Each rank keeps only its shards
 of the params and packed stores (``sharding/partition.py``'s rules;
 ``expert_parallel=True`` splits the routed experts over E, E/n a rank) and
-of every decode state's KV slots (:meth:`DyMoEEngine.shard_decode_state`);
+of every decode state's KV slots and SSM channels or heads
+(:meth:`DyMoEEngine.shard_decode_state`);
 the model code places the collectives (``sharding/spmd.py``), over each
 rank's "model" sub-group: weights are whole across the data axes ("pod",
 "data"). A session's slots are split in blocks over the data ranks when
@@ -346,9 +347,10 @@ class DyMoEEngine:
 
     def shard_decode_state(self, caches):
         """Lay a decode-state tree of whole caches out on the engine's
-        mesh (``cache_shardings``: KV slots split over "model", batch over
-        ("pod", "data") where the data ranks divide it): this rank keeps
-        its block of rows and slots. Identity on an unsharded engine. The
+        mesh (``cache_shardings``: KV slots and the SSM states' channels or
+        heads split over "model", batch over ("pod", "data") where the
+        data ranks divide it): this rank keeps its block of rows, slots,
+        channels and heads. Identity on an unsharded engine. The
         engine's own decode states are allocated so directly
         (``init_decode_state(..., mesh=)`` with a session's block of
         slots)."""

@@ -76,6 +76,17 @@ def guard_spec(spec: P, shape: Tuple[int, ...], mesh) -> P:
     return P(*out)
 
 
+def model_split(mesh, n: int) -> dict:
+    """``shards`` / ``shard`` of a cache dim of ``n`` that
+    :func:`cache_shardings` splits over "model", for a rank that allocates
+    its block directly: split where "model" divides ``n`` (``guard_spec``),
+    else whole on every rank."""
+    m = 1 if mesh is None else mesh.model_size
+    if m == 1 or n % m:
+        return dict(shards=1, shard=0)
+    return dict(shards=m, shard=mesh.model_rank)
+
+
 def batch_spec(mesh):
     """Composite batch axes present in the mesh ('pod' only in multi-pod)."""
     axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
@@ -377,8 +388,11 @@ def shard_tree(tree: Any, specs: Any, mesh, device=None) -> Any:
     it is (moved to ``device``). A ``KVCache`` gets its block of rows and
     of slots as plain local tensors and records in its static ``shards`` /
     ``shard`` how many ranks its slots are split over and which block it
-    holds. A dim that does not divide its axes stays whole
-    (``guard_spec``)."""
+    holds. An ``SSMCache`` gets its block of rows and of conv channels
+    and state channels or heads as plain local tensors (``length`` whole
+    across "model"): the blocks of the layer's ``conv_w`` and ``d_skip``
+    :class:`Shard`, which the same rule splits. A dim that does not
+    divide its axes stays whole (``guard_spec``)."""
     def move(t):
         return t if device is None else t.to(device)
 
@@ -418,11 +432,12 @@ def shard_tree(tree: Any, specs: Any, mesh, device=None) -> Any:
                 return blk
             return Shard(blk, dims, mesh)
         if isinstance(node, SSMCache):
-            for name, _ in kids:
-                if _split_dims(getattr(spec, name), mesh):
-                    raise NotImplementedError(
-                        "SSM caches under a mesh: the next slice of the "
-                        "port (ROADMAP.md)")
+            # plain local blocks: a rank's rows, and its channels or heads
+            out = {}
+            for name, t in kids:
+                dims = _split_dims(getattr(spec, name), mesh)
+                out[name] = move(_block(t, dims, mesh) if dims else t)
+            return dataclasses.replace(node, **out)
         spec_kids = dict(_children(spec))
         return _rebuild(node, {name: walk(child, spec_kids[name])
                                for name, child in kids})

@@ -10,7 +10,9 @@ keys, its ``model_flops``, ``0 < useful_flops_ratio <= 1``, collectives on
 an expert-parallel (1, 4) mesh; on 16×16 and 2×16×16 rank 0's traced
 decode step, with ``local_dispatch`` the (1, 16) step at 1/16 of the
 batch (only statistics cross "data") and without it the data gather's
-bytes, and the train step's memory only."""
+bytes, and the train step's memory only; the same argument bytes and
+traced terms for the SSM archs (Mamba1, and Mamba2 with shared attention
+sites) on (1, 4) and 16×16."""
 import os
 import types
 
@@ -38,8 +40,6 @@ if _FLAGS is None:
     os.environ.pop("XLA_FLAGS", None)
 else:
     os.environ["XLA_FLAGS"] = _FLAGS
-
-MESHES = ["1x4", "16x16", "2x16x16"]
 
 
 class _Holder:
@@ -105,12 +105,27 @@ def _ref_bytes(args, shardings, mesh) -> int:
     return total
 
 
-@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k", "train_4k"])
-@pytest.mark.parametrize("ep", [True, False], ids=["ep", "tp"])
-def test_argument_bytes_a_rank_equal_the_reference(ref, shape, ep):
-    cfg = get_config("olmoe_1b_7b").reduced()
-    jcfg = jget_config("olmoe_1b_7b").reduced()
-    for name in MESHES:
+def _arg_cases():
+    """(arch, shape, ep) with the OLMoE cases' ids as they were, the SSM
+    archs' prefixed with the arch."""
+    out = []
+    for arch in ("olmoe_1b_7b", "falcon_mamba_7b", "zamba2_1p2b"):
+        for ep in (True, False):
+            for shape in ("decode_32k", "prefill_32k", "train_4k"):
+                tag = f"{'ep' if ep else 'tp'}-{shape}"
+                out.append(pytest.param(
+                    arch, shape, ep,
+                    id=tag if arch == "olmoe_1b_7b" else f"{arch}-{tag}"))
+    return out
+
+
+@pytest.mark.parametrize("arch,shape,ep", _arg_cases())
+def test_argument_bytes_a_rank_equal_the_reference(ref, arch, shape, ep):
+    """On every mesh of ``dryrun.MESHES``; the SSM archs' Mamba weights and
+    caches split over "model" as the reference's rules say."""
+    cfg = get_config(arch).reduced()
+    jcfg = jget_config(arch).reduced()
+    for name in dryrun.MESHES:
         mesh = Mesh(dryrun.MESHES[name])
         stand_in = types.SimpleNamespace(shape=dict(dryrun.MESHES[name]))
         _, _, args, shardings = dryrun.build_specs(cfg, shape, mesh, ep)
@@ -130,6 +145,22 @@ def test_argument_bytes_full_size_on_16x16(ref):
         jget_config("olmoe_1b_7b"), "decode_32k", stand_in, True)
     assert dryrun.argument_bytes(args, shardings, mesh) == \
         _ref_bytes(jargs, jshard, stand_in)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1p2b"])
+def test_argument_bytes_full_size_ssm_on_production_meshes(ref, arch):
+    """Full-size Mamba1 and the Mamba2 hybrid: the serve step's arguments
+    a rank on 16 × 16 and 2 × 16 × 16 (its channel and head blocks of the
+    weights and of the SSM state, its rows)."""
+    for name in ("16x16", "2x16x16"):
+        mesh = Mesh(dryrun.MESHES[name])
+        stand_in = types.SimpleNamespace(shape=dict(mesh.shape))
+        _, _, args, shardings = dryrun.build_specs(
+            get_config(arch), "decode_32k", mesh)
+        _, _, jargs, jshard = ref.build_specs(
+            jget_config(arch), "decode_32k", stand_in, False)
+        assert dryrun.argument_bytes(args, shardings, mesh) == \
+            _ref_bytes(jargs, jshard, stand_in), name
 
 
 _KEYS = {"arch", "shape", "mesh", "chips", "expert_parallel", "opts",
@@ -239,3 +270,33 @@ def test_run_one_without_local_dispatch_counts_the_data_gather(tiny, mesh):
     assert r["collectives_by_axis"]["data"]["all-gather"] == \
         cfg.num_layers * 32 * cfg.d_model * itemsize
     assert r["flops"] > 0 and r["t_collective_s"] > 0
+
+
+def test_run_one_ssm_on_1x4_counts_collectives(tiny, tmp_path):
+    """Reduced zamba2 (Mamba2 and two shared attention sites) on (1, 4):
+    rank 0's traced decode step crosses "model" only."""
+    r = dryrun.run_one("zamba2_1p2b", "decode_tiny", mesh="1x4",
+                       save_dir=str(tmp_path), verbose=False)
+    assert r["traced"] == "rank 0 on meta" and r["flops"] > 0
+    assert r["collectives"]["total"] > 0 and r["t_collective_s"] > 0
+    by = r["collectives_by_axis"]
+    assert by["model"]["collectives"] > 0 and by["data"]["total"] == 0
+    one = dryrun.run_one("zamba2_1p2b", "decode_tiny", save_dir=None,
+                         verbose=False)
+    assert one["collectives"]["total"] == 0
+    assert r["memory"]["argument_bytes"] < one["memory"]["argument_bytes"]
+
+
+@pytest.mark.parametrize("shape", ["decode_b32", "prefill_tiny"])
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1p2b"])
+def test_run_one_ssm_on_16x16_gives_traced_terms(tiny, arch, shape):
+    """Rank 0's decode and prefill steps of the SSM archs on 16 × 16: its
+    rows of the batch (or the whole batch where 16 does not divide it)
+    and its blocks of the Mamba weights (whole where 16 does not divide
+    them: reduced zamba2's 8 heads)."""
+    r = dryrun.run_one(arch, shape, mesh="16x16", save_dir=None,
+                       verbose=False)
+    assert r["traced"] == "rank 0 on meta"
+    assert r["flops"] > 0 and r["bytes"] > 0 and r["dominant"]
+    assert r["collectives_by_axis"]["model"]["collectives"] > 0
+    assert 0 < r["useful_flops_ratio"] <= 1

@@ -2,8 +2,9 @@
 """Run ``chip_smoke.py``'s ``expert_parallel:`` phase alone on one NVIDIA
 GPU, in a fresh process: build the kernels, then the phase (4 gloo ranks
 sharing the card, against one-rank runs of the same weights: the (1, 4)
-mesh, then the ``data_axis:`` run over (2, 2)). A quicker check of
-sharded serving than the whole smoke run.
+mesh, then the ``data_axis:`` run over (2, 2), then the ``ssm_mesh:``
+run of the Mamba archs on both). A quicker check of sharded serving than
+the whole smoke run.
 
     python3 tools/ep_phase.py      # from the repository root
 """
@@ -28,9 +29,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build {time.perf_counter() - t0:.1f}s", flush=True)
-    ep, data_axis = cs._expert_parallel_phase(torch.device("cuda"))
-    print(f"launches expert_parallel {ep} data_axis {data_axis}",
-          flush=True)
+    t0 = time.perf_counter()
+    ep, data_axis, ssm_mesh, ssm_s = cs._expert_parallel_phase(
+        torch.device("cuda"))
+    print(f"launches expert_parallel {ep} data_axis {data_axis} ssm_mesh "
+          f"{ssm_mesh}; phase {time.perf_counter() - t0:.1f}s, ssm_mesh "
+          f"{ssm_s}", flush=True)
     return 0
 
 

@@ -144,8 +144,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``_expert_parallel_phase``): reduced f32 qwen2_moe_a2p7b expert- and
      tensor-parallel, every rank's tokens, replay masks and modeled
      TTFT/TPOT equal to the one-rank CPU run; full-width OLMoE-1B-7B
-     ("4/2") through the launcher's ``--full --expert-parallel`` loop
-     (decode chunks of ``EP_CHUNK`` steps) in
+     ("4/2", 8 of its 16 layers) through the launcher's ``--full
+     --expert-parallel`` loop (decode chunks of ``EP_CHUNK`` steps) in
      f32 (tokens equal to the one-rank run) and bf16 (rows matching
      reported), each rank's routed store exactly 1/4 of the one-rank
      store and its K1/K2 launches equal to the one-rank run's; per rank:
@@ -160,7 +160,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bf16 (rows matching reported): each rank's routed store exactly 1/2
      of the one-rank store, its K1/K2 launches equal to the count worked
      out from its rows and chunks, its peak memory, eager ms a decode
-     step and collectives a step by axis with their seconds.
+     step and collectives a step by axis with their seconds. Then, still
+     in that world, the train step under a mesh (``train_mesh:`` line;
+     ``_train_mesh_rank``): (a) reduced f32 qwen3_0p6b, qwen2_moe_a2p7b
+     (expert- and tensor-parallel) and zamba2_1p2b on (1, 4), (2, 2) and
+     (4, 1), and with ZeRO-1 on (2, 2) and (4, 1), two steps from the
+     CPU-drawn params, every rank's loss, ce and aux, and its first
+     step's grad norm of every leaf, within rtol 1e-4 of the CPU one-rank
+     step; (b) full width, bf16, remat "block", ZeRO-1 on (2, 2):
+     OLMoE-1B-7B expert-parallel at 4 of its 16 layers and qwen3_0p6b at
+     full depth, 2 rows of 512 tokens a data rank, one warm-up and one
+     timed step: each rank's param and moment bytes exactly its spec
+     blocks and the dry run's ``argument_bytes``, losses finite and equal
+     on every rank; per rank step ms, peak memory and collectives a step
+     by axis with their seconds.
 
 The ``prefill_graph:`` line holds the six full-width prefill gates: the
 compiled prefill's eager protocol (``graphs=False``) against the
@@ -172,9 +185,11 @@ then a replay: logits, every ``DyMoEInfo`` leaf and every cache leaf
 memory the eager prefill takes above its baseline and the allocator's
 device calls during it, and the K1/K2 kernels a traced replay ran
 against the key's counted launches; then each engine's prefill keys,
-compile seconds and pool bytes. No serving phase is cut in depth; the
-train phase keeps 4 of OLMoE-1B-7B's 16 layers (memory) and one row of
-zamba2_1p2b (time), see ``TRAIN_FULL``.
+compile seconds and pool bytes. No one-rank serving phase is cut in
+depth; the ``expert_parallel`` world's full-width serving runs keep 8 of
+OLMoE-1B-7B's 16 layers and 12 of zamba2_1p2b's 38 (gloo's time, see
+``MESH_LAYERS``), the train phase 4 of OLMoE-1B-7B's 16 layers (memory)
+and one row of zamba2_1p2b (time), see ``TRAIN_FULL``.
 
 Before them, ``phases:`` gives each phase's seconds. The last lines are
 the card's name and power limit (nvidia-smi), one JSON line describing
@@ -3636,6 +3651,11 @@ def _train_phase(dev) -> dict:
 
 
 EP_RANKS = 4
+# layers kept in the full-width runs of the expert_parallel world (the
+# ranks' and the one-rank runs alike; every gate counts from the config's
+# depth): gloo's host transport makes a sharded step 0.5-4.4 s, and the
+# world's serving runs took 90-220 s of the script at full depth
+MESH_LAYERS = {"olmoe-1b-7b": 8, "zamba2-1.2b": 12}
 # the full-width loop of the expert_parallel phase: the launcher's flow
 EP_ARGV = ["--full", "--requests", "3", "--num-slots", "2", "--prompt-len",
            "64", "--max-new", "8"]
@@ -3649,8 +3669,8 @@ DA_REQUESTS = 4
 DA_NEW = 4        # new tokens a request: one admission wave, then one chunk
 DA_TOKENS = 32    # the reduced moe_apply_sharded case's tokens
 DA_TOL = 1e-4     # its card rows against the CPU's, atol and rtol
-# the ssm_mesh run in the same world: full-width zamba2 "4/2" (38 Mamba2
-# layers, 7 shared attention sites), tensor-parallel, through the
+# the ssm_mesh run in the same world: full-width zamba2 "4/2" (12 of its
+# 38 Mamba2 layers, 2 shared attention sites), tensor-parallel, through the
 # launcher's loop on (1, 4) and generate_batch on (2, 2), 4 x (64 + 4)
 # each; and reduced f32 Mamba1 and Mamba2 forward on both against the CPU
 SSM_ARGV = ["--arch", "zamba2-1.2b", "--full", "--requests", "4",
@@ -3658,6 +3678,26 @@ SSM_ARGV = ["--arch", "zamba2-1.2b", "--full", "--requests", "4",
 SSM_REDUCED = ("falcon_mamba_7b", "zamba2_1p2b")
 SSM_LIVE = (True, False, True, True)   # the reduced decode step's rows
 SSM_TOL = 1e-5    # the reduced cases' card blocks against the CPU's
+# the train_mesh run in the same world. (a) reduced f32 steps from the
+# CPU-drawn params on every mesh, with and without ZeRO-1 where "data"
+# splits something (``TM_ZERO1``), against the CPU one-rank step: the
+# metrics of every step and each leaf's grad norm at the first: (arch,
+# expert-parallel)
+TM_MESHES = {"1x4": {"data": 1, "model": EP_RANKS}, "2x2": DA_SHAPE,
+             "4x1": {"data": EP_RANKS, "model": 1}}
+TM_REDUCED = (("qwen3_0p6b", False), ("qwen2_moe_a2p7b", True),
+              ("qwen2_moe_a2p7b", False), ("zamba2_1p2b", False))
+TM_ZERO1 = ("2x2", "4x1")
+TM_STEPS = 2
+TM_LR = 1e-2
+TM_BATCH = (4, 32)    # the reduced steps' rows and tokens (global batch)
+TM_RTOL = 1e-4
+# (b) full width, bf16, remat "block", on (2, 2) with ZeRO-1: (arch,
+# layers kept or None for the published depth, expert-parallel). OLMoE at
+# 4 of 16 layers, as TRAIN_FULL: 4 ranks share the card
+TM_FULL = (("olmoe_1b_7b", 4, True), ("qwen3_0p6b", None, False))
+TM_ROWS = 2           # rows a data rank, of TRAIN_SEQ tokens
+TM_TIMED = 1          # timed steps, after one warm-up step
 
 
 def _ep_requests() -> list:
@@ -3708,11 +3748,17 @@ def _routed_bytes(engine) -> int:
 
 
 def _ep_get_config(launcher, dtype: str):
-    """``launcher.get_config`` with the config's dtype set to ``dtype``."""
+    """``launcher.get_config`` with the config's dtype set to ``dtype``
+    and its depth cut to ``MESH_LAYERS``."""
     import dataclasses
 
     real = launcher.get_config
-    return lambda name: dataclasses.replace(real(name), dtype=dtype)
+
+    def get(name):
+        cfg = real(name)
+        layers = MESH_LAYERS.get(cfg.name, cfg.num_layers)
+        return dataclasses.replace(cfg, dtype=dtype, num_layers=layers)
+    return get
 
 
 def _ep_engine(launcher, args, mesh=None):
@@ -3858,13 +3904,14 @@ def _da_full(engine, mesh=None) -> dict:
     return _counted_run(engine, mesh, serve)
 
 
-def _ep_rank(rank: int, device, cfg, reqs, fx, fx_ssm) -> dict:
+def _ep_rank(rank: int, device, cfg, reqs, fx, fx_ssm, fx_train) -> dict:
     """One of ``EP_RANKS`` gloo ranks sharing the card: the reduced gate
     (expert- and tensor-parallel engines on this rank's shards of weights
     drawn as the parent draws them), then the launcher's ``--full
     --expert-parallel`` flow in f32 and in bf16 over (1, 4), then the
     ``data_axis:`` run over (2, 2) (:func:`_data_axis_rank`), then the
-    ``ssm_mesh:`` run (:func:`_ssm_mesh_rank`)."""
+    ``ssm_mesh:`` run (:func:`_ssm_mesh_rank`), then the ``train_mesh:``
+    run (:func:`_train_mesh_rank`)."""
     import gc
 
     import torch
@@ -3915,6 +3962,11 @@ def _ep_rank(rank: int, device, cfg, reqs, fx, fx_ssm) -> dict:
     t0 = time.perf_counter()
     out["ssm_mesh"] = _ssm_mesh_rank(rank, device, launcher, fx_ssm, mesh)
     out["ssm_mesh"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["train_mesh"] = _train_mesh_rank(rank, device, fx_train)
+    out["train_mesh"]["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -4024,16 +4076,17 @@ def _expert_parallel_phase(dev) -> dict:
     the same weights. Reduced gate: f32 qwen2_moe_a2p7b (4 experts, 1
     shared) expert- and tensor-parallel — every rank's tokens, replay
     masks and modeled TTFT/TPOT equal the one-rank CPU run's. Full width:
-    olmoe_1b_7b "4/2" (16 layers, 64 experts: 16 a rank) through the
+    olmoe_1b_7b "4/2" (8 of 16 layers, 64 experts: 16 a rank) through the
     launcher's ``--full --expert-parallel`` open loop, in f32 (tokens
     gated equal to the one-rank run of the same requests) and bf16 (the
     match count reported: bf16 tokens depend on the batch); each rank's
     routed store exactly 1/4 of the one-rank store and its K1/K2 launches
-    equal the one-rank run's. Then, in the same world, the ``data_axis:``
-    and ``ssm_mesh:`` runs. Returns the launch counts of rank 0's bf16
-    run (the serving dtype), of the ``data_axis`` and ``ssm_mesh`` paths,
-    and the ``ssm_mesh`` run's seconds (its one-rank runs and fixture in
-    this process; its longest rank)."""
+    equal the one-rank run's. Then, in the same world, the ``data_axis:``,
+    ``ssm_mesh:`` and ``train_mesh:`` runs. Returns the launch counts of
+    rank 0's bf16 run (the serving dtype), of the ``data_axis`` and
+    ``ssm_mesh`` paths, and the ``ssm_mesh`` and ``train_mesh`` runs'
+    seconds (their one-rank runs and fixtures in this process; their
+    longest rank)."""
     import gc
 
     import torch
@@ -4063,12 +4116,15 @@ def _expert_parallel_phase(dev) -> dict:
                for dtype, run in runs.items()}
     ssm_parent_s = time.perf_counter() - t0
     one, one_da = _one_rank_runs(launcher, dev, EP_ARGV)
+    t0 = time.perf_counter()
+    fx_train = _train_mesh_fixture()
+    train_parent_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     parent_gib = (torch.cuda.memory_allocated() / 2 ** 30,
                   torch.cuda.memory_reserved() / 2 ** 30)
     t0 = time.perf_counter()
-    ranks = spawn(_ep_rank, EP_RANKS, cfg, reqs, fx, fx_ssm,
+    ranks = spawn(_ep_rank, EP_RANKS, cfg, reqs, fx, fx_ssm, fx_train,
                   device=str(dev), timeout_s=300.0)
     ranks_s = time.perf_counter() - t0
     per_rank, bf16_match = [], []
@@ -4109,9 +4165,13 @@ def _expert_parallel_phase(dev) -> dict:
     print("expert_parallel: " + json.dumps(summary), flush=True)
     ssm_s = dict(one_rank_s=ssm_parent_s,
                  ranks_s=max(r["ssm_mesh"]["seconds"] for r in ranks))
-    return (ranks[0]["bfloat16"]["launches"],
-            _data_axis_gates(ranks, one_da),
-            _ssm_mesh_gates(ranks, one_ssm, ssm_s), ssm_s)
+    train_s = dict(one_rank_s=train_parent_s,
+                   ranks_s=max(r["train_mesh"]["seconds"] for r in ranks))
+    launches = (ranks[0]["bfloat16"]["launches"],
+                _data_axis_gates(ranks, one_da),
+                _ssm_mesh_gates(ranks, one_ssm, ssm_s))
+    _train_mesh_gates(ranks, fx_train, train_s)
+    return launches + (ssm_s, train_s)
 
 
 def _da_fixture(cpu) -> dict:
@@ -4192,7 +4252,8 @@ def _data_axis_gates(ranks, one: dict) -> dict:
             for dtype in ("float32", "bfloat16")}))
     summary = dict(
         mesh=DA_SHAPE, ranks=EP_RANKS, backend="gloo",
-        config="olmoe_1b_7b 4/2 full width, full depth",
+        config=f"olmoe_1b_7b 4/2 full width, "
+               f"{MESH_LAYERS['olmoe-1b-7b']} of 16 layers",
         requests=dict(n=DA_REQUESTS, prompt=64, new=DA_NEW, slots=DA_REQUESTS,
                       slots_a_data_rank=DA_REQUESTS // n_data,
                       chunk=EP_CHUNK, entry="generate_batch"),
@@ -4395,7 +4456,7 @@ def _ssm_mesh_gates(ranks, one: dict, seconds: dict) -> dict:
     """The ``ssm_mesh:`` line: every rank's gates against the one-rank
     runs — f32 tokens equal; the packed store a rank exactly 1/4 (1, 4)
     or 1/2 (2, 2) of one rank's; K2 = 2 L a solo prefill and a decode
-    step (76 at full depth) on every rank, no K1, no compile; on (1, 4) every
+    step (24 at ``MESH_LAYERS``' 12) on every rank, no K1, no compile; on (1, 4) every
     rank's launches and prefills the one rank's, on (2, 2) its data
     ranks' prefills adding up to the one rank's; the reduced cases within
     ``SSM_TOL`` of the CPU — the bf16 rows that match (not gated), and per
@@ -4453,7 +4514,8 @@ def _ssm_mesh_gates(ranks, one: dict, seconds: dict) -> dict:
     summary = dict(
         meshes={"1x4": {"data": 1, "model": EP_RANKS}, "2x2": DA_SHAPE},
         ranks=EP_RANKS, backend="gloo",
-        config="zamba2_1p2b 4/2 full width, full depth, tensor-parallel",
+        config=f"zamba2_1p2b 4/2 full width, "
+               f"{MESH_LAYERS['zamba2-1.2b']} of 38 layers, tensor-parallel",
         entries={"1x4": "launcher --full --expert-parallel loop",
                  "2x2": "generate_batch"},
         requests=dict(n=4, prompt=64, new=4, slots=4, chunk=EP_CHUNK),
@@ -4467,6 +4529,330 @@ def _ssm_mesh_gates(ranks, one: dict, seconds: dict) -> dict:
         seconds=seconds, per_rank=per_rank)
     print("ssm_mesh: " + json.dumps(summary), flush=True)
     return ranks[0]["ssm_mesh"]["1x4_float32"]["launches"]
+
+
+def _train_mesh_fixture() -> dict:
+    """The ``train_mesh:`` reduced cases' inputs and the CPU one-rank
+    reference: for each arch of ``TM_REDUCED``, params drawn on the CPU
+    from seed 0 (f32, as numpy: a rank rebuilds them on the card),
+    ``TM_STEPS`` synthetic batches of ``TM_BATCH``, and each step's loss,
+    ce and aux of ``train_step_fn`` on one CPU rank (AdamW, lr
+    ``TM_LR``), and each leaf's grad norm at the first step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.models.model import init_params, train_step_fn
+    from repro_torch.training import AdamW, constant_lr
+    from repro_torch.tree import tree_map
+
+    out = {}
+    # tiny shapes: one intra-op thread (a pool of them spent ~30x the
+    # steps' time waking up on an 8-core host)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for arch in dict(TM_REDUCED):
+            cfg = get_config(arch).reduced()
+            params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+            gen = synthetic_lm_batches(DataConfig(*TM_BATCH,
+                                                  cfg.vocab_size))
+            batches = [next(gen) for _ in range(TM_STEPS)]
+            opt = _FirstGrads(AdamW(lr=constant_lr(TM_LR),
+                                    weight_decay=0.01))
+            step = train_step_fn(cfg, opt)
+            p, st, want = params, opt.init(params), []
+            for b in batches:
+                p, st, m = step(p, st, {k: torch.from_numpy(v)
+                                        for k, v in b.items()})
+                want.append({k: float(v) for k, v in m.items()})
+            out[arch] = dict(cfg=cfg, params=tree_map(lambda t: t.numpy(),
+                                                      params),
+                             batches=batches, want=want,
+                             grad_norms=opt.norms)
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def _grad_norms(grads, mesh=None) -> dict:
+    """{path: the whole leaf's grad norm} from this rank's grads: each
+    leaf's sum of squares in f64, a ``Shard``'s summed over the axes that
+    split it (one collective an axis)."""
+    import torch
+    from repro_torch.sharding.partition import Shard
+    from repro_torch.tree import tree_paths
+
+    sq, axes = {}, {}
+    for k, g in tree_paths(grads).items():
+        split = isinstance(g, Shard)
+        sq[k] = torch.sum(torch.square((g.local if split else g).double()))
+        axes[k] = ({a for ax in g.splits.values() for a in ax} if split
+                   else set())
+    for a in sorted(set().union(*axes.values())):
+        keys = [k for k in sq if a in axes[k]]
+        s = mesh.all_reduce(torch.stack([sq[k] for k in keys]), axis=a)
+        sq.update(zip(keys, s.unbind()))
+    return {k: math.sqrt(float(v)) for k, v in sq.items()}
+
+
+class _FirstGrads:
+    """An optimizer that keeps each leaf's grad norm (:func:`_grad_norms`)
+    of the first step it takes."""
+
+    def __init__(self, opt, mesh=None):
+        self.opt, self.mesh, self.norms = opt, mesh, None
+
+    def init(self, *args):
+        return self.opt.init(*args)
+
+    def update(self, params, grads, state):
+        if self.norms is None:
+            self.norms = _grad_norms(grads, self.mesh)
+        return self.opt.update(params, grads, state)
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes this rank holds of a tree of tensors and Shards."""
+    from repro_torch.sharding.spmd import local
+    from repro_torch.tree import tree_leaves
+    return sum(local(x).numel() * local(x).element_size()
+               for x in tree_leaves(tree))
+
+
+def _axis_delta(mesh, before: dict) -> dict:
+    """Collectives, their bytes and seconds by axis since ``before``."""
+    return {a: {k: v[k] - before[a][k] for k in ("collectives", "total",
+                                                 "seconds")}
+            for a, v in mesh.collectives_by_axis.items()}
+
+
+def _axis_snapshot(mesh) -> dict:
+    return {a: dict(v) for a, v in mesh.collectives_by_axis.items()}
+
+
+def _train_mesh_reduced(rank: int, device, fx, meshes) -> dict:
+    """(a) Each reduced case of ``TM_REDUCED`` on each mesh of
+    ``TM_MESHES``, and with ZeRO-1 on those of ``TM_ZERO1``: this rank's
+    blocks of the CPU-drawn params, its rows of each batch, ``TM_STEPS``
+    steps of ``train_step_fn(cfg, opt, mesh)``; each step's metrics and
+    the first step's grad norm of each leaf, and whether they are within
+    ``TM_RTOL`` of the CPU one-rank step's. The grad norms are what shows
+    a rank's grads the wrong size: Adam's first updates and the clip
+    scale them away from the losses."""
+    import torch
+    from repro_torch.models.model import train_step_fn
+    from repro_torch.sharding.partition import param_shardings, \
+        shard_tree, zero1_shardings
+    from repro_torch.training import AdamW, constant_lr
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for arch, ep in TM_REDUCED:
+        f = fx[arch]
+        whole = tree_map(lambda a: torch.from_numpy(a).to(device),
+                         f["params"])
+        for name, mesh in meshes.items():
+            lo, hi = mesh.batch_block(TM_BATCH[0])
+            for zero1 in (False, True)[:1 + (name in TM_ZERO1)]:
+                p = shard_tree(whole, param_shardings(
+                    whole, mesh, expert_parallel=ep), mesh)
+                opt = _FirstGrads(AdamW(lr=constant_lr(TM_LR),
+                                        weight_decay=0.01), mesh)
+                st = (opt.init(p, zero1_shardings(p, mesh,
+                                                  expert_parallel=ep), mesh)
+                      if zero1 else opt.init(p))
+                step = train_step_fn(f["cfg"], opt, mesh)
+                got = []
+                for b in f["batches"]:
+                    p, st, m = step(p, st, {
+                        k: torch.from_numpy(v[lo:hi]).to(device)
+                        for k, v in b.items()})
+                    got.append({k: float(v) for k, v in m.items()})
+                pairs = [(g[k], w[k]) for g, w in zip(got, f["want"])
+                         for k in w]
+                norms = [(opt.norms[k], w) for k, w in
+                         f["grad_norms"].items()]
+                assert opt.norms.keys() == f["grad_norms"].keys()
+                key = f"{arch}{'-ep' if ep else ''}/{name}" + \
+                    ("/zero1" if zero1 else "")
+                out[key] = dict(
+                    metrics=got, close=_within(pairs),
+                    max_rel=_max_rel(pairs),
+                    grad_norms_close=_within(norms),
+                    grad_norm_max_rel=_max_rel(norms),
+                    worst_leaf=max(f["grad_norms"], key=lambda k: abs(
+                        opt.norms[k] - f["grad_norms"][k])
+                        / max(f["grad_norms"][k], 1e-30)))
+                del p, st
+    return out
+
+
+def _within(pairs) -> bool:
+    """Every (got, want) within ``TM_RTOL`` of ``want``."""
+    return all(abs(g - w) <= TM_RTOL * abs(w) for g, w in pairs)
+
+
+def _max_rel(pairs) -> float:
+    return max(abs(g - w) / max(abs(w), 1e-30) for g, w in pairs)
+
+
+def _train_mesh_full(rank: int, device, mesh) -> dict:
+    """(b) Each full-width case of ``TM_FULL`` on ``mesh`` ((2, 2)) with
+    ZeRO-1, bf16, remat "block": this rank's blocks of seeded weights
+    (``init_sharded``) and of the AdamW moments, its ``TM_ROWS`` rows of
+    ``TRAIN_SEQ`` synthetic tokens a step, one warm-up step and
+    ``TM_TIMED`` timed ones (CUDA-synchronized host clock). The bytes it
+    holds of the params and moments, and those the dry run's
+    ``argument_bytes`` gives their spec trees on a mesh of this shape;
+    step ms, peak memory, collectives by axis over the timed steps, and
+    every step's loss."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import init_sharded, train_step_fn
+    from repro_torch.sharding.partition import param_shardings, \
+        zero1_shardings
+    from repro_torch.training import AdamW, cosine_lr
+
+    out = {}
+    for arch, layers, ep in TM_FULL:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        assert cfg.remat == "block" and cfg.dtype == "bfloat16", cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        card_free = torch.cuda.mem_get_info()[0] / 2 ** 30
+        t0 = time.perf_counter()
+        p, _ = init_sharded(cfg, torch.Generator(device=device).manual_seed(0),
+                            mesh, expert_parallel=ep, device=device,
+                            quantize=False)
+        opt = AdamW(lr=cosine_lr(3e-4, 20, 100), weight_decay=0.01)
+        st = opt.init(p, zero1_shardings(p, mesh, expert_parallel=ep), mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        meta = dryrun._meta_params(cfg)
+        moments = opt.init(meta)
+        z = zero1_shardings(meta, mesh, expert_parallel=ep)
+        held = dict(params=_tree_bytes(p),
+                    moments=_tree_bytes(st.mu) + _tree_bytes(st.nu))
+        want = dict(
+            params=dryrun.argument_bytes(
+                [meta], [param_shardings(meta, mesh, expert_parallel=ep)],
+                mesh),
+            moments=dryrun.argument_bytes([moments.mu, moments.nu], [z, z],
+                                          mesh))
+        del meta, moments
+        gen = synthetic_lm_batches(DataConfig(
+            TM_ROWS * mesh.data_size, TRAIN_SEQ, cfg.vocab_size, seed=0))
+        lo, hi = mesh.batch_block(TM_ROWS * mesh.data_size)
+        step = train_step_fn(cfg, opt, mesh)
+        losses, ms, by = [], [], None
+        for i in range(1 + TM_TIMED):
+            b = {k: torch.from_numpy(v[lo:hi]).to(device)
+                 for k, v in next(gen).items()}
+            if i == 1:
+                before = _axis_snapshot(mesh)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, st, m = step(p, st, b)
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+        by = _axis_delta(mesh, before)
+        out[arch] = dict(
+            layers=cfg.num_layers, expert_parallel=ep, zero1=True,
+            rows=(lo, hi), seq=TRAIN_SEQ, held=held, want=want,
+            init_s=init_s, step_ms=ms, loss=losses,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+            card_free_gib=card_free,
+            by_axis={a: dict(v, collectives=v["collectives"] / TM_TIMED,
+                             total=v["total"] / TM_TIMED,
+                             seconds=v["seconds"] / TM_TIMED)
+                     for a, v in by.items()})
+        del p, st, step
+    return out
+
+
+def _train_mesh_rank(rank: int, device, fx) -> dict:
+    """The ``train_mesh:`` run on this rank: the reduced cases on every
+    mesh of ``TM_MESHES`` (:func:`_train_mesh_reduced`), then the
+    full-width cases on (2, 2) (:func:`_train_mesh_full`). TF32 off, as
+    the parent has it."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {name: Mesh(shape, rank) for name, shape in TM_MESHES.items()}
+    t0 = time.perf_counter()
+    out = dict(reduced=_train_mesh_reduced(rank, device, fx, meshes),
+               coords=(meshes["2x2"].data_rank, meshes["2x2"].model_rank))
+    out["reduced_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["full"] = _train_mesh_full(rank, device, meshes["2x2"])
+    out["full_s"] = time.perf_counter() - t0
+    return out
+
+
+def _train_mesh_gates(ranks, fx, seconds: dict) -> None:
+    """The ``train_mesh:`` line. (a) every rank's reduced metrics and
+    first-step grad norms of every leaf within ``TM_RTOL`` of the CPU
+    one-rank step's, on every mesh, with and without ZeRO-1; (b) every rank's param and moment bytes exactly the
+    blocks of their specs, equal to the dry run's ``argument_bytes``, the
+    losses finite and equal on every rank; per rank its step ms, peak
+    memory and collectives a step by axis with their seconds."""
+    per_rank, worst, worst_norm = [], 0.0, 0.0
+    for r in ranks:
+        tm = r["train_mesh"]
+        for key, c in tm["reduced"].items():
+            assert c["close"], (r["rank"], key, c)
+            assert c["grad_norms_close"], (r["rank"], key, c)
+            worst = max(worst, c["max_rel"])
+            worst_norm = max(worst_norm, c["grad_norm_max_rel"])
+        for arch, c in tm["full"].items():
+            assert c["held"] == c["want"], (r["rank"], arch, c["held"],
+                                            c["want"])
+            assert all(map(math.isfinite, c["loss"])), (arch, c["loss"])
+            assert c["loss"] == ranks[0]["train_mesh"]["full"][arch]["loss"], \
+                (r["rank"], arch, c["loss"])
+        per_rank.append(dict(
+            rank=r["rank"], coords=tm["coords"], seconds=tm["seconds"],
+            reduced_s=tm["reduced_s"], full_s=tm["full_s"],
+            full={arch: {k: c[k] for k in (
+                "rows", "held", "init_s", "step_ms", "peak_gib",
+                "reserved_gib", "card_free_gib", "by_axis")}
+                for arch, c in tm["full"].items()}))
+    full0 = ranks[0]["train_mesh"]["full"]
+    summary = dict(
+        ranks=EP_RANKS, backend="gloo",
+        reduced=dict(
+            archs=[f"{a}{'-ep' if ep else ''}" for a, ep in TM_REDUCED],
+            meshes=TM_MESHES, zero1_on=TM_ZERO1, steps=TM_STEPS,
+            batch=TM_BATCH, lr=TM_LR, dtype="float32", rtol=TM_RTOL,
+            max_rel=worst, grad_norm_max_rel=worst_norm,
+            grad_norm_leaves={a: len(f["grad_norms"])
+                              for a, f in fx.items()}, cpu_loss={a: [m["loss"] for m in f["want"]]
+                                     for a, f in fx.items()},
+            equal=True),
+        full=dict(mesh=DA_SHAPE, zero1=True, dtype="bfloat16",
+                  remat="block", rows_a_data_rank=TM_ROWS, seq=TRAIN_SEQ,
+                  warmup=1, timed=TM_TIMED,
+                  cases={arch: dict(layers=c["layers"],
+                                    expert_parallel=c["expert_parallel"],
+                                    want_bytes=c["want"], loss=c["loss"])
+                         for arch, c in full0.items()},
+                  bytes_equal=True, losses_equal=True),
+        seconds=seconds, per_rank=per_rank)
+    print("train_mesh: " + json.dumps(summary), flush=True)
 
 
 class _Marks:
@@ -4566,10 +4952,12 @@ def main() -> int:
     by_path["train_serve"] = _train_phase(dev)
     mark("train")
     by_path["expert_parallel"], by_path["data_axis"], \
-        by_path["ssm_mesh"], ssm_s = _expert_parallel_phase(dev)
+        by_path["ssm_mesh"], ssm_s, train_s = _expert_parallel_phase(dev)
     mark("expert_parallel")
     mark.seconds["ssm_mesh_in_expert_parallel"] = \
         ssm_s["one_rank_s"] + ssm_s["ranks_s"]
+    mark.seconds["train_mesh_in_expert_parallel"] = \
+        train_s["one_rank_s"] + train_s["ranks_s"]
     print("phases: " + json.dumps(mark.seconds), flush=True)
 
     kernels = []

@@ -38,12 +38,16 @@ it whole. A one-mask MoE site of a split batch gathers its tokens over
 "data" and runs as one rank would, or, with ``local_dispatch``
 (``moe_dispatch_axes`` over the batch axes), dispatches a rank's own
 groups and sums its statistics over "data" (``models/model.py``). The
-train step on a mesh of more than one rank carries memory only: training
-under a mesh is a later slice of the port (ROADMAP.md). The port has no
-layer scan: a trace holds every layer, so a deep config whose one-layer
-trace predicts more than ``FULL_TRACE_S`` seconds for full depth is
-traced at depth 1 and at a probe depth, and its terms extrapolated
-linearly (:func:`_extrapolate`).
+train step is traced so too: rank 0's forward and backward on its blocks
+of the weights and its rows of the batch, its grads summed over "data",
+and AdamW on its blocks of the moments (``param_shardings``, or with
+``zero1`` also split over "data", the param slices then gathered back
+over "data"); the backward's collectives, and with remat the recomputed
+forward's, count as the forward's do. The port has no layer scan: a
+trace holds every layer, so a deep config whose one-layer trace predicts
+more than ``FULL_TRACE_S`` seconds for full depth is traced at depth 1
+and at a probe depth, and its terms extrapolated linearly
+(:func:`_extrapolate`).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmoe-1b-7b \\
@@ -198,10 +202,9 @@ def build_specs(cfg: ModelConfig, shape: str, mesh: Mesh,
             "tokens": torch.zeros((b, s), dtype=torch.int32, device=_META),
             "labels": torch.zeros((b, s), dtype=torch.int32, device=_META),
         }
-        train = train_step_fn(cfg, opt)
-
         def step(params, moments, batch, mesh=None):
-            return train(params, AdamWState(**moments), batch)
+            return train_step_fn(cfg, opt, mesh)(
+                params, AdamWState(**moments), batch)
 
         return (cfg, step, (params, moments, batch),
                 (p_shard, o_shard, {k: batched(v) for k, v in batch.items()}))
@@ -291,8 +294,12 @@ def _trace_step(cfg0: ModelConfig, shape: str, mesh: Mesh,
     traced_mesh = Mesh(mesh.shape)           # fresh payload counters
     run_mesh = None
     if traced_mesh.size > 1:
-        args = tuple(a if sp is None else shard_tree(a, sp, traced_mesh)
-                     for a, sp in zip(args, shardings))
+        # the train step's moments (its second argument) are Shards
+        # wherever split, over the data axes alone (ZeRO-1) too
+        train = SHAPES[shape]["phase"] == "train"
+        args = tuple(a if sp is None else shard_tree(
+            a, sp, traced_mesh, shard_all=train and i == 1)
+            for i, (a, sp) in enumerate(zip(args, shardings)))
         run_mesh = traced_mesh.for_batch(SHAPES[shape]["global_batch"])
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as fc:
@@ -330,8 +337,8 @@ def run_one(arch: str, shape: str, *, mesh: str = "1x1",
             save_dir: Optional[str] = "build/dryrun",
             verbose: bool = True, opts: tuple = ()) -> Dict[str, Any]:
     """One record: memory a rank on ``mesh`` and on the production
-    meshes, and rank 0's traced step's terms on ``mesh`` (memory only for
-    the train step on more than one rank; see the module docstring)."""
+    meshes, and rank 0's traced step's terms on ``mesh`` (the module
+    docstring)."""
     m = Mesh(MESHES[mesh])
     n_chips = m.size
     cfg0 = get_config(arch)
@@ -350,7 +357,6 @@ def run_one(arch: str, shape: str, *, mesh: str = "1x1",
                                                              pm)
     del args
 
-    traceable = not (info["phase"] == "train" and m.size > 1)
     result: Dict[str, Any] = dict(
         arch=arch, shape=shape, mesh=mesh, chips=n_chips,
         expert_parallel=expert_parallel, opts=list(opts),
@@ -359,59 +365,46 @@ def run_one(arch: str, shape: str, *, mesh: str = "1x1",
     tokens = (info["global_batch"] * info["seq_len"]
               if info["phase"] != "decode" else info["global_batch"])
     mf = model_flops_estimate(cfg, tokens=tokens, phase=info["phase"])
-    if not traceable:
-        why = ("training under a mesh is a later slice of the port "
-               "(ROADMAP.md): no traced terms for the train step on a "
-               "mesh of more than one rank")
-        mem.update(output_bytes=None, temp_bytes=None, peak_bytes=None)
-        result.update(lower_s=None, compile_s=None, memory=mem,
-                      collectives=None, collectives_by_axis=None,
-                      model_flops=mf,
-                      useful_flops_ratio=None, flops=None, bytes=None,
-                      collective_bytes=None, t_compute_s=None,
-                      t_memory_s=None, t_collective_s=None, dominant=None,
-                      traced=why, depth=None)
+    lf = cfg0.num_layers
+    l_probe = min(max(2, 2 * (cfg0.shared_attn_every or 1)), lf)
+    one = _trace_step(cfg0, shape, m, expert_parallel, opts, 1)
+    if lf <= l_probe or one["seconds"] * lf <= FULL_TRACE_S:
+        full = _trace_step(cfg0, shape, m, expert_parallel, opts)
+        depth = f"full ({lf} layers)"
     else:
-        lf = cfg0.num_layers
-        l_probe = min(max(2, 2 * (cfg0.shared_attn_every or 1)), lf)
-        one = _trace_step(cfg0, shape, m, expert_parallel, opts, 1)
-        if lf <= l_probe or one["seconds"] * lf <= FULL_TRACE_S:
-            full = _trace_step(cfg0, shape, m, expert_parallel, opts)
-            depth = f"full ({lf} layers)"
-        else:
-            probe = _trace_step(cfg0, shape, m, expert_parallel, opts,
-                                l_probe)
-            full = dict(probe, seconds=one["seconds"] + probe["seconds"])
-            for k in ("flops", "bytes", "temp_bytes"):
-                full[k] = _extrapolate(one[k], probe[k], l_probe, lf)
-            full["coll"] = {k: int(_extrapolate(one["coll"][k],
-                                                probe["coll"][k], l_probe,
-                                                lf))
-                            for k in one["coll"]}
-            full["coll_axis"] = {
-                a: {k: int(_extrapolate(v, probe["coll_axis"][a][k],
-                                        l_probe, lf))
-                    for k, v in one["coll_axis"][a].items()}
-                for a in one["coll_axis"]}
-            depth = f"extrapolated from depths 1 and {l_probe} to {lf}"
-        coll = full["coll"]
-        terms = roofline_terms({"flops": full["flops"],
-                                "bytes accessed": full["bytes"]},
-                               coll["total"], hw)
-        mem.update(output_bytes=full["output_bytes"],
-                   temp_bytes=int(full["temp_bytes"]),
-                   peak_bytes=mem["argument_bytes"]
-                   + int(full["temp_bytes"]))
-        total = terms["flops"] * n_chips
-        result.update(
-            lower_s=full["seconds"], compile_s=None, memory=mem,
-            collectives=coll, collectives_by_axis=full["coll_axis"],
-            model_flops=mf,
-            useful_flops_ratio=(mf / total if total else 0.0),
-            **terms, traced="rank 0 on meta", depth=depth,
-            bytes_source="op trace: each op outside a kernel call reads "
-                         "its inputs and writes its outputs once, each "
-                         "kernel call its operands and result")
+        probe = _trace_step(cfg0, shape, m, expert_parallel, opts,
+                            l_probe)
+        full = dict(probe, seconds=one["seconds"] + probe["seconds"])
+        for k in ("flops", "bytes", "temp_bytes"):
+            full[k] = _extrapolate(one[k], probe[k], l_probe, lf)
+        full["coll"] = {k: int(_extrapolate(one["coll"][k],
+                                            probe["coll"][k], l_probe,
+                                            lf))
+                        for k in one["coll"]}
+        full["coll_axis"] = {
+            a: {k: int(_extrapolate(v, probe["coll_axis"][a][k],
+                                    l_probe, lf))
+                for k, v in one["coll_axis"][a].items()}
+            for a in one["coll_axis"]}
+        depth = f"extrapolated from depths 1 and {l_probe} to {lf}"
+    coll = full["coll"]
+    terms = roofline_terms({"flops": full["flops"],
+                            "bytes accessed": full["bytes"]},
+                           coll["total"], hw)
+    mem.update(output_bytes=full["output_bytes"],
+               temp_bytes=int(full["temp_bytes"]),
+               peak_bytes=mem["argument_bytes"]
+               + int(full["temp_bytes"]))
+    total = terms["flops"] * n_chips
+    result.update(
+        lower_s=full["seconds"], compile_s=None, memory=mem,
+        collectives=coll, collectives_by_axis=full["coll_axis"],
+        model_flops=mf,
+        useful_flops_ratio=(mf / total if total else 0.0),
+        **terms, traced="rank 0 on meta", depth=depth,
+        bytes_source="op trace: each op outside a kernel call reads "
+                     "its inputs and writes its outputs once, each "
+                     "kernel call its operands and result")
     if verbose:
         print(json.dumps(result, indent=2, default=str))
     if save_dir:

@@ -35,6 +35,29 @@ negation. Ranks whose host decisions diverged then raise
 timeout). A rank that issues no collective at all is caught by the
 process group's timeout.
 
+**Gradients.** The train step computes one global loss: every rank of a
+"model" sub-group holds it whole, and each data rank holds the part of it
+that its rows give (the data ranks' grads are summed at the end of the
+step). The collectives carry adjoints that keep to this, as
+``torch.autograd.Function``s, which run only when an input requires grad
+(the no-grad path is the in-place one above, unchanged):
+
+  * ``all_reduce`` SUM of partial products: the identity backward (the
+    grad of the sum is already whole on every rank);
+  * the exact gathers: over "model", this rank's block of the grad; over
+    "data", this rank's block of the grad summed over "data" (the gathered
+    tensor's grad is each data rank's part);
+  * :meth:`Mesh.enter`: the identity forward and a SUM over the axis
+    backward, where a tensor whole on every "model" rank starts computing
+    on this rank's block (its grad there is this block's part);
+  * :meth:`Mesh.count_once`: the identity forward; the backward keeps the
+    grad on the axis's first rank only, for a term whole on every data
+    rank that enters the summed objective once.
+
+Backward collectives are counted as forward ones are. The backward works
+on copies: ``all_reduce`` writes in place, and a tensor autograd saved
+must not change.
+
 Builders are functions, as in the JAX package: importing this module
 touches no process group.
 """
@@ -325,8 +348,70 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor, op: str = "sum", *,
                    axis: str = "model") -> torch.Tensor:
         """In-place ``all_reduce`` of ``t`` (``op`` "sum" or "max") over
-        ``axis``; returns ``t``."""
+        ``axis``; returns ``t``. A SUM of a ``t`` that requires grad is
+        out of place, with the identity backward."""
+        if self.axis_size(axis) > 1 and _wants_grad(t):
+            if op != "sum":
+                raise NotImplementedError(
+                    f"all_reduce {op!r} has no adjoint: only SUM carries "
+                    f"grads")
+            return _Sum.apply(self, axis, t)
         return self._run(op, t, "all-reduce", axis)
+
+    def enter(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """``t``, whole on every rank of ``axis``, where it starts
+        computing on this rank's block (the input of a column split, a
+        slice of this rank's columns or channels): the identity, whose
+        backward sums the ranks' partial grads of ``t`` over ``axis``.
+        ``t`` itself when no grad is taken."""
+        if self.axis_size(axis) == 1 or not _wants_grad(t):
+            return t
+        return _Enter.apply(self, axis, t)
+
+    def count_once(self, t: torch.Tensor, axis: str = "data") -> torch.Tensor:
+        """``t``, whole on every rank of ``axis``, as a term of an
+        objective whose parts are summed over ``axis``: the identity,
+        whose backward passes the grad on the axis's rank 0 and zeros
+        elsewhere, so the sum counts it once."""
+        if self.axis_size(axis) == 1 or not _wants_grad(t):
+            return t
+        return _Once.apply(self.axis_rank(axis) == 0, t)
+
+    def sum_flat(self, ts: Sequence[torch.Tensor], *,
+                 axis: str = "data") -> List[torch.Tensor]:
+        """Each of ``ts`` summed over ``axis``, through one ``all_reduce``
+        a dtype of a flat buffer in that dtype; the results are views of
+        the buffers, ``ts`` unchanged."""
+        ts = list(ts)
+        if self.axis_size(axis) == 1:
+            return ts
+        out: List[torch.Tensor] = [None] * len(ts)
+        groups: Dict[torch.dtype, List[int]] = {}
+        for i, t in enumerate(ts):
+            groups.setdefault(t.dtype, []).append(i)
+        for dtype, idx in groups.items():
+            buf = torch.empty(sum(ts[i].numel() for i in idx), dtype=dtype,
+                              device=ts[idx[0]].device)
+            views, off = [], 0
+            for i in idx:
+                n = ts[i].numel()
+                views.append(buf[off:off + n].view(ts[i].shape))
+                views[-1].copy_(ts[i].detach())
+                off += n
+            self._run("sum", buf, "all-reduce", axis)
+            for i, v in zip(idx, views):
+                out[i] = v
+        return out
+
+    def all_gather_into(self, whole: torch.Tensor, *,
+                        axis: str = "data") -> torch.Tensor:
+        """``whole``, zero but for the block this rank wrote (each
+        position written by one rank of ``axis``: a ZeRO-1 param slice),
+        made whole on every rank in place: the exact gather of
+        :meth:`all_gather`, on a contiguous buffer the caller filled."""
+        if self.axis_size(axis) > 1:
+            self._sum_exact(whole, axis)
+        return whole
 
     def broadcast(self, t: torch.Tensor, *,
                   axis: str = "model") -> torch.Tensor:
@@ -345,9 +430,15 @@ class Mesh:
                         axis: str = "model") -> List[torch.Tensor]:
         """:meth:`all_gather` of several blocks (one dtype, one shape but
         along ``dim``) through ONE collective."""
-        n, r = self.axis_size(axis), self.axis_rank(axis)
-        if n == 1:
+        if self.axis_size(axis) == 1:
             return list(ts)
+        if _wants_grad(*ts):
+            return list(_Gather.apply(self, axis, dim % ts[0].dim(), *ts))
+        return self._gather_many(ts, dim, axis)
+
+    def _gather_many(self, ts: Sequence[torch.Tensor], dim: int,
+                     axis: str) -> List[torch.Tensor]:
+        n, r = self.axis_size(axis), self.axis_rank(axis)
         dim = dim % ts[0].dim()
         widths = [t.shape[dim] for t in ts]
         shape = list(ts[0].shape)
@@ -373,6 +464,12 @@ class Mesh:
         if self.axis_size(axis) == 1:
             assert len(rows) == n, (len(rows), n)
             return t
+        if _wants_grad(t):
+            return _GatherRows.apply(self, axis, tuple(rows), n, t)
+        return self._gather_rows(t, rows, n, axis)
+
+    def _gather_rows(self, t: torch.Tensor, rows: Sequence[int], n: int,
+                     axis: str) -> torch.Tensor:
         buf = torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype,
                           device=t.device)
         if len(rows):
@@ -419,6 +516,111 @@ class Mesh:
         dist.broadcast(buf, src=src, group=group)
         self._tally["world"]["seconds"] += time.perf_counter() - t0
         return obj if mine else pickle.loads(buf.cpu().numpy().tobytes())
+
+
+# ---------------------------------------------------------------- autograd
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy for an in-place collective (never a tensor
+    autograd saved or handed over)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _grad_sum(mesh: Mesh, axis: str,
+              gs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Over "data" the grads of a gathered tensor are each data rank's
+    part: summed over the axis, through one collective. Over "model" they
+    are whole on every rank already."""
+    if axis != "data":
+        return list(gs)
+    flat = mesh._run("sum", torch.cat([g.reshape(-1) for g in gs]),
+                     "all-reduce", axis)
+    return [part.view(g.shape) for part, g in
+            zip(torch.split(flat, [g.numel() for g in gs]), gs)]
+
+
+class _Sum(torch.autograd.Function):
+    """``all_reduce`` SUM of partial products, out of place; backward: the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, t):
+        return mesh._run("sum", _fresh(t), "all-reduce", axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g
+
+
+class _Enter(torch.autograd.Function):
+    """The identity; backward: SUM over the axis."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, t):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.mesh._run("sum", _fresh(g), "all-reduce",
+                                         ctx.axis)
+
+
+class _Once(torch.autograd.Function):
+    """The identity; backward: the grad where ``keep``, else zeros."""
+
+    @staticmethod
+    def forward(ctx, keep, t):
+        ctx.keep = keep
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, (g if ctx.keep else torch.zeros_like(g))
+
+
+class _Gather(torch.autograd.Function):
+    """:meth:`Mesh.all_gather_many`; backward: this rank's block of each
+    grad (over "data", of the grads summed over "data")."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *ts):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.widths = [t.shape[dim] for t in ts]
+        outs = mesh._gather_many(ts, dim, axis)
+        # separate tensors: a Function's outputs that are views of one
+        # buffer may not be modified in place later
+        return tuple(outs) if len(outs) == 1 else \
+            tuple(o.contiguous() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        r = ctx.mesh.axis_rank(ctx.axis)
+        gs = _grad_sum(ctx.mesh, ctx.axis, gs)
+        return (None, None, None) + tuple(
+            g.narrow(ctx.dim, r * w, w) for g, w in zip(gs, ctx.widths))
+
+
+class _GatherRows(torch.autograd.Function):
+    """:meth:`Mesh.all_gather_rows`; backward: this rank's rows of the
+    grad (over "data", of the grad summed over "data")."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, rows, n, t):
+        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, rows
+        return mesh._gather_rows(t, rows, n, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        g, = _grad_sum(ctx.mesh, ctx.axis, [g])
+        idx = torch.as_tensor(list(ctx.rows), dtype=torch.int64,
+                              device=g.device)
+        return None, None, None, None, g.index_select(0, idx)
 
 
 # ---------------------------------------------------------------- builders

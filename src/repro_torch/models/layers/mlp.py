@@ -7,8 +7,9 @@ packed codes of the precision a per-layer criticality flag selects, each
 matmul one K2 launch through ``quant/mixed.py``'s 1-expert lift.
 
 Under a mesh (``sharding/spmd.py``) the float FFN is a Megatron pair (its
-input products stay local, one SUM ends ``w_down``) and the quantized one
-runs each K2 on its local N rows and gathers the output.
+input products stay local, one SUM ends ``w_down``; under grads its input
+enters the pair through ``Mesh.enter``) and the quantized one runs each
+K2 on its local N rows and gathers the output.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ def _act(cfg: ModelConfig, mm, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = spmd.enter_cols(x, p["w_up"])
     h = _act(cfg, lambda name, h: h @ spmd.local(p[name]), x)
     h = spmd.to_down(h, p["w_up"], p["w_down"])
     return spmd.from_down(h @ spmd.local(p["w_down"]), p["w_down"])

@@ -18,6 +18,12 @@ packed-expert matmuls, and gathered back weighted by their gates.
   * ``moe_apply_prefill_rows`` — the batched admission wave: the same
     combined buffer at prefill shapes, with per-row solo capacities.
 
+Under grads (the train step) the expert inputs enter a rank's experts or
+columns through ``Mesh.enter`` and the gathers carry their adjoints
+(``launch/mesh.py``); ``moe_apply_sharded``'s gather over "data" sums the
+data ranks' grads of the gathered tokens, so the router losses, computed
+from the whole batch's statistics, reach every rank's rows.
+
 Under a mesh (``sharding/spmd.py``) the routed stores may be split over
 E (expert-parallel: a rank runs its E/n experts, then the (E, M, dm)
 output is gathered exactly, so the combine is the one-device combine) or
@@ -134,9 +140,11 @@ def _expert_swiglu(ws: dict, xb: torch.Tensor, mm) -> torch.Tensor:
     blk = _expert_block(ws["w_gate"])
     if blk is not None:
         mesh, lo, hi = blk
-        y = _swiglu(lambda name, h: mm(name, h, lo, hi), xb[lo:hi])
+        y = _swiglu(lambda name, h: mm(name, h, lo, hi),
+                    mesh.enter(xb)[lo:hi])
         return mesh.all_gather(y.contiguous(), 0)
     e = xb.shape[0]
+    xb = spmd.enter_cols(xb, ws["w_up"])
     h = F.silu(mm("w_gate", xb, 0, e)) * mm("w_up", xb, 0, e)
     h = spmd.to_down(h, ws["w_up"], ws["w_down"])
     return spmd.from_down(mm("w_down", h, 0, e), ws["w_down"])
@@ -188,6 +196,7 @@ def _shared_experts(p, x: torch.Tensor) -> torch.Tensor:
     """Always-active shared experts (Qwen2-MoE): (T, dm) -> (T, dm); under
     a mesh a Megatron pair over d_ff (one SUM)."""
     up, down = p["shared_w_up"], p["shared_w_down"]
+    x = spmd.enter_cols(x, up)
     hs = F.silu(torch.einsum("td,edf->etf", x,
                              spmd.local(p["shared_w_gate"])))
     hs = hs * torch.einsum("td,edf->etf", x, spmd.local(up))

@@ -38,6 +38,12 @@ whose output is gathered. Which block a rank holds is read from its
 ``Shard`` weights (its cache's blocks are those of ``conv_w`` and
 ``d_skip``), never inferred from sizes. With nothing split, every block
 is the whole and no collective runs: the one-device program.
+
+Under grads (the train step, ``cache`` None) a tensor whole on every rank
+passes through ``Mesh.enter`` where a rank narrows it to its block (its
+conv channels, scanned channels or heads, a weight it holds whole), and
+the SUMs and gathers carry their adjoints (``launch/mesh.py``): so the
+grad of every tensor whole on the "model" ranks is whole there too.
 """
 from __future__ import annotations
 
@@ -184,12 +190,15 @@ def _take(t: torch.Tensor, have: Tuple[int, int], want: Tuple[int, int],
           mesh, dim: int = -1) -> torch.Tensor:
     """Block ``want`` of a dim of which ``t`` holds block ``have`` (this
     rank's "model" block, or the whole): a view when it holds it, else
-    the exact gather of the blocks over "model" first."""
+    the exact gather of the blocks over "model" first. A whole ``t``
+    narrowed to a block enters the rank's block (``Mesh.enter``)."""
     if want == have:
         return t
     if not (have[0] <= want[0] and want[1] <= have[1]):
         t = mesh.all_gather(t, dim)
         have = (0, t.shape[dim])
+    if have == (0, t.shape[dim]) and want != have:
+        t = mesh.enter(t)
     return t.narrow(dim, want[0] - have[0], want[1] - want[0])
 
 
@@ -325,6 +334,8 @@ def _mamba1_abc(p, cfg: ModelConfig, xc: torch.Tensor, cb, sb, mesh):
     (dt, a, bmat, cmat); dt and a over the scanned channels ``sb``."""
     n, r, di = cfg.ssm_state, cfg.dt_rank_actual, cfg.d_inner
     dbc = _proj_rows(xc, cb, p["x_proj"], mesh).to(torch.float32)
+    if sb != (0, di):       # whole; dt, B and C feed this rank's channels
+        dbc = mesh.enter(dbc)
     dt_low, bmat, cmat = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
     dt = _softplus(dt_low @ _w(p["dt_proj"], sb, di, mesh, 1)
                    .to(torch.float32)
@@ -435,9 +446,11 @@ def _mamba2_heads(cfg: ModelConfig, p, proj: torch.Tensor, conv,
     conv_out, conv_state = conv(_take(torch.cat([xin, bmat, cmat], dim=-1),
                                       (0, cw), cb, mesh))
     conv_out = _take(conv_out, cb, (0, cw), mesh)
-    xc, bmat, cmat = (conv_out[..., :di], conv_out[..., di:di + n],
-                      conv_out[..., di + n:])
     hb = _scan_block(cfg, cache, p)
+    bc = conv_out[..., di:]
+    if hb != (0, hh):       # whole; B and C feed this rank's heads
+        bc = mesh.enter(bc)
+    xc, bmat, cmat = conv_out[..., :di], bc[..., :n], bc[..., n:]
     dt = _softplus(_take(dt_low, (0, hh), hb, mesh).to(torch.float32)
                    + _w(p["dt_bias"], hb, hh, mesh))        # (..., h)
     a = -torch.exp(_w(p["a_log"], hb, hh, mesh))            # (h,)
@@ -471,7 +484,8 @@ def _gate_out(p, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
     if gb == (0, di):
         var = (x * x).mean(dim=-1, keepdim=True)
     else:
-        var = mesh.all_reduce((x * x).sum(dim=-1, keepdim=True), "sum") / di
+        var = mesh.enter(mesh.all_reduce((x * x).sum(dim=-1, keepdim=True),
+                                         "sum")) / di
     ob = out.block()
     y = _take(x * (var + cfg.norm_eps) ** -0.5, gb, ob, mesh)
     y = (y * _w(scale, ob, di, mesh).to(torch.float32)).to(dtype)

@@ -63,6 +63,16 @@ over "data" (:func:`_site_split`). SSM blocks run on the rank's blocks of
 the Mamba weights and states, bridged by collectives over "model"
 (``layers/ssm.py``); the hybrid's shared sites run as dense attention
 layers do, over KV caches whose slots are split over "model".
+
+The train step runs under a mesh too (:func:`forward`, :func:`loss_fn`,
+:func:`train_step_fn` given ``mesh``): a rank computes on its blocks of
+the weights and its rows of the batch, every rank of a "model" sub-group
+holds the one global loss whole, and each data rank's grads are its rows'
+part of it, summed over ("pod", "data") at the end of the step. The
+collectives carry the matching adjoints (``launch/mesh.py``); the MoE
+sites gather their tokens over "data" as inference does, so the router
+losses come from the whole batch, and enter the objective once
+(``Mesh.count_once``).
 """
 from __future__ import annotations
 
@@ -93,7 +103,7 @@ from repro_torch.models.layers.ssm import init_mamba, init_ssm_cache, \
     mamba_decode, mamba_prefill
 from repro_torch.quant.qtensor import MixedPrecisionWeights
 from repro_torch.sharding import spmd
-from repro_torch.sharding.partition import model_split
+from repro_torch.sharding.partition import Shard, model_split
 from repro_torch.tree import tree_map
 
 __all__ = ["init_params", "init_sharded", "quantize_model", "forward",
@@ -534,11 +544,15 @@ def _unbind_layers(tree, n: int) -> List[dict]:
     if isinstance(tree, dict):
         parts = {k: _unbind_layers(v, n) for k, v in tree.items()}
         return [{k: parts[k][l] for k in tree} for l in range(n)]
+    if isinstance(tree, Shard):
+        splits = {d - 1: a for d, a in tree.splits.items()}
+        return [Shard(t, splits, tree.mesh)
+                for t in torch.unbind(tree.local, 0)]
     return list(torch.unbind(tree, 0))
 
 
 def _train_block(params, cfg: ModelConfig, kind: str, shared: bool,
-                 lp: dict, x: torch.Tensor, aux: torch.Tensor):
+                 lp: dict, x: torch.Tensor, aux: torch.Tensor, mesh=None):
     """One layer of :func:`forward` (the hybrid's shared block first
     where it runs); returns (x, aux)."""
     if shared:
@@ -546,7 +560,8 @@ def _train_block(params, cfg: ModelConfig, kind: str, shared: bool,
     if kind == "ssm":
         # a fresh zero state a call, as the reference's init_ssm_cache
         y, _ = mamba_prefill(lp["ssm"], cfg,
-                             rmsnorm(lp["norm1"], x, cfg.norm_eps), None)
+                             rmsnorm(lp["norm1"], x, cfg.norm_eps), None,
+                             mesh)
         return x + y, aux
     a, _, _ = attention_train(lp["attn"], cfg,
                               rmsnorm(lp["norm1"], x, cfg.norm_eps))
@@ -555,17 +570,23 @@ def _train_block(params, cfg: ModelConfig, kind: str, shared: bool,
     if kind == "attn_dense":
         return x + mlp(lp["mlp"], cfg, h), aux
     b, s, _ = h.shape
-    y, stats = moe_apply_sharded(lp["moe"], cfg, h.reshape(b * s, -1))
+    y, stats = moe_apply_sharded(lp["moe"], cfg, h.reshape(b * s, -1),
+                                 mesh=mesh)
     return x + y.reshape(b, s, -1), aux + stats.aux_loss
 
 
 def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
-            *, embeds: Optional[torch.Tensor] = None
+            *, embeds: Optional[torch.Tensor] = None, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward. Returns (logits (B,S,V) f32, aux_loss scalar: the
     MoE router losses summed over the layers). ``cfg.remat == "block"``
     recomputes each block in the backward pass (``jax.checkpoint``'s
-    counterpart, non-reentrant activation checkpointing)."""
+    counterpart, non-reentrant activation checkpointing; a block's
+    collectives are issued again then). ``mesh``: run as one rank of it,
+    on its blocks of the weights and its rows of the batch (the module
+    docstring); the logits are this rank's rows, the aux loss the whole
+    batch's."""
+    _check_mesh(cfg, mesh)
     x = _embed(params, cfg, tokens, embeds)
     kind = cfg.block_kinds()[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -573,53 +594,77 @@ def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     for lp, shared in zip(layers, _shared_flags(cfg)):
         if cfg.remat == "block":
             x, aux = checkpoint(_train_block, params, cfg, kind, shared, lp,
-                                x, aux, use_reentrant=False)
+                                x, aux, mesh, use_reentrant=False)
         else:
-            x, aux = _train_block(params, cfg, kind, shared, lp, x, aux)
+            x, aux = _train_block(params, cfg, kind, shared, lp, x, aux,
+                                  mesh)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _lm_head(params, cfg, x), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked mean next-token NLL plus the router losses; returns (loss,
     {"ce", "aux"}). ``batch``: "tokens" (or "embeds"), "labels", and an
-    optional "loss_mask"."""
+    optional "loss_mask".
+
+    ``mesh`` (its data axes above 1): ``batch`` holds this rank's rows of
+    the global batch, and the mean is the global batch's — the rank's
+    NLL sum and mask count summed over "data" (the mask a constant), so
+    the value is whole on every rank and its grads reach this rank's rows
+    only; the router losses, whole on every rank, enter the grads of data
+    rank 0 alone (``Mesh.count_once``), so the data ranks' sum counts
+    them once."""
     logits, aux = forward(params, cfg, batch.get("tokens"),
-                          embeds=batch.get("embeds"))
+                          embeds=batch.get("embeds"), mesh=mesh)
     labels = batch["labels"].to(torch.int64)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
-    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return ce + aux, {"ce": ce, "aux": aux}
+    if mesh is None or mesh.data_size == 1:
+        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return ce + aux, {"ce": ce, "aux": aux}
+    sums = mesh.all_reduce(torch.stack([(nll * mask).sum(),
+                                        mask.sum().detach()]), axis="data")
+    ce = sums[0] / torch.clamp(sums[1], min=1.0)
+    return ce + mesh.count_once(aux), {"ce": ce, "aux": aux}
 
 
-def train_step_fn(cfg: ModelConfig, optimizer):
+def train_step_fn(cfg: ModelConfig, optimizer, mesh=None):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "ce", "aux"})``: the grads of :func:`loss_fn` over every
     param leaf by ``torch.autograd.grad``, then ``optimizer.update``. The
-    params given are not modified."""
+    params given are not modified.
+
+    ``mesh``: the step of one rank of it. ``params`` and the moments of
+    ``opt_state`` are the rank's trees (``Shard`` leaves: its blocks under
+    ``param_shardings``, the moments also under ``zero1_shardings``),
+    ``batch`` its rows of the global batch (``Mesh.batch_block``). The
+    grads of every leaf (whole over "data") are summed over ("pod",
+    "data") through one collective a dtype before the update; the step
+    returns the rank's new blocks and the metrics, whole on every rank."""
 
     def step(params, opt_state, batch):
         leaves: List[torch.Tensor] = []
 
         def track(p):
-            leaves.append(p.detach().requires_grad_(True))
-            return leaves[-1]
+            t = (p.local if isinstance(p, Shard) else p).detach()
+            leaves.append(t.requires_grad_(True))
+            return Shard(t, p.splits, p.mesh) if isinstance(p, Shard) else t
 
         with torch.enable_grad():
-            loss, metrics = loss_fn(tree_map(track, params), cfg, batch)
-            found = iter(torch.autograd.grad(loss, leaves,
-                                             allow_unused=True))
-
-        def grad_of(p):
-            # a leaf the loss does not reach: the zero grad jax.grad gives
-            g = next(found)
-            return torch.zeros_like(p) if g is None else g
-
-        grads = tree_map(grad_of, params)
+            loss, metrics = loss_fn(tree_map(track, params), cfg, batch,
+                                    mesh=mesh)
+            found = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a leaf the loss does not reach: the zero grad jax.grad gives
+        found = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, found)]
+        if mesh is not None and mesh.data_size > 1:
+            found = mesh.sum_flat(found, axis="data")
+        found = iter(found)
+        grads = tree_map(lambda p: Shard(next(found), p.splits, p.mesh)
+                         if isinstance(p, Shard) else next(found), params)
         params, opt_state = optimizer.update(params, grads, opt_state)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, dict(metrics, loss=loss.detach())

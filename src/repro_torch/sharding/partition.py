@@ -376,7 +376,8 @@ def _block(t: torch.Tensor, splits: Dict[int, Tuple[str, ...]],
     return t.clone()
 
 
-def shard_tree(tree: Any, specs: Any, mesh, device=None) -> Any:
+def shard_tree(tree: Any, specs: Any, mesh, device=None, *,
+               shard_all: bool = False) -> Any:
     """Each rank's own part of ``tree`` under ``specs`` (a tree of
     :class:`P` in the same structure, from :func:`param_shardings`,
     :func:`cache_shardings` or :func:`zero1_shardings`): a leaf a spec
@@ -392,7 +393,10 @@ def shard_tree(tree: Any, specs: Any, mesh, device=None) -> Any:
     and state channels or heads as plain local tensors (``length`` whole
     across "model"): the blocks of the layer's ``conv_w`` and ``d_skip``
     :class:`Shard`, which the same rule splits. A dim that does not
-    divide its axes stays whole (``guard_spec``)."""
+    divide its axes stays whole (``guard_spec``). ``shard_all``: every
+    leaf a spec splits becomes a :class:`Shard`, one split over the batch
+    axes alone too (optimizer moments under ``zero1_shardings``, whose
+    data split the train step reads)."""
     def move(t):
         return t if device is None else t.to(device)
 
@@ -428,7 +432,8 @@ def shard_tree(tree: Any, specs: Any, mesh, device=None) -> Any:
             if not dims:
                 return move(node)
             blk = move(_block(node, dims, mesh))
-            if not any(MODEL_AXIS in a for a in dims.values()):
+            if not shard_all and not any(MODEL_AXIS in a
+                                         for a in dims.values()):
                 return blk
             return Shard(blk, dims, mesh)
         if isinstance(node, SSMCache):

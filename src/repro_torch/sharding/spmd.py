@@ -22,6 +22,14 @@ methods' default axis): weights are whole across the data ranks.
   * quantized stores split along N run their kernel on the local rows
     and gather the output; split along E (expert-parallel), each rank
     runs only its experts (``models/layers/moe.py``).
+
+Under the train step (grads taken) the collectives carry their adjoints
+(``launch/mesh.py``), and an input whole on every rank passes through
+:meth:`Mesh.enter` where a rank starts computing on its block of it (the
+input of a column split, this rank's slice for a row split): its
+backward sums the ranks' partial grads of the input, so the grads of
+every tensor whole on the "model" ranks are whole there too. Without
+grads ``enter`` is the tensor itself.
 """
 from __future__ import annotations
 
@@ -32,9 +40,9 @@ import torch
 from repro_torch.quant.qtensor import MixedPrecisionWeights, QuantizedTensor
 from repro_torch.sharding.partition import Shard
 
-__all__ = ["local", "cols_split", "rows_split", "matmul", "to_down",
-           "from_down", "project_many", "embed", "lm_head", "local_mp",
-           "mp_split", "mp_mesh"]
+__all__ = ["local", "cols_split", "rows_split", "enter_cols", "matmul",
+           "to_down", "from_down", "project_many", "embed", "lm_head",
+           "local_mp", "mp_split", "mp_mesh"]
 
 
 def local(w):
@@ -52,6 +60,20 @@ def rows_split(w) -> bool:
     return isinstance(w, Shard) and w.dim == w.local.dim() - 2
 
 
+def enter_cols(x: torch.Tensor, w) -> torch.Tensor:
+    """``x`` (whole on every rank) as the input of a product over this
+    rank's columns of ``w``: :meth:`Mesh.enter` when a float ``w`` is
+    column-split, else ``x``."""
+    return w.mesh.enter(x) if cols_split(w) else x
+
+
+def _slice_for(h: torch.Tensor, w) -> torch.Tensor:
+    """This rank's block of ``h`` (whole on every rank) along the
+    reduction dim that the row-split ``w`` holds."""
+    lo, hi = w.block()
+    return w.mesh.enter(h)[..., lo:hi]
+
+
 def to_down(h: torch.Tensor, w_in, w_out) -> torch.Tensor:
     """``h``, made by the in-products of an FFN pair over ``w_in`` (float
     or quantized), in the layout ``w_out``'s reduction dim reads: kept as
@@ -64,8 +86,7 @@ def to_down(h: torch.Tensor, w_in, w_out) -> torch.Tensor:
     if cols_split(w_in):
         return h if rows_split(w_out) else w_in.mesh.all_gather(h, -1)
     if rows_split(w_out):
-        lo, hi = w_out.block()
-        return h[..., lo:hi]
+        return _slice_for(h, w_out)
     return h
 
 
@@ -82,10 +103,9 @@ def from_down(y: torch.Tensor, w_out) -> torch.Tensor:
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` whole on every rank, whichever way ``w`` is split."""
     if cols_split(w):
-        return w.mesh.all_gather(x @ w.local, -1)
+        return w.mesh.all_gather(w.mesh.enter(x) @ w.local, -1)
     if rows_split(w):
-        lo, hi = w.block()
-        return w.mesh.all_reduce(x[..., lo:hi] @ w.local, "sum")
+        return w.mesh.all_reduce(_slice_for(x, w) @ w.local, "sum")
     return x @ w
 
 
@@ -96,6 +116,7 @@ def project_many(x: torch.Tensor, ws: Sequence,
     outputs are gathered through ONE collective (attention's q, k, v)."""
     biases = list(biases) if biases is not None else [None] * len(ws)
     if all(cols_split(w) for w in ws):
+        x = ws[0].mesh.enter(x)
         outs = [x @ w.local if b is None else x @ w.local + local(b)
                 for w, b in zip(ws, biases)]
         return ws[0].mesh.all_gather_many(outs, -1)
@@ -118,8 +139,7 @@ def lm_head(x: torch.Tensor, w, tied: bool) -> torch.Tensor:
         return matmul(x, w)
     if isinstance(w, Shard):
         assert w.dim == 1, w
-        lo, hi = w.block()
-        return w.mesh.all_reduce(x[..., lo:hi] @ w.local.T, "sum")
+        return w.mesh.all_reduce(_slice_for(x, w) @ w.local.T, "sum")
     return x @ w.T
 
 

@@ -8,6 +8,18 @@ weight decay added to ``u`` only for leaves of two or more dims; the update
 in f32, cast back to the param's dtype. The schedules compute in f32
 tensors, as the ``jnp`` versions do.
 
+Under a mesh (the train step of one rank, ``models/model.py``) the
+params, grads and moments may be ``Shard`` leaves, a rank's blocks: the
+global-norm clip sums each leaf's squares over the "model" ranks that
+split it and counts a leaf held whole on several ranks once (one
+collective for every leaf); weight decay keys on the whole leaf's rank;
+and a moment split over the data axes too (ZeRO-1, ``zero1_shardings``)
+updates its slice of the grad and of the param, computed into its block
+of the whole param, which the data ranks gather (one exact collective a
+leaf). The update is elementwise, so it runs a chunk of a leaf at a time
+(bounded f32 temporaries), and a slice's update is the whole's: ZeRO-1
+gives the same bits as without it.
+
 Parity traps: a Python number over a tensor, ``c / t``, is
 ``t.reciprocal() * c`` in torch, not a division, so a constant numerator is
 made a tensor first; and ``jnp.cos`` on the CPU is glibc's ``cosf``, which
@@ -17,11 +29,14 @@ takes its cosine from :func:`_cosf`, glibc's algorithm in f64 tensor ops.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.sharding.partition import MODEL_AXIS, Shard, _axis_size, \
+    _split_dims
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWState", "AdamW", "cosine_lr", "constant_lr"]
@@ -115,25 +130,62 @@ class AdamW:
     weight_decay: float = 0.0
     grad_clip: float = 1.0
 
-    def init(self, params) -> AdamWState:
+    def init(self, params, specs=None, mesh=None) -> AdamWState:
         """Zero f32 moments shaped as ``params``; the step on the device of
-        the first leaf."""
+        the first leaf. A ``Shard`` param gets a ``Shard`` moment of its
+        block. ``specs`` (a spec tree of the params' structure, e.g.
+        ``zero1_shardings`` of them) and ``mesh``: each moment is this
+        rank's block under its spec instead, a ``Shard`` wherever the
+        spec splits it over an axis above 1."""
         dev = tree_leaves(params)[0].device
+
+        def zeros(p, spec=None):
+            if spec is None:
+                if isinstance(p, Shard):
+                    return Shard(torch.zeros_like(p.local,
+                                                  dtype=torch.float32),
+                                 p.splits, p.mesh)
+                return torch.zeros_like(p, dtype=torch.float32)
+            splits = _split_dims(spec, mesh)
+            shape = list(p.shape)
+            for d, axes in splits.items():
+                shape[d] //= _axis_size(mesh, axes)
+            t = torch.zeros(shape, dtype=torch.float32, device=p.device)
+            return Shard(t, splits, mesh) if splits else t
+
+        def moments():
+            if specs is None:
+                return tree_map(zeros, params)
+            return tree_map(zeros, params, specs)
+
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
-            mu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                        params),
-            nu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                        params))
+            mu=moments(), nu=moments())
 
     def update(self, params, grads, state: AdamWState):
         """Returns (new params, new state); nothing given is modified. The
-        leaves are updated one at a time, so no f32 copy of every grad is
-        held at once."""
+        leaves are updated one at a time, a chunk at a time, so no f32
+        copy of every grad is held at once. ``Shard`` leaves are one
+        rank's blocks (module docstring); without them no collective
+        runs."""
+        mesh = next((x.mesh for tree in (params, state.mu)
+                     for x in tree_leaves(tree) if isinstance(x, Shard)),
+                    None)
         scale = None
         if self.grad_clip:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(
-                g.to(torch.float32))) for g in tree_leaves(grads)))
+            # each leaf's sum of squares, a whole leaf's on model rank 0
+            # only, summed over "model" in ONE collective; then over the
+            # leaves in leaf order, as the one-device sum
+            sq = torch.stack([
+                torch.sum(torch.square(_local(g).to(torch.float32)))
+                if mesh is None or isinstance(g, Shard)
+                or mesh.model_rank == 0
+                else torch.zeros((), dtype=torch.float32,
+                                 device=_local(g).device)
+                for g in tree_leaves(grads)])
+            if mesh is not None:
+                sq = mesh.all_reduce(sq, axis=MODEL_AXIS)
+            gnorm = torch.sqrt(sum(sq.unbind()))
             clip = torch.full_like(gnorm, self.grad_clip)
             scale = torch.clamp(clip / (gnorm + 1e-9), max=1.0)
         step = state.step + 1
@@ -142,20 +194,79 @@ class AdamW:
         bc2 = 1 - b2 ** step.to(torch.float32)
         lr = self.lr(step)
         out = []
+        decay = self.weight_decay
 
         def upd(p, g, m, n):
-            g = g.to(torch.float32)
-            if scale is not None:
-                g = g * scale
-            m = b1 * m + (1 - b1) * g
-            n = b2 * n + (1 - b2) * g * g
-            u = (m / bc1) / (torch.sqrt(n / bc2) + self.eps)
-            if self.weight_decay and p.dim() >= 2:
-                u = u + self.weight_decay * p.to(torch.float32)
-            out.append(((p.to(torch.float32) - lr * u).to(p.dtype), m, n))
+            pl, g, ml, nl = _local(p), _local(g), _local(m), _local(n)
+            dd = _data_dim(m)
+            if dd is None:
+                whole = new = torch.empty_like(pl)
+            else:
+                # ZeRO-1: this rank's slice, computed into its block of the
+                # whole param, which the data ranks then gather
+                lo, w = m.mesh.data_rank * ml.shape[dd], ml.shape[dd]
+                whole = torch.zeros_like(pl)
+                new = whole.narrow(dd, lo, w)
+                pl, g = pl.narrow(dd, lo, w), g.narrow(dd, lo, w)
+            m1, n1 = torch.empty_like(ml), torch.empty_like(nl)
+            # elementwise, so a chunk at a time gives the same bits and
+            # holds a chunk's f32 temporaries, not a leaf's
+            for r in _chunks(tuple(pl.shape)):
+                gr = g[r].to(torch.float32)
+                if scale is not None:
+                    gr = gr * scale
+                mr = b1 * ml[r] + (1 - b1) * gr
+                nr = b2 * nl[r] + (1 - b2) * gr * gr
+                u = (mr / bc1) / (torch.sqrt(nr / bc2) + self.eps)
+                if decay and len(p.shape) >= 2:
+                    u = u + decay * pl[r].to(torch.float32)
+                new[r] = (pl[r].to(torch.float32) - lr * u).to(pl.dtype)
+                m1[r], n1[r] = mr, nr
+            if dd is not None:
+                m.mesh.all_gather_into(whole, axis="data")
+            out.append((whole, _like(m, m1), _like(n, n1)))
 
         tree_map(upd, params, grads, state.mu, state.nu)
-        new_p, mu, nu = zip(*out)
-        return tree_unflatten(params, new_p), AdamWState(
-            step=step, mu=tree_unflatten(params, mu),
-            nu=tree_unflatten(params, nu))
+        it = iter(out)
+        new_p = tree_map(lambda p: _like(p, next(it)[0]), params)
+        return new_p, AdamWState(
+            step=step, mu=tree_unflatten(params, [o[1] for o in out]),
+            nu=tree_unflatten(params, [o[2] for o in out]))
+
+
+def _local(x):
+    return x.local if isinstance(x, Shard) else x
+
+
+# elements of one chunk of the update
+_CHUNK = 1 << 24
+
+
+def _chunks(shape: Tuple[int, ...]) -> list:
+    """Index tuples tiling a tensor of ``shape``, each a view of at most
+    ``_CHUNK`` elements where the last indexed dim allows (ints over the
+    leading dims, then a slice of rows)."""
+    if not shape:
+        return [()]
+    k = 0
+    while k + 1 < len(shape) and math.prod(shape[k + 1:]) > _CHUNK:
+        k += 1
+    rows = max(1, _CHUNK // max(1, math.prod(shape[k + 1:])))
+    return [head + (slice(i, i + rows),)
+            for head in itertools.product(*map(range, shape[:k]))
+            for i in range(0, shape[k], rows)]
+
+
+def _like(x, t: torch.Tensor):
+    """``t`` as the block of a leaf laid out as ``x``."""
+    return Shard(t, x.splits, x.mesh) if isinstance(x, Shard) else t
+
+
+def _data_dim(m):
+    """The dim of the moment ``m`` split over the data axes alone (ZeRO-1),
+    None if none is."""
+    if isinstance(m, Shard):
+        for d, axes in m.splits.items():
+            if MODEL_AXIS not in axes:
+                return d
+    return None

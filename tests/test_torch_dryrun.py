@@ -10,9 +10,9 @@ keys, its ``model_flops``, ``0 < useful_flops_ratio <= 1``, collectives on
 an expert-parallel (1, 4) mesh; on 16×16 and 2×16×16 rank 0's traced
 decode step, with ``local_dispatch`` the (1, 16) step at 1/16 of the
 batch (only statistics cross "data") and without it the data gather's
-bytes, and the train step's memory only; the same argument bytes and
-traced terms for the SSM archs (Mamba1, and Mamba2 with shared attention
-sites) on (1, 4) and 16×16."""
+bytes, and the train step's traced terms (with and without ZeRO-1); the
+same argument bytes and traced terms for the SSM archs (Mamba1, and
+Mamba2 with shared attention sites) on (1, 4) and 16×16."""
 import os
 import types
 
@@ -28,6 +28,7 @@ from repro.roofline import roofline_terms as jterms
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh
+from repro_torch.sharding import partition as tpart
 from repro_torch.sharding.partition import tree_specs
 
 # the reference's dry run asks for 512 host devices at import; the backend
@@ -222,15 +223,38 @@ def test_run_one_expert_parallel_counts_collectives(tiny, tmp_path):
     assert r["memory"]["argument_bytes"] < one["memory"]["argument_bytes"]
 
 
-def test_run_one_on_16x16_reports_memory_only(tiny):
-    """The train step on 16×16 reports its memory a rank and no traced
-    term: training under a mesh is a later slice."""
-    r = dryrun.run_one("olmoe_1b_7b", "train_tiny", mesh="16x16",
-                       save_dir=None, verbose=False)
-    assert r["memory"]["argument_bytes"] > 0 and r["flops"] is None
-    assert r["collectives_by_axis"] is None
-    assert "training under a mesh" in r["traced"]
-    assert r["memory"]["argument_bytes_by_mesh"]["16x16"] == \
+@pytest.mark.parametrize("opts", [(), ("zero1",)], ids=["plain", "zero1"])
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+def test_run_one_on_16x16_traces_the_train_step(tiny, mesh, opts):
+    """Rank 0's train step on the production meshes: its FLOPs, bytes,
+    compute time and collectives by axis; the grads' SUM over "data"
+    carries at least the rank's grad bytes (its param blocks' bytes); with
+    ``zero1`` a rank's moments are exactly its spec blocks (the Shards the
+    trace runs on hold the bytes ``argument_bytes`` gives the spec tree),
+    fewer than without."""
+    r = dryrun.run_one("olmoe_1b_7b", "train_tiny", mesh=mesh,
+                       save_dir=None, verbose=False, opts=opts)
+    assert r["traced"] == "rank 0 on meta"
+    for k in ("flops", "bytes", "t_compute_s", "t_memory_s",
+              "t_collective_s"):
+        assert r[k] is not None and r[k] > 0, k
+    by = r["collectives_by_axis"]
+    assert by["model"]["collectives"] > 0 and by["data"]["collectives"] > 0
+    m = Mesh(dryrun.MESHES[mesh])
+    cfg, _, args, shardings = dryrun.build_specs(
+        get_config("olmoe_1b_7b").reduced(), "train_tiny", m, opts=opts)
+    grad_bytes = dryrun.argument_bytes(args[:1], shardings[:1], m)
+    assert by["data"]["total"] >= grad_bytes > 0
+    moments = dryrun.argument_bytes(args[1:2], shardings[1:2], m)
+    blocks = tpart.shard_tree(args[1], shardings[1], m, shard_all=True)
+    held = []
+    tree_specs(blocks, lambda p, x: held.append(
+        (x.local if isinstance(x, tpart.Shard) else x)))
+    assert sum(t.numel() * t.element_size() for t in held) == moments
+    if opts:
+        _, _, pargs, pshard = dryrun.build_specs(cfg, "train_tiny", m)
+        assert moments < dryrun.argument_bytes(pargs[1:2], pshard[1:2], m)
+    assert r["memory"]["argument_bytes_by_mesh"][mesh] == \
         r["memory"]["argument_bytes"]
 
 

@@ -3,8 +3,9 @@
 GPU, in a fresh process: build the kernels, then the phase (4 gloo ranks
 sharing the card, against one-rank runs of the same weights: the (1, 4)
 mesh, then the ``data_axis:`` run over (2, 2), then the ``ssm_mesh:``
-run of the Mamba archs on both). A quicker check of sharded serving than
-the whole smoke run.
+run of the Mamba archs on both, then the ``train_mesh:`` run of the train
+step). A quicker check of sharded serving than the whole smoke run;
+``tools/train_mesh_phase.py`` runs the ``train_mesh:`` run alone.
 
     python3 tools/ep_phase.py      # from the repository root
 """
@@ -30,11 +31,11 @@ def main() -> int:
     _build.build_all()
     print(f"build {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
-    ep, data_axis, ssm_mesh, ssm_s = cs._expert_parallel_phase(
+    ep, data_axis, ssm_mesh, ssm_s, train_s = cs._expert_parallel_phase(
         torch.device("cuda"))
     print(f"launches expert_parallel {ep} data_axis {data_axis} ssm_mesh "
           f"{ssm_mesh}; phase {time.perf_counter() - t0:.1f}s, ssm_mesh "
-          f"{ssm_s}", flush=True)
+          f"{ssm_s}, train_mesh {train_s}", flush=True)
     return 0
 
 

@@ -167,13 +167,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (4, 1), and with ZeRO-1 on (2, 2) and (4, 1), two steps from the
      CPU-drawn params, every rank's loss, ce and aux, and its first
      step's grad norm of every leaf, within rtol 1e-4 of the CPU one-rank
-     step; (b) full width, bf16, remat "block", ZeRO-1 on (2, 2):
-     OLMoE-1B-7B expert-parallel at 4 of its 16 layers and qwen3_0p6b at
-     full depth, 2 rows of 512 tokens a data rank, one warm-up and one
-     timed step: each rank's param and moment bytes exactly its spec
-     blocks and the dry run's ``argument_bytes``, losses finite and equal
-     on every rank; per rank step ms, peak memory and collectives a step
-     by axis with their seconds.
+     step, and with the residual split along the sequence
+     (``act_seq_shard``) on (1, 4) and (2, 2), and for qwen3_0p6b at 30
+     tokens on (1, 4) (uneven blocks), equal bit for bit to the same
+     mesh's unsplit steps; (b) full width, bf16, remat "block", ZeRO-1 on
+     (2, 2): OLMoE-1B-7B expert-parallel at 2 of its 16 layers and
+     qwen3_0p6b at full depth, 2 rows of 512 tokens a data rank, one
+     warm-up and one timed step: each rank's param and moment bytes
+     exactly its spec blocks and the dry run's ``argument_bytes``, losses
+     finite and equal on every rank; qwen3_0p6b's first step again with
+     the residual split, its loss equal to the unsplit first loss bit for
+     bit and its peak memory up to the update not above the unsplit first
+     step's; per rank
+     step ms, peak memory and collectives a step by axis with their
+     seconds.
 
 The ``prefill_graph:`` line holds the six full-width prefill gates: the
 compiled prefill's eager protocol (``graphs=False``) against the
@@ -3692,12 +3699,20 @@ TM_STEPS = 2
 TM_LR = 1e-2
 TM_BATCH = (4, 32)    # the reduced steps' rows and tokens (global batch)
 TM_RTOL = 1e-4
+# the residual split along the sequence (``act_seq_shard``): every case of
+# ``TM_REDUCED`` again on these meshes (32 tokens: even blocks), and
+# (arch, mesh, tokens a row) split unevenly (blocks of 8, the last 6)
+TM_SEQ_MESHES = ("1x4", "2x2")
+TM_UNEVEN = ("qwen3_0p6b", "1x4", 30)
 # (b) full width, bf16, remat "block", on (2, 2) with ZeRO-1: (arch,
 # layers kept or None for the published depth, expert-parallel). OLMoE at
-# 4 of 16 layers, as TRAIN_FULL: 4 ranks share the card
-TM_FULL = (("olmoe_1b_7b", 4, True), ("qwen3_0p6b", None, False))
+# 2 of 16 layers (4 until the split cases came, whose seconds it pays
+# for): its step is ~98 % gloo collectives of the grads and ZeRO-1's
+# slices, which scale with its layers; 4 ranks share the card
+TM_FULL = (("olmoe_1b_7b", 2, True), ("qwen3_0p6b", None, False))
 TM_ROWS = 2           # rows a data rank, of TRAIN_SEQ tokens
 TM_TIMED = 1          # timed steps, after one warm-up step
+TM_SEQ_FULL = "qwen3_0p6b"   # its first step again with the residual split
 
 
 def _ep_requests() -> list:
@@ -4537,7 +4552,8 @@ def _train_mesh_fixture() -> dict:
     from seed 0 (f32, as numpy: a rank rebuilds them on the card),
     ``TM_STEPS`` synthetic batches of ``TM_BATCH``, and each step's loss,
     ce and aux of ``train_step_fn`` on one CPU rank (AdamW, lr
-    ``TM_LR``), and each leaf's grad norm at the first step."""
+    ``TM_LR``), and each leaf's grad norm at the first step; the same
+    for ``TM_UNEVEN``'s arch at its length, under the key "arch/tokens"."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, synthetic_lm_batches
@@ -4550,12 +4566,14 @@ def _train_mesh_fixture() -> dict:
     # steps' time waking up on an 8-core host)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    uneven = (TM_UNEVEN[0], TM_UNEVEN[2])
     try:
-        for arch in dict(TM_REDUCED):
+        for arch, seq in [(a, TM_BATCH[1]) for a in dict(TM_REDUCED)] + \
+                [uneven]:
             cfg = get_config(arch).reduced()
             params = init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
-            gen = synthetic_lm_batches(DataConfig(*TM_BATCH,
+            gen = synthetic_lm_batches(DataConfig(TM_BATCH[0], seq,
                                                   cfg.vocab_size))
             batches = [next(gen) for _ in range(TM_STEPS)]
             opt = _FirstGrads(AdamW(lr=constant_lr(TM_LR),
@@ -4566,10 +4584,11 @@ def _train_mesh_fixture() -> dict:
                 p, st, m = step(p, st, {k: torch.from_numpy(v)
                                         for k, v in b.items()})
                 want.append({k: float(v) for k, v in m.items()})
-            out[arch] = dict(cfg=cfg, params=tree_map(lambda t: t.numpy(),
-                                                      params),
-                             batches=batches, want=want,
-                             grad_norms=opt.norms)
+            key = arch if seq == TM_BATCH[1] else f"{arch}/{seq}"
+            out[key] = dict(cfg=cfg, params=tree_map(lambda t: t.numpy(),
+                                                     params),
+                            batches=batches, want=want,
+                            grad_norms=opt.norms)
     finally:
         torch.set_num_threads(threads)
     return out
@@ -4631,6 +4650,40 @@ def _axis_snapshot(mesh) -> dict:
     return {a: dict(v) for a, v in mesh.collectives_by_axis.items()}
 
 
+def _tm_steps(cfg, f, whole, mesh, ep, zero1, device) -> tuple:
+    """``TM_STEPS`` steps of ``train_step_fn(cfg, opt, mesh)`` from this
+    rank's blocks of ``whole`` and its rows of ``f``'s batches: (the case's
+    record against ``f``'s CPU one-rank step, each step's metrics and the
+    first step's grad norms)."""
+    import torch
+    from repro_torch.models.model import train_step_fn
+    from repro_torch.sharding.partition import param_shardings, \
+        shard_tree, zero1_shardings
+    from repro_torch.training import AdamW, constant_lr
+
+    lo, hi = mesh.batch_block(TM_BATCH[0])
+    p = shard_tree(whole, param_shardings(whole, mesh, expert_parallel=ep),
+                   mesh)
+    opt = _FirstGrads(AdamW(lr=constant_lr(TM_LR), weight_decay=0.01), mesh)
+    st = (opt.init(p, zero1_shardings(p, mesh, expert_parallel=ep), mesh)
+          if zero1 else opt.init(p))
+    step = train_step_fn(cfg, opt, mesh)
+    got = []
+    for b in f["batches"]:
+        p, st, m = step(p, st, {k: torch.from_numpy(v[lo:hi]).to(device)
+                                for k, v in b.items()})
+        got.append({k: float(v) for k, v in m.items()})
+    pairs = [(g[k], w[k]) for g, w in zip(got, f["want"]) for k in w]
+    norms = [(opt.norms[k], w) for k, w in f["grad_norms"].items()]
+    assert opt.norms.keys() == f["grad_norms"].keys()
+    return dict(
+        metrics=got, close=_within(pairs), max_rel=_max_rel(pairs),
+        grad_norms_close=_within(norms), grad_norm_max_rel=_max_rel(norms),
+        worst_leaf=max(f["grad_norms"], key=lambda k: abs(
+            opt.norms[k] - f["grad_norms"][k])
+            / max(f["grad_norms"][k], 1e-30))), (got, opt.norms)
+
+
 def _train_mesh_reduced(rank: int, device, fx, meshes) -> dict:
     """(a) Each reduced case of ``TM_REDUCED`` on each mesh of
     ``TM_MESHES``, and with ZeRO-1 on those of ``TM_ZERO1``: this rank's
@@ -4639,52 +4692,44 @@ def _train_mesh_reduced(rank: int, device, fx, meshes) -> dict:
     the first step's grad norm of each leaf, and whether they are within
     ``TM_RTOL`` of the CPU one-rank step's. The grad norms are what shows
     a rank's grads the wrong size: Adam's first updates and the clip
-    scale them away from the losses."""
+    scale them away from the losses. On the meshes of ``TM_SEQ_MESHES``,
+    and for ``TM_UNEVEN``, the same steps with the residual split along
+    the sequence (key ".../seq", ".../seq<tokens>"): also whether their
+    metrics and grad norms equal the unsplit steps' bit for bit."""
+    import dataclasses
+
     import torch
-    from repro_torch.models.model import train_step_fn
-    from repro_torch.sharding.partition import param_shardings, \
-        shard_tree, zero1_shardings
-    from repro_torch.training import AdamW, constant_lr
     from repro_torch.tree import tree_map
 
     out = {}
-    for arch, ep in TM_REDUCED:
-        f = fx[arch]
-        whole = tree_map(lambda a: torch.from_numpy(a).to(device),
-                         f["params"])
-        for name, mesh in meshes.items():
-            lo, hi = mesh.batch_block(TM_BATCH[0])
-            for zero1 in (False, True)[:1 + (name in TM_ZERO1)]:
-                p = shard_tree(whole, param_shardings(
-                    whole, mesh, expert_parallel=ep), mesh)
-                opt = _FirstGrads(AdamW(lr=constant_lr(TM_LR),
-                                        weight_decay=0.01), mesh)
-                st = (opt.init(p, zero1_shardings(p, mesh,
-                                                  expert_parallel=ep), mesh)
-                      if zero1 else opt.init(p))
-                step = train_step_fn(f["cfg"], opt, mesh)
-                got = []
-                for b in f["batches"]:
-                    p, st, m = step(p, st, {
-                        k: torch.from_numpy(v[lo:hi]).to(device)
-                        for k, v in b.items()})
-                    got.append({k: float(v) for k, v in m.items()})
-                pairs = [(g[k], w[k]) for g, w in zip(got, f["want"])
-                         for k in w]
-                norms = [(opt.norms[k], w) for k, w in
-                         f["grad_norms"].items()]
-                assert opt.norms.keys() == f["grad_norms"].keys()
-                key = f"{arch}{'-ep' if ep else ''}/{name}" + \
-                    ("/zero1" if zero1 else "")
-                out[key] = dict(
-                    metrics=got, close=_within(pairs),
-                    max_rel=_max_rel(pairs),
-                    grad_norms_close=_within(norms),
-                    grad_norm_max_rel=_max_rel(norms),
-                    worst_leaf=max(f["grad_norms"], key=lambda k: abs(
-                        opt.norms[k] - f["grad_norms"][k])
-                        / max(f["grad_norms"][k], 1e-30)))
-                del p, st
+    cases = [(arch, ep, name, zero1, False) for arch, ep in TM_REDUCED
+             for name in meshes
+             for zero1 in (False, True)[:1 + (name in TM_ZERO1)]]
+    cases += [(arch, ep, name, False, True) for arch, ep in TM_REDUCED
+              for name in TM_SEQ_MESHES]
+    arch, name, n = TM_UNEVEN
+    cases += [(f"{arch}/{n}", False, name, False, seq) for seq in (False,
+                                                                  True)]
+    unsplit, whole = {}, {}
+    for fkey, ep, name, zero1, seq in cases:
+        f = fx[fkey]
+        if fkey not in whole:
+            whole = {fkey: tree_map(lambda a: torch.from_numpy(a).to(device),
+                                    f["params"])}
+        cfg = dataclasses.replace(f["cfg"], act_seq_shard=seq)
+        c, ran = _tm_steps(cfg, f, whole[fkey], meshes[name], ep, zero1,
+                           device)
+        arch = fkey.split("/")[0]
+        key = f"{arch}{'-ep' if ep else ''}/{name}" + \
+            ("/zero1" if zero1 else "")
+        if fkey != arch:
+            key += "/" + fkey.split("/")[1]
+        if not seq:
+            unsplit[key] = ran
+        else:
+            c["equal"] = ran == unsplit[key]
+            key += "/seq"
+        out[key] = c
     return out
 
 
@@ -4706,7 +4751,12 @@ def _train_mesh_full(rank: int, device, mesh) -> dict:
     holds of the params and moments, and those the dry run's
     ``argument_bytes`` gives their spec trees on a mesh of this shape;
     step ms, peak memory, collectives by axis over the timed steps, and
-    every step's loss."""
+    every step's loss. ``TM_SEQ_FULL`` first takes its first step with the
+    residual split along the sequence from the same params, moments and
+    batch ("split": its loss, ms, collectives by axis and peak memory,
+    allocated and requested, over the step and up to its update, beside
+    the unsplit first step's, all counted from the held params and
+    moments)."""
     import dataclasses
     import gc
 
@@ -4752,11 +4802,19 @@ def _train_mesh_full(rank: int, device, mesh) -> dict:
         gen = synthetic_lm_batches(DataConfig(
             TM_ROWS * mesh.data_size, TRAIN_SEQ, cfg.vocab_size, seed=0))
         lo, hi = mesh.batch_block(TM_ROWS * mesh.data_size)
-        step = train_step_fn(cfg, opt, mesh)
+        batches = [{k: torch.from_numpy(v[lo:hi]).to(device)
+                    for k, v in next(gen).items()}
+                   for _ in range(1 + TM_TIMED)]
+        split, peaks = None, {}
+        if arch == TM_SEQ_FULL:
+            peaks["init"] = torch.cuda.max_memory_allocated()
+            split = _tm_seq_step(dataclasses.replace(cfg, act_seq_shard=True),
+                                 opt, mesh, p, st, batches[0])
+            torch.cuda.reset_peak_memory_stats()
+        rec = _PeakAtUpdate(opt)
+        step = train_step_fn(cfg, rec, mesh)
         losses, ms, by = [], [], None
-        for i in range(1 + TM_TIMED):
-            b = {k: torch.from_numpy(v[lo:hi]).to(device)
-                 for k, v in next(gen).items()}
+        for i, b in enumerate(batches):
             if i == 1:
                 before = _axis_snapshot(mesh)
             torch.cuda.synchronize()
@@ -4765,21 +4823,82 @@ def _train_mesh_full(rank: int, device, mesh) -> dict:
             torch.cuda.synchronize()
             if i:
                 ms.append((time.perf_counter() - t) * 1e3)
+            else:
+                peaks["first"] = _peaks()
             losses.append(float(m["loss"]))
         by = _axis_delta(mesh, before)
+        if split is not None:
+            split["unsplit_first_peak_gib"], \
+                split["unsplit_first_requested_gib"] = peaks["first"]
+            split["unsplit_pre_update_gib"], \
+                split["unsplit_pre_update_requested_gib"] = rec.peaks
         out[arch] = dict(
             layers=cfg.num_layers, expert_parallel=ep, zero1=True,
             rows=(lo, hi), seq=TRAIN_SEQ, held=held, want=want,
-            init_s=init_s, step_ms=ms, loss=losses,
-            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            init_s=init_s, step_ms=ms, loss=losses, split=split,
+            peak_gib=max(torch.cuda.max_memory_allocated(),
+                         peaks.get("init", 0)) / 2 ** 30,
             reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
             card_free_gib=card_free,
             by_axis={a: dict(v, collectives=v["collectives"] / TM_TIMED,
                              total=v["total"] / TM_TIMED,
                              seconds=v["seconds"] / TM_TIMED)
                      for a, v in by.items()})
-        del p, st, step
+        del p, st, step, batches, rec
     return out
+
+
+class _PeakAtUpdate:
+    """An optimizer that records :func:`_peaks` when its first update
+    starts: the peak of the step's forward, backward and grad SUM, where
+    the residual carry lives (the update after it holds old and new
+    params and moments, and no carry)."""
+
+    def __init__(self, opt):
+        self.opt, self.peaks = opt, None
+
+    def init(self, *args):
+        return self.opt.init(*args)
+
+    def update(self, params, grads, state):
+        if self.peaks is None:
+            self.peaks = _peaks()
+        return self.opt.update(params, grads, state)
+
+
+def _tm_seq_step(cfg, opt, mesh, p, st, batch) -> dict:
+    """One step of ``train_step_fn(cfg, opt, mesh)`` from ``p``, ``st``
+    (which it leaves as they are), its new params and moments dropped:
+    its loss, ms (CUDA-synchronized host clock), collectives by axis, and
+    peak memory from a reset just before it, over the whole step and up
+    to the update (:class:`_PeakAtUpdate`)."""
+    import torch
+    from repro_torch.models.model import train_step_fn
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _axis_snapshot(mesh)
+    rec = _PeakAtUpdate(opt)
+    t = time.perf_counter()
+    _, _, m = train_step_fn(cfg, rec, mesh)(p, st, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    peak, requested = _peaks()
+    return dict(loss=loss, ms=(time.perf_counter() - t) * 1e3,
+                by_axis=_axis_delta(mesh, before), peak_gib=peak,
+                requested_gib=requested, pre_update_gib=rec.peaks[0],
+                pre_update_requested_gib=rec.peaks[1])
+
+
+def _peaks() -> tuple:
+    """(allocated, requested) peak GiB since the last reset: the
+    allocator's blocks, which carry up to 1 MiB of slack each that a
+    cached block left unsplit (so they depend on what ran before), and
+    the bytes the tensors asked for."""
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.memory_stats().get("requested_bytes.all.peak", 0)
+            / 2 ** 30)
 
 
 def _train_mesh_rank(rank: int, device, fx) -> dict:
@@ -4806,16 +4925,25 @@ def _train_mesh_rank(rank: int, device, fx) -> dict:
 def _train_mesh_gates(ranks, fx, seconds: dict) -> None:
     """The ``train_mesh:`` line. (a) every rank's reduced metrics and
     first-step grad norms of every leaf within ``TM_RTOL`` of the CPU
-    one-rank step's, on every mesh, with and without ZeRO-1; (b) every rank's param and moment bytes exactly the
-    blocks of their specs, equal to the dry run's ``argument_bytes``, the
-    losses finite and equal on every rank; per rank its step ms, peak
-    memory and collectives a step by axis with their seconds."""
-    per_rank, worst, worst_norm = [], 0.0, 0.0
+    one-rank step's, on every mesh, with and without ZeRO-1, and with the
+    residual split along the sequence, whose metrics and grad norms equal
+    the same mesh's unsplit steps bit for bit; (b) every rank's param and
+    moment bytes exactly the blocks of their specs, equal to the dry
+    run's ``argument_bytes``, the losses finite and equal on every rank,
+    ``TM_SEQ_FULL``'s split first step's loss equal to the unsplit first
+    loss bit for bit on every rank and its peak up to the update (where
+    the carry lives) not above the unsplit first step's, the whole
+    steps' allocated and requested peaks beside them; per rank its step ms, peak memory and
+    collectives a step by axis with their seconds."""
+    per_rank, worst, worst_norm, n_seq = [], 0.0, 0.0, 0
     for r in ranks:
         tm = r["train_mesh"]
         for key, c in tm["reduced"].items():
             assert c["close"], (r["rank"], key, c)
             assert c["grad_norms_close"], (r["rank"], key, c)
+            if key.endswith("/seq"):
+                assert c["equal"], (r["rank"], key, c)
+                n_seq += 1
             worst = max(worst, c["max_rel"])
             worst_norm = max(worst_norm, c["grad_norm_max_rel"])
         for arch, c in tm["full"].items():
@@ -4824,13 +4952,21 @@ def _train_mesh_gates(ranks, fx, seconds: dict) -> None:
             assert all(map(math.isfinite, c["loss"])), (arch, c["loss"])
             assert c["loss"] == ranks[0]["train_mesh"]["full"][arch]["loss"], \
                 (r["rank"], arch, c["loss"])
+            assert (c["split"] is not None) == (arch == TM_SEQ_FULL), arch
+        split = tm["full"][TM_SEQ_FULL]["split"]
+        assert split["loss"] == tm["full"][TM_SEQ_FULL]["loss"][0], \
+            (r["rank"], split, tm["full"][TM_SEQ_FULL]["loss"])
+        assert split["pre_update_gib"] <= split["unsplit_pre_update_gib"], \
+            (r["rank"], split)
         per_rank.append(dict(
             rank=r["rank"], coords=tm["coords"], seconds=tm["seconds"],
             reduced_s=tm["reduced_s"], full_s=tm["full_s"],
             full={arch: {k: c[k] for k in (
                 "rows", "held", "init_s", "step_ms", "peak_gib",
-                "reserved_gib", "card_free_gib", "by_axis")}
+                "reserved_gib", "card_free_gib", "by_axis", "split")}
                 for arch, c in tm["full"].items()}))
+    assert n_seq == EP_RANKS * (len(TM_REDUCED) * len(TM_SEQ_MESHES) + 1), \
+        n_seq
     full0 = ranks[0]["train_mesh"]["full"]
     summary = dict(
         ranks=EP_RANKS, backend="gloo",
@@ -4842,7 +4978,8 @@ def _train_mesh_gates(ranks, fx, seconds: dict) -> None:
             grad_norm_leaves={a: len(f["grad_norms"])
                               for a, f in fx.items()}, cpu_loss={a: [m["loss"] for m in f["want"]]
                                      for a, f in fx.items()},
-            equal=True),
+            equal=True, seq_meshes=TM_SEQ_MESHES, seq_uneven=TM_UNEVEN,
+            seq_cases=n_seq // EP_RANKS, seq_equal_unsplit=True),
         full=dict(mesh=DA_SHAPE, zero1=True, dtype="bfloat16",
                   remat="block", rows_a_data_rank=TM_ROWS, seq=TRAIN_SEQ,
                   warmup=1, timed=TM_TIMED,
@@ -4850,7 +4987,8 @@ def _train_mesh_gates(ranks, fx, seconds: dict) -> None:
                                     expert_parallel=c["expert_parallel"],
                                     want_bytes=c["want"], loss=c["loss"])
                          for arch, c in full0.items()},
-                  bytes_equal=True, losses_equal=True),
+                  bytes_equal=True, losses_equal=True, seq_case=TM_SEQ_FULL,
+                  seq_loss_equal=True, seq_pre_update_peak_not_above=True),
         seconds=seconds, per_rank=per_rank)
     print("train_mesh: " + json.dumps(summary), flush=True)
 

@@ -52,7 +52,12 @@ step). The collectives carry adjoints that keep to this, as
     on this rank's block (its grad there is this block's part);
   * :meth:`Mesh.count_once`: the identity forward; the backward keeps the
     grad on the axis's first rank only, for a term whole on every data
-    rank that enters the summed objective once.
+    rank that enters the summed objective once;
+  * the sequence seams: :meth:`Mesh.seq_split` cuts a tensor whole on
+    every "model" rank to this rank's block of the sequence with no
+    collective, and its backward gathers the ranks' grad blocks;
+    :meth:`Mesh.seq_gather` gathers the blocks whole, and its backward is
+    this rank's block of the grad.
 
 Backward collectives are counted as forward ones are. The backward works
 on copies: ``all_reduce`` writes in place, and a tensor autograd saved
@@ -476,6 +481,59 @@ class Mesh:
             buf[torch.as_tensor(list(rows), device=t.device)] = t
         return self._sum_exact(buf, axis)
 
+    def seq_split(self, t: torch.Tensor, dim: int = 1, *,
+                  axis: str = "model") -> torch.Tensor:
+        """This rank's block of ``t`` (whole on every rank of ``axis``)
+        along ``dim``, as a fresh contiguous tensor (never a view: a view
+        would keep the whole storage alive wherever the block is saved).
+        The n positions are cut in blocks of ceil(n / size), rank r's
+        the r-th, its tail past n zero-padded (an uneven n leaves the last
+        ranks short or empty). No collective; backward: the exact gather
+        of the ranks' grad blocks, trimmed to n (the reduce-scatter's
+        adjoint, whose SUM the ops that made ``t`` have done already)."""
+        if self.axis_size(axis) == 1:
+            return t
+        dim = dim % t.dim()
+        if _wants_grad(t):
+            return _SeqSplit.apply(self, axis, dim, t)
+        return self._seq_block(t, dim, axis)
+
+    def seq_gather(self, t: torch.Tensor, n: int, dim: int = 1, *,
+                   axis: str = "model") -> torch.Tensor:
+        """The inverse of :meth:`seq_split`: this rank's (padded) block
+        ``t`` -> the whole n positions along ``dim`` on every rank, through
+        one exact gather (:meth:`all_gather`) trimmed to n. Backward: this
+        rank's padded block of the whole grad, no collective."""
+        if self.axis_size(axis) == 1:
+            return t
+        dim = dim % t.dim()
+        if _wants_grad(t):
+            return _SeqGather.apply(self, axis, dim, n, t)
+        return self._seq_whole(t, n, dim, axis)
+
+    def _seq_whole(self, t: torch.Tensor, n: int, dim: int,
+                   axis: str) -> torch.Tensor:
+        # trimmed into a contiguous tensor, the layout the unsplit
+        # residual has, so the block's kernels are the same
+        whole = self._gather_many([t], dim, axis)[0]
+        return whole if whole.shape[dim] == n else \
+            whole.narrow(dim, 0, n).contiguous()
+
+    def _seq_block(self, t: torch.Tensor, dim: int,
+                   axis: str) -> torch.Tensor:
+        n, size = t.shape[dim], self.axis_size(axis)
+        w = -(-n // size)
+        lo = min(self.axis_rank(axis) * w, n)
+        hi = min(lo + w, n)
+        if hi - lo == w:
+            return t.narrow(dim, lo, w).clone(
+                memory_format=torch.contiguous_format)
+        shape = list(t.shape)
+        shape[dim] = w
+        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        out.narrow(dim, 0, hi - lo).copy_(t.narrow(dim, lo, hi - lo))
+        return out
+
     def _sum_exact(self, buf: torch.Tensor, axis: str) -> torch.Tensor:
         # summed as integers over the buffer's bytes: with one writer a
         # position, bit-exact for any dtype (-0.0 and NaNs included), and
@@ -621,6 +679,36 @@ class _GatherRows(torch.autograd.Function):
         idx = torch.as_tensor(list(ctx.rows), dtype=torch.int64,
                               device=g.device)
         return None, None, None, None, g.index_select(0, idx)
+
+
+class _SeqSplit(torch.autograd.Function):
+    """:meth:`Mesh.seq_split`; backward: the ranks' grad blocks gathered
+    whole and trimmed."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, t):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, t.shape[dim]
+        return mesh._seq_block(t, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = ctx.mesh._gather_many([g], ctx.dim, ctx.axis)[0]
+        return None, None, None, whole.narrow(ctx.dim, 0, ctx.n)
+
+
+class _SeqGather(torch.autograd.Function):
+    """:meth:`Mesh.seq_gather`; backward: this rank's padded block of the
+    grad."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, n, t):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh._seq_whole(t, n, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, None, ctx.mesh._seq_block(g, ctx.dim,
+                                                           ctx.axis)
 
 
 # ---------------------------------------------------------------- builders

@@ -66,8 +66,10 @@ class ModelConfig:
     # --- perf levers (§Perf hillclimb; defaults = paper-faithful baseline)
     attn_causal_skip: bool = False   # skip fully-masked key chunks
     attn_compute_dtype: str = "float32"  # qk/pv einsum precision
-    act_seq_shard: bool = False      # sequence-shard the residual carry
-                                     # (bounds remat-saved activations)
+    act_seq_shard: bool = False      # train forward under a mesh: hold the
+                                     # residual between blocks split along
+                                     # the sequence over "model" (each
+                                     # remat-saved carry 1/model ranks)
     moe_dispatch_shards: int = 0     # data-local MoE dispatch: split tokens
                                      # into this many shards so capacity
                                      # buffers shard along the data axis

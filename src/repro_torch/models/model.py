@@ -39,8 +39,11 @@ Every MoE site with one Critical mask (or none) goes through
 ``moe_apply_sharded``: with ``cfg.moe_dispatch_shards`` D > 1 dividing the
 token count, D token groups of their own capacity, folded into one
 buffer (still three K2 launches). ``cfg.act_seq_shard`` is a sharding
-constraint on the residual stream in the JAX package, numerically the
-identity: on one device it changes nothing here.
+constraint on the residual stream of the JAX package's training forward,
+numerically the identity; here it splits the training forward's residual
+between blocks along the sequence over "model" (:func:`forward`), and
+with no mesh or one "model" rank it changes nothing. Prefill and decode
+never read it.
 
 Caches are written in place (see ``kv_cache.py`` and ``layers/ssm.py``):
 {"layers": KVCache or SSMCache with a leading L, "shared": KVCache with a
@@ -552,8 +555,22 @@ def _unbind_layers(tree, n: int) -> List[dict]:
 
 
 def _train_block(params, cfg: ModelConfig, kind: str, shared: bool,
-                 lp: dict, x: torch.Tensor, aux: torch.Tensor, mesh=None):
-    """One layer of :func:`forward` (the hybrid's shared block first
+                 lp: dict, x: torch.Tensor, aux: torch.Tensor, mesh=None,
+                 seq: Optional[int] = None):
+    """One layer of :func:`forward`; returns (x, aux). ``seq``: ``x`` is
+    this rank's block of a sequence of ``seq`` positions, gathered whole
+    for the layer and cut back to the block at its end (a checkpoint then
+    saves the block, and issues the gather again when it recomputes)."""
+    if seq is None:
+        return _block(params, cfg, kind, shared, lp, x, aux, mesh)
+    x, aux = _block(params, cfg, kind, shared, lp,
+                    spmd.seq_enter(x, mesh, seq), aux, mesh)
+    return spmd.seq_leave(x, mesh), aux
+
+
+def _block(params, cfg: ModelConfig, kind: str, shared: bool, lp: dict,
+           x: torch.Tensor, aux: torch.Tensor, mesh=None):
+    """One layer over the whole sequence (the hybrid's shared block first
     where it runs); returns (x, aux)."""
     if shared:
         x = _shared_block_train(params, cfg, x)[0]
@@ -585,19 +602,29 @@ def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     collectives are issued again then). ``mesh``: run as one rank of it,
     on its blocks of the weights and its rows of the batch (the module
     docstring); the logits are this rank's rows, the aux loss the whole
-    batch's."""
+    batch's. ``cfg.act_seq_shard`` with more than one "model" rank: the
+    residual between blocks is this rank's block of the sequence
+    (``spmd.seq_leave`` / ``seq_enter``), so each checkpoint saves 1 /
+    model ranks of it; the blocks and the logits are unchanged, bit for
+    bit."""
     _check_mesh(cfg, mesh)
     x = _embed(params, cfg, tokens, embeds)
     kind = cfg.block_kinds()[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    split = cfg.act_seq_shard and mesh is not None and mesh.model_size > 1
+    seq = x.shape[1] if split else None
+    if seq is not None:
+        x = spmd.seq_leave(x, mesh)
     layers = _unbind_layers(params["layers"], cfg.num_layers)
     for lp, shared in zip(layers, _shared_flags(cfg)):
         if cfg.remat == "block":
             x, aux = checkpoint(_train_block, params, cfg, kind, shared, lp,
-                                x, aux, mesh, use_reentrant=False)
+                                x, aux, mesh, seq, use_reentrant=False)
         else:
             x, aux = _train_block(params, cfg, kind, shared, lp, x, aux,
-                                  mesh)
+                                  mesh, seq)
+    if seq is not None:
+        x = spmd.seq_enter(x, mesh, seq)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _lm_head(params, cfg, x), aux
 

@@ -30,6 +30,14 @@ input of a column split, this rank's slice for a row split): its
 backward sums the ranks' partial grads of the input, so the grads of
 every tensor whole on the "model" ranks are whole there too. Without
 grads ``enter`` is the tensor itself.
+
+The sequence split of the training residual (``cfg.act_seq_shard``):
+between blocks a rank holds only its block of the sequence
+(:func:`seq_leave`, a fresh copy, no collective; its backward gathers the
+ranks' grad blocks), and a block starts by gathering the whole sequence
+(:func:`seq_enter`, one exact gather; its backward is this rank's block of
+the grad). Blocks are ceil(S / model ranks) positions, the last ones
+zero-padded past S and trimmed after the gather, so any S splits.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ from repro_torch.sharding.partition import Shard
 
 __all__ = ["local", "cols_split", "rows_split", "enter_cols", "matmul",
            "to_down", "from_down", "project_many", "embed", "lm_head",
-           "local_mp", "mp_split", "mp_mesh"]
+           "seq_leave", "seq_enter", "local_mp", "mp_split", "mp_mesh"]
 
 
 def local(w):
@@ -141,6 +149,23 @@ def lm_head(x: torch.Tensor, w, tied: bool) -> torch.Tensor:
         assert w.dim == 1, w
         return w.mesh.all_reduce(_slice_for(x, w) @ w.local.T, "sum")
     return x @ w.T
+
+
+# ------------------------------------------------------ sequence split
+
+
+def seq_leave(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` (rows, S, dm), whole on every "model" rank -> this rank's
+    block of its sequence (rows, ceil(S / model ranks), dm), a fresh
+    contiguous copy (:meth:`Mesh.seq_split`); ``x`` itself on one "model"
+    rank."""
+    return mesh.seq_split(x, 1)
+
+
+def seq_enter(x: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """The inverse of :func:`seq_leave`: this rank's block -> the whole
+    ``n`` positions on every "model" rank (:meth:`Mesh.seq_gather`)."""
+    return mesh.seq_gather(x, n, 1)
 
 
 # ---------------------------------------------------------- quantized

@@ -12,7 +12,11 @@ decode step, with ``local_dispatch`` the (1, 16) step at 1/16 of the
 batch (only statistics cross "data") and without it the data gather's
 bytes, and the train step's traced terms (with and without ZeRO-1); the
 same argument bytes and traced terms for the SSM archs (Mamba1, and
-Mamba2 with shared attention sites) on (1, 4) and 16×16."""
+Mamba2 with shared attention sites) on (1, 4) and 16×16; and ``seq_acts``
+(the train carry split along the sequence over "model"): the full-size
+OLMoE ``train_4k`` record on 16×16, with and without ``local_dispatch``,
+its temp lower by the carries' saving, 3 L + 2 more "model" gathers, and
+prefill and decode records unchanged by it."""
 import os
 import types
 
@@ -324,3 +328,71 @@ def test_run_one_ssm_on_16x16_gives_traced_terms(tiny, arch, shape):
     assert r["flops"] > 0 and r["bytes"] > 0 and r["dominant"]
     assert r["collectives_by_axis"]["model"]["collectives"] > 0
     assert 0 < r["useful_flops_ratio"] <= 1
+
+
+@pytest.fixture(scope="module")
+def seq_records():
+    """Full-size OLMoE ``train_4k`` on 16×16, with and without
+    ``seq_acts``, with and without ``local_dispatch`` (~6 s a record)."""
+    return {(ld, seq): dryrun.run_one(
+        "olmoe_1b_7b", "train_4k", mesh="16x16", save_dir=None,
+        verbose=False, opts=(("local_dispatch",) if ld else ())
+        + (("seq_acts",) if seq else ()))
+        for ld in (False, True) for seq in (False, True)}
+
+
+def _carry_bytes(cfg, mesh: str, shape: str) -> int:
+    """One layer's residual (rows a data rank, S, d_model) in bf16."""
+    info = dryrun.SHAPES[shape]
+    rows = info["global_batch"] // Mesh(dryrun.MESHES[mesh]).data_size
+    return rows * info["seq_len"] * cfg.d_model * 2
+
+
+@pytest.mark.parametrize("ld", [False, True], ids=["plain", "local_dispatch"])
+def test_seq_acts_lowers_the_train_temp_bytes(seq_records, ld):
+    """The checkpoints save a 16th of each layer's 268 MB carry: the
+    traced peak falls by 16 carries less a block (4.03 GB) where it sits
+    at the forward's end (``local_dispatch``); without it the split
+    step's peak moves to the end of the backward, where 15 layers' param
+    grads (0.79 GB a rank) are alive too, and the fall is 3.48 GB."""
+    cfg = get_config("olmoe_1b_7b")
+    carry = _carry_bytes(cfg, "16x16", "train_4k")
+    assert carry == 268_435_456
+    base, seq = seq_records[(ld, False)], seq_records[(ld, True)]
+    fall = base["memory"]["temp_bytes"] - seq["memory"]["temp_bytes"]
+    assert fall >= (3.5e9 if ld else 3.4e9), fall
+    assert fall <= cfg.num_layers * carry * 15 // 16, fall
+    assert seq["memory"]["argument_bytes"] == base["memory"]["argument_bytes"]
+
+
+@pytest.mark.parametrize("ld", [False, True], ids=["plain", "local_dispatch"])
+def test_seq_acts_adds_three_model_gathers_a_layer(seq_records, ld):
+    """Each layer's entry gather, again at the recompute, and its exit's
+    backward gather, plus the gather after the last layer and the
+    embedding's backward one: 3 L + 2 more "model" gathers of one whole
+    carry each; "data", the FLOPs and the all-reduces unchanged."""
+    cfg = get_config("olmoe_1b_7b")
+    carry = _carry_bytes(cfg, "16x16", "train_4k")
+    base, seq = seq_records[(ld, False)], seq_records[(ld, True)]
+    bm, sm = (r["collectives_by_axis"]["model"] for r in (base, seq))
+    n = 3 * cfg.num_layers + 2
+    assert sm["collectives"] == bm["collectives"] + n
+    assert sm["all-gather"] == bm["all-gather"] + n * carry
+    assert sm["all-reduce"] == bm["all-reduce"]
+    assert seq["collectives_by_axis"]["data"] == \
+        base["collectives_by_axis"]["data"]
+    assert seq["flops"] == base["flops"]
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "16x16"])
+@pytest.mark.parametrize("shape", ["decode_b32", "prefill_tiny"])
+def test_seq_acts_leaves_prefill_and_decode_unchanged(tiny, shape, mesh):
+    """Only the training forward reads ``act_seq_shard``: a prefill and a
+    decode record are the same numbers with and without ``seq_acts``."""
+    keep = ("flops", "bytes", "memory", "collectives",
+            "collectives_by_axis", "model_flops")
+    base, seq = (dryrun.run_one("olmoe_1b_7b", shape, mesh=mesh,
+                                save_dir=None, verbose=False, opts=opts)
+                 for opts in ((), ("seq_acts",)))
+    assert base["collectives"]["total"] > 0
+    assert {k: base[k] for k in keep} == {k: seq[k] for k in keep}

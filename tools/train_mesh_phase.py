@@ -3,8 +3,10 @@
 a fresh process: the CPU one-rank reference steps, then 4 gloo ranks
 sharing the card, each running the train step under a mesh (the reduced
 f32 cases on (1, 4), (2, 2) and (4, 1), with ZeRO-1 too on the last two,
-then the full-width bf16 cases on (2, 2) with ZeRO-1), then the phase's
-gates and its ``train_mesh:`` line. No kernel is built: training reaches none.
+and with the residual split along the sequence on (1, 4) and (2, 2), then
+the full-width bf16 cases on (2, 2) with ZeRO-1, qwen3_0p6b's first step
+also split), then the phase's gates and its ``train_mesh:`` line. No
+kernel is built: training reaches none.
 
     python3 tools/train_mesh_phase.py      # from the repository root
 """
